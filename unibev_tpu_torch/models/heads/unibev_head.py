@@ -1,0 +1,110 @@
+"""UniBEV detection head (DETR3D/BEVFormer-style, NMS-free), inference path.
+
+Counterpart of ``unibev_tpu/models/heads/unibev_head.py`` forward and
+``get_bboxes``: BEV query embedding, object query embedding, per-decoder-
+layer cls/reg branches (independent copies, box refinement), per-layer box
+decode against the layer's reference points, and NMS-free top-k on the last
+layer with z moved from the gravity center to the box bottom.  The loss and
+the Hungarian assigner come with training.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from unibev_tpu_torch.core.bbox.coders import NMSFreeCoder
+from unibev_tpu_torch.models.layers import (LearnedPositionalEncoding,
+                                            inverse_sigmoid, layer_norm)
+from unibev_tpu_torch.models.transformer_fusion import UniBEVTransformer
+from unibev_tpu_torch.registry import HEADS
+
+
+CODE_SIZE = 10    # (cx, cy, log w, log l, cz, log h, sin, cos, vx, vy)
+
+
+def cls_branch(dims: int, num_classes: int) -> nn.Sequential:
+    """[Linear, LayerNorm, ReLU] * 2 + Linear (reference indices 0,1,3,4,6)."""
+    layers = []
+    for _ in range(2):
+        layers += [nn.Linear(dims, dims), layer_norm(dims), nn.ReLU(inplace=True)]
+    return nn.Sequential(*layers, nn.Linear(dims, num_classes))
+
+
+def reg_branch(dims: int) -> nn.Sequential:
+    """[Linear, ReLU] * 2 + Linear (reference indices 0,2,4)."""
+    layers = []
+    for _ in range(2):
+        layers += [nn.Linear(dims, dims), nn.ReLU(inplace=True)]
+    return nn.Sequential(*layers, nn.Linear(dims, CODE_SIZE))
+
+
+@HEADS.register_module(name="UniBEV_Head")
+class UniBEVHead(nn.Module):
+
+    def __init__(self, num_classes: int = 10, in_channels: int = 256,
+                 num_query: int = 900, bev_h: int = 200, bev_w: int = 200,
+                 pc_range: Sequence[float] = (-54, -54, -5, 54, 54, 3),
+                 transformer: Optional[dict] = None,
+                 bbox_coder: Optional[dict] = None,
+                 positional_encoding: Optional[dict] = None):
+        super().__init__()
+        tcfg = {k: v for k, v in dict(transformer or {}).items() if k != "type"}
+        self.bev_h, self.bev_w = bev_h, bev_w
+        self.pc_range = tuple(pc_range)
+        self.transformer = UniBEVTransformer(
+            **{**tcfg, "embed_dims": tcfg.get("embed_dims", in_channels),
+               "bev_h": bev_h, "bev_w": bev_w})
+        pe = {k: v for k, v in dict(positional_encoding or {}).items() if k != "type"}
+        self.positional_encoding = LearnedPositionalEncoding(
+            num_feats=pe.get("num_feats", in_channels // 2),
+            row_num_embed=pe.get("row_num_embed", bev_h),
+            col_num_embed=pe.get("col_num_embed", bev_w))
+        self.bev_embedding = nn.Embedding(bev_h * bev_w, in_channels)
+        self.query_embedding = nn.Embedding(num_query, in_channels * 2)
+        num_layers = (tcfg.get("decoder") or {}).get("num_layers", 6)
+        self.cls_branches = nn.ModuleList(
+            [cls_branch(in_channels, num_classes) for _ in range(num_layers)])
+        self.reg_branches = nn.ModuleList(
+            [reg_branch(in_channels) for _ in range(num_layers)])
+        coder_cfg = {k: v for k, v in dict(bbox_coder or {}).items() if k != "type"}
+        coder_cfg.setdefault("pc_range", self.pc_range)
+        coder_cfg.setdefault("num_classes", num_classes)
+        self.coder = NMSFreeCoder(**coder_cfg)
+
+    def forward(self, img_feats, pts_feats, lidar2img,
+                img_shape) -> Dict[str, torch.Tensor]:
+        """Returns all_cls_scores (L, B, Q, ncls), all_bbox_preds (L, B, Q, 10),
+        bev_embed (B, HW, C) and sca_overflow (0-dim)."""
+        B = img_feats[0].shape[0]
+        bev_pos = self.positional_encoding(B, self.bev_h, self.bev_w)
+        bev_embed, states, _, refs, sca_overflow = self.transformer(
+            img_feats, pts_feats, self.bev_embedding.weight,
+            self.query_embedding.weight, bev_pos, lidar2img, img_shape,
+            reg_branches=self.reg_branches)
+
+        pr = self.pc_range
+        cls_all, bbox_all = [], []
+        for lvl in range(states.shape[0]):
+            reference = inverse_sigmoid(refs[lvl])
+            tmp = self.reg_branches[lvl](states[lvl])
+            xy = torch.sigmoid(tmp[..., 0:2] + reference[..., 0:2])
+            z = torch.sigmoid(tmp[..., 4:5] + reference[..., 2:3])
+            cx = xy[..., 0:1] * (pr[3] - pr[0]) + pr[0]
+            cy = xy[..., 1:2] * (pr[4] - pr[1]) + pr[1]
+            cz = z * (pr[5] - pr[2]) + pr[2]
+            bbox_all.append(torch.cat([cx, cy, tmp[..., 2:4], cz, tmp[..., 5:]],
+                                      dim=-1))
+            cls_all.append(self.cls_branches[lvl](states[lvl]))
+        return dict(all_cls_scores=torch.stack(cls_all),
+                    all_bbox_preds=torch.stack(bbox_all),
+                    bev_embed=bev_embed, sca_overflow=sca_overflow)
+
+    def get_bboxes(self, preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out = self.coder.decode(preds["all_cls_scores"], preds["all_bbox_preds"])
+        boxes = out["bboxes"].clone()
+        boxes[..., 2] -= 0.5 * boxes[..., 5]
+        out["bboxes"] = boxes
+        return out

@@ -1,0 +1,54 @@
+"""FPN image neck.
+
+Counterpart of ``unibev_tpu/models/necks/fpn.py::FPN``: lateral 1x1 convs, a
+nearest-neighbour top-down pathway, and 3x3 output convs, NCHW.  Module names
+are mmdet's (``lateral_convs.i.conv``, ``fpn_convs.i.conv``).  Every
+reference config runs one level from ``start_level`` 0; the extra strided
+output levels (``num_outs > len(in_channels)``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from torch import nn
+
+from unibev_tpu_torch.registry import NECKS
+
+
+class ConvModule(nn.Module):
+    """mmcv ConvModule without norm or activation: a conv under ``.conv``."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, padding: int = 0):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel_size, padding=padding)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+@NECKS.register_module(name="FPN")
+class FPN(nn.Module):
+
+    def __init__(self, in_channels: Sequence[int] = (2048,),
+                 out_channels: int = 256, num_outs: int = 1):
+        super().__init__()
+        self.in_channels = tuple(in_channels)
+        if num_outs != len(in_channels):
+            raise NotImplementedError("FPN: extra output levels are not yet ported")
+        self.lateral_convs = nn.ModuleList(
+            [ConvModule(c, out_channels, 1) for c in in_channels])
+        self.fpn_convs = nn.ModuleList(
+            [ConvModule(out_channels, out_channels, 3, padding=1)
+             for _ in in_channels])
+
+    def forward(self, inputs):
+        """inputs: tuple of NCHW maps, low to high stride."""
+        if len(inputs) != len(self.in_channels):
+            raise ValueError(f"FPN got {len(inputs)} inputs for {self.in_channels}")
+        laterals = [conv(x) for conv, x in zip(self.lateral_convs, inputs)]
+        for i in range(len(laterals) - 1, 0, -1):
+            up = laterals[i].repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+            h, w = laterals[i - 1].shape[2:]
+            laterals[i - 1] = laterals[i - 1] + up[:, :, :h, :w]
+        return tuple(conv(x) for conv, x in zip(self.fpn_convs, laterals))
