@@ -17,7 +17,20 @@ then, each phase printing one line (or a few) and raising on any failure:
      928x1600): launch counts of one forward, ms per sample (median of 10
      synchronized iterations after 3 warm-ups), peak memory, SCA overflow,
      finite boxes;
-  6. a torch.profiler breakdown of one forward by kernel.
+  6. a torch.profiler breakdown of one forward by kernel;
+  7. the backward kernels against their plain versions (autograd through
+     the plain forwards) at the flagship call sites, f32 (TF32 off) and
+     bf16, with both times: K3 msda_bwd and K4 dcn_bwd (each timed with the
+     K5 scatter-adds it ends in), and K5 scatter_add_rows alone on one chunk
+     of contribution rows per site;
+  8. one tiny camera-only train step on CUDA against the same step on the
+     CPU: losses, gradients and the parameters after the step;
+  9. the full-width flagship camera-only train step (float32 parameters,
+     bf16 autocast, GridMask and dropout on, AdamW): launch counts of one
+     step against the counts derived from the call sites, s/step (median of
+     10 after 3 warm-ups), peak memory, finite losses and grad norm, SCA
+     overflow, frozen parameters bit-identical after the steps;
+ 10. a torch.profiler breakdown of one train step by kernel.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Numbers are also written to
@@ -45,16 +58,30 @@ from unibev_tpu_torch.flagship import (build_flagship, build_model,  # noqa: E40
                                        tiny_model_cfg)
 from unibev_tpu_torch.ops import _build  # noqa: E402
 from unibev_tpu_torch.ops.deform_conv import (  # noqa: E402
-    deform_im2col, deform_im2col_reference, modulated_deform_conv2d,
-    modulated_deform_conv2d_reference)
-from unibev_tpu_torch.ops.msda import (ms_deform_attn,  # noqa: E402
+    deform_im2col, deform_im2col_backward, deform_im2col_reference,
+    modulated_deform_conv2d, modulated_deform_conv2d_reference, tap_interior)
+from unibev_tpu_torch.ops.msda import (cell_interior,  # noqa: E402
+                                       ms_deform_attn, ms_deform_attn_backward,
                                        ms_deform_attn_reference)
+from unibev_tpu_torch.ops.scatter import (bwd_chunks,  # noqa: E402
+                                          scatter_add_rows,
+                                          scatter_add_rows_reference)
+from unibev_tpu_torch.parallel.train_state import (make_optimizer,  # noqa: E402
+                                                   train_step)
 
 # Relative tolerances, on max |ref| (at least 1).  f32: kernel and plain
 # version sum the same terms in another order.  bf16: outputs are rounded to
 # bf16 (relative 2^-8), and the DCN product sums 9 * Cin rounded columns.
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 TINY_REL_TOL = 1e-3     # CPU vs CUDA through a depth-50 backbone, f32, TF32 off
+# Backwards: the same relative tolerances.  f32: float32 atomics sum the
+# contribution rows in no fixed order.  bf16: each contribution row is
+# rounded to bf16 before the float32 sum.  K5 alone: 1e-5 (atomic order).
+# d_loc and d_offset jump across cell edges, where the kernels and
+# grid_sample may round a position to different sides; they are compared at
+# points 1e-3 pixels or more inside a cell (cell_interior / tap_interior).
+BWD_REL_TOL = REL_TOL
+SCATTER_REL_TOL = 1e-5
 
 # (name, calls per flagship forward, B, V, Q, heads, D, levels, points)
 MSDA_SITES = [
@@ -93,17 +120,37 @@ def check(name, got, want, rel):
     return err
 
 
+def _plain_backward(fn, inputs, grad):
+    """A closure that runs only the backward of ``fn`` through autograd (the
+    plain versions' gradient), on a graph built once."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+
+def _msda_inputs(gen, B, V, Q, heads, D, levels, P, dtype):
+    L = len(levels)
+    value = torch.randn(B, V, heads, D, device="cuda", generator=gen).to(dtype)
+    loc = torch.rand(B, Q, heads, L, P, 2, device="cuda", generator=gen) * 1.2 - 0.1
+    attn = torch.softmax(torch.randn(B, Q, heads, L * P, device="cuda",
+                                     generator=gen), -1)
+    return value, loc, attn.view(B, Q, heads, L, P).to(dtype)
+
+
+def _dcn_inputs(gen, B, H, W, Cin, dtype):
+    x = torch.randn(B, H, W, Cin, device="cuda", generator=gen).to(dtype)
+    off = (torch.randn(B, H, W, 18, device="cuda", generator=gen) * 2).to(dtype)
+    mask = torch.rand(B, H, W, 9, device="cuda", generator=gen).to(dtype)
+    return x, off, mask
+
+
 def phase_msda(gen):
     print("phase 2: K1 msda_fwd vs ms_deform_attn_reference", flush=True)
     rec = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
     for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES:
-        L = len(levels)
         for dtype in (torch.float32, torch.bfloat16):
-            value = torch.randn(B, V, heads, D, device="cuda", generator=gen).to(dtype)
-            loc = torch.rand(B, Q, heads, L, P, 2, device="cuda", generator=gen) * 1.2 - 0.1
-            attn = torch.softmax(torch.randn(B, Q, heads, L * P, device="cuda",
-                                             generator=gen), -1)
-            attn = attn.view(B, Q, heads, L, P).to(dtype)
+            value, loc, attn = _msda_inputs(gen, B, V, Q, heads, D, levels, P,
+                                            dtype)
             got = ms_deform_attn(value, levels, loc, attn)
             want = ms_deform_attn_reference(value, levels, loc, attn)
             err = check(f"{name} {str(dtype)[6:]}", got, want, REL_TOL[dtype])
@@ -124,9 +171,7 @@ def phase_dcn(gen):
     rec = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
     for name, calls, B, H, W, Cin, Cout in DCN_SITES:
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(B, H, W, Cin, device="cuda", generator=gen).to(dtype)
-            off = (torch.randn(B, H, W, 18, device="cuda", generator=gen) * 2).to(dtype)
-            mask = torch.rand(B, H, W, 9, device="cuda", generator=gen).to(dtype)
+            x, off, mask = _dcn_inputs(gen, B, H, W, Cin, dtype)
             w = (torch.randn(9 * Cin, Cout, device="cuda", generator=gen)
                  * (9 * Cin) ** -0.5).to(dtype)
             tag = f"{name} {str(dtype)[6:]}"
@@ -213,29 +258,279 @@ def phase_flagship(iters=10):
     return model, batch, rec
 
 
+def phase_backward(gen):
+    print("phase 7: K3 msda_bwd, K4 dcn_bwd (with their K5 scatter-adds) and "
+          "K5 scatter_add_rows vs plain versions", flush=True)
+    recs = {k: dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
+            for k in ("msda_bwd", "dcn_bwd", "scatter_add_rows")}
+
+    def record(kernel, site, calls, ms, plain, err):
+        rec = recs[kernel]
+        rec["sites"][site] = dict(ms=ms, plain_ms=plain, calls=calls, err=err)
+        rec["ms"] += calls * ms
+        rec["plain_ms"] += calls * plain
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"  {kernel} {site} bf16: kernel {ms:.4f} ms, plain {plain:.4f} "
+              f"ms (x{calls} per train step)", flush=True)
+
+    def scatter_site(site, calls, M, L, tr):
+        idx = torch.randint(0, tr, (M,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        contrib = torch.randn(M, L, device="cuda", generator=gen).bfloat16()
+        err = check(f"{site} scatter", scatter_add_rows(idx, contrib, tr),
+                    scatter_add_rows_reference(idx, contrib, tr),
+                    SCATTER_REL_TOL)
+        record("scatter_add_rows", site, calls,
+               cuda_ms(lambda: scatter_add_rows(idx, contrib, tr), 20),
+               cuda_ms(lambda: scatter_add_rows_reference(idx, contrib, tr), 5),
+               err)
+
+    for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, attn = _msda_inputs(gen, B, V, Q, heads, D, levels, P,
+                                            dtype)
+            g = torch.randn(B, Q, heads * D, device="cuda", generator=gen).to(dtype)
+            got = ms_deform_attn_backward(value, levels, loc, attn, g)
+            plain = _plain_backward(
+                lambda v, l, a: ms_deform_attn_reference(v, levels, l, a),
+                (value, loc, attn), g)
+            interior = cell_interior(loc, levels)
+            errs = [check(f"{name} {str(dtype)[6:]} {n}", a * m, b * m,
+                          BWD_REL_TOL[dtype])
+                    for n, a, b, m in zip(("d_value", "d_loc", "d_attn"), got,
+                                          plain(), (1, interior, 1))]
+            print(f"  ({int((~interior).sum())} of {interior.numel()} points "
+                  f"on a cell edge left out of d_loc)", flush=True)
+            if dtype is torch.bfloat16:
+                record("msda_bwd", name, calls,
+                       cuda_ms(lambda: ms_deform_attn_backward(value, levels, loc,
+                                                               attn, g), 10),
+                       cuda_ms(plain, 3), max(errs))
+            del plain, got
+        chunk = bwd_chunks(B * Q, heads * len(levels) * P * 4 * D * 2)
+        scatter_site(name, calls * len(chunk), chunk[0][1] * heads * len(levels)
+                     * P * 4, D, B * V * heads)
+
+    for name, calls, B, H, W, Cin, _ in DCN_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, off, mask = _dcn_inputs(gen, B, H, W, Cin, dtype)
+            d_cols = torch.randn(B * H * W, 9 * Cin, device="cuda",
+                                 generator=gen).to(dtype)
+            got = deform_im2col_backward(x, off, mask, d_cols)
+            plain = _plain_backward(deform_im2col_reference, (x, off, mask),
+                                    d_cols)
+            interior = tap_interior(off)
+            errs = [check(f"{name} {str(dtype)[6:]} {n}", a * m, b * m,
+                          BWD_REL_TOL[dtype])
+                    for n, a, b, m in zip(("d_x", "d_offset", "d_mask"), got,
+                                          plain(), (1, interior, 1))]
+            print(f"  ({int((~interior).sum()) // 2} of {interior.numel() // 2} "
+                  f"taps on a cell edge left out of d_offset)", flush=True)
+            if dtype is torch.bfloat16:
+                record("dcn_bwd", name, calls,
+                       cuda_ms(lambda: deform_im2col_backward(x, off, mask,
+                                                              d_cols), 10),
+                       cuda_ms(plain, 3), max(errs))
+            del plain, got
+        chunk = bwd_chunks(B * H * W, 9 * 4 * Cin * 2)
+        scatter_site(name, calls * len(chunk), chunk[0][1] * 36, Cin, B * H * W)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def expected_train_launches():
+    """Kernel launches of one flagship C train step, from the call sites:
+    K1 once per MSDA call; K2 once per DCN call and once more in the
+    backbone's checkpoint recompute; K3 and K4 once per chunk of their
+    call's contribution rows (bf16, ops/scatter.py::bwd_chunks); K5 once
+    after each K3 or K4 launch."""
+    msda_bwd = sum(calls * len(bwd_chunks(B * Q, heads * len(lv) * P * 4 * D * 2))
+                   for _, calls, B, _, Q, heads, D, lv, P in MSDA_SITES)
+    dcn_bwd = sum(calls * len(bwd_chunks(B * H * W, 9 * 4 * Cin * 2))
+                  for _, calls, B, H, W, Cin, _ in DCN_SITES)
+    return dict(msda_fwd=sum(s[1] for s in MSDA_SITES), msda_bwd=msda_bwd,
+                dcn_im2col=2 * sum(s[1] for s in DCN_SITES), dcn_bwd=dcn_bwd,
+                scatter_add_rows=msda_bwd + dcn_bwd)
+
+
+def check_each(prefix, got, want, rel, floor=1e-12):
+    """Relative check per tensor, on each tensor's own max |want| (at least
+    ``floor``)."""
+    worst = 0.0
+    for name, w in want.items():
+        gv, wv = got[name].detach().float().cpu(), w.detach().float()
+        err = (gv - wv).abs().max().item()
+        scale = max(wv.abs().max().item(), floor)
+        if not err <= rel * scale:
+            raise AssertionError(f"{prefix} {name}: max_abs_err {err} > tol "
+                                 f"{rel * scale}")
+        worst = max(worst, err / scale)
+    print(f"  {prefix}: {len(want)} tensors, worst relative error {worst:.3e} "
+          f"(tol {rel})", flush=True)
+    return worst
+
+
+def phase_tiny_train():
+    print("phase 8: tiny C-only train step, CUDA kernels vs CPU plain versions",
+          flush=True)
+    cpu_model = build_model(tiny_model_cfg(), "cpu", seed=0, train=True).eval()
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    start = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    batch = tiny_batch(np.random.RandomState(0))
+    gpu_batch = {k: v.to("cuda") for k, v in batch.items()}
+    metrics = []
+    for model, b in ((cpu_model, batch), (gpu_model, gpu_batch)):
+        opt, sched = make_optimizer(model)
+        before = dict(_build.launches)
+        metrics.append(train_step(model, opt, sched, b))
+        torch.cuda.synchronize()
+    launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
+    if not {"msda_bwd", "dcn_bwd", "scatter_add_rows"} <= launched:
+        raise AssertionError(f"the tiny CUDA step launched only {launched}")
+    cpu_p = dict(cpu_model.named_parameters())
+    gpu_p = {n: p.detach().cpu() for n, p in gpu_model.named_parameters()}
+    grads = {n: p.grad for n, p in cpu_p.items() if p.grad is not None}
+    rec = dict(
+        losses=check_each("losses", metrics[1], metrics[0], TINY_REL_TOL),
+        grads=check_each("gradients", {n: gpu_model.get_parameter(n).grad
+                                       for n in grads}, grads, TINY_REL_TOL))
+    want, sure = {}, {}
+    for n, g in grads.items():
+        want[n] = cpu_p[n].detach() - start[n]
+        # Adam's first update is about lr * sign(grad) (+ the decay): compare
+        # it where the gradient check fixes the sign (|grad| above its own
+        # tolerance) and eps does not blur it (|grad| > 1e3 eps), and where
+        # both gradients are exactly 0 (decay only); a gradient that is zero
+        # up to rounding (the key bias of an attention, a sum of cancelling
+        # atomics) takes either sign
+        g, g_gpu = g.abs(), gpu_model.get_parameter(n).grad.cpu()
+        sure[n] = (((g > TINY_REL_TOL * g.max()) & (g > 1e-5))
+                   | ((g == 0) & (g_gpu == 0)))
+
+    def update_err(after):
+        """(worst error, its tensor) of the update ``after - start`` on the
+        sure elements, less one float32 spacing of the result (each device
+        rounds p + update to float32), relative to each tensor's largest CPU
+        update (about its lr)."""
+        worst = (0.0, None)
+        for n, w in want.items():
+            m = sure[n]
+            if m.any():
+                a = torch.maximum(after[n][m].abs(), cpu_p[n].detach()[m].abs())
+                ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+                err = ((after[n] - start[n] - w)[m].abs() - ulp).clamp_min(0)
+                rel = err.max().item() / w[m].abs().max().clamp_min(1e-30).item()
+                worst = max(worst, (rel, n), key=lambda t: t[0])
+        return worst
+
+    rec["updates"], where = update_err(gpu_p)
+    rec["updates_compared"] = sum(int(m.sum()) for m in sure.values())
+    rec["updates_total"] = sum(m.numel() for m in sure.values())
+    skipped = update_err(start)[0]
+    flipped = update_err({n: 2 * start[n] - gpu_p[n] for n in start})[0]
+    print(f"  updates (after - before): {rec['updates_compared']} of "
+          f"{rec['updates_total']} elements, worst relative error "
+          f"{rec['updates']:.3e} ({where}; tol {TINY_REL_TOL}); a skipped step "
+          f"scores {skipped:.3e}, a reversed one {flipped:.3e}", flush=True)
+    if not rec["updates"] <= TINY_REL_TOL:
+        m = sure[where]
+        i = ((gpu_p[where] - cpu_p[where].detach()).abs() * m).argmax()
+        raise AssertionError(
+            f"updates differ in {where}: {rec['updates']} > {TINY_REL_TOL}; at "
+            f"its worst element grad cpu {grads[where].flatten()[i].item()!r} "
+            f"cuda {gpu_model.get_parameter(where).grad.flatten()[i].item()!r}, "
+            f"update cpu {want[where].flatten()[i].item()!r} cuda "
+            f"{(gpu_p[where] - start[where]).flatten()[i].item()!r}")
+    if not min(skipped, flipped) > TINY_REL_TOL:
+        raise AssertionError("the update check passes a skipped or reversed step")
+    return rec
+
+
+def phase_flagship_train(iters=10):
+    print("phase 9: full-width flagship camera-only train step (f32 params, "
+          "bf16 autocast)", flush=True)
+    model = build_flagship(use_lidar=False, device="cuda", dtype=torch.bfloat16,
+                           seed=0, train=True)
+    batch = synthetic_batch(np.random.RandomState(0), device="cuda")
+    opt, sched = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    for _ in range(3):                                     # warm-up
+        train_step(model, opt, sched, batch, gen)
+    torch.cuda.synchronize()
+
+    for k in list(_build.launches):
+        _build.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics = train_step(model, opt, sched, batch, gen)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        train_step(model, opt, sched, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    s_step = float(np.median(times))
+    values = {k: float(v) for k, v in metrics.items()}
+    overflow = int(values.pop("sca_overflow"))
+    finite = all(np.isfinite(v) for v in values.values())
+    still = all(torch.equal(p, frozen[n]) for n, p in model.named_parameters()
+                if n in frozen)
+    expected = expected_train_launches()
+    rec = dict(s_per_step=s_step, s_min=min(times), s_max=max(times),
+               iters=iters, peak_bytes=peak, launches=launches,
+               expected_launches=expected, metrics=values,
+               sca_overflow=overflow, finite=finite,
+               frozen_params=len(frozen), frozen_unchanged=still)
+    print(f"  {s_step:.4f} s/step (median of {iters}; min {min(times):.4f}, "
+          f"max {max(times):.4f}); peak {peak / 2 ** 30:.2f} GiB; loss "
+          f"{values['loss']:.4f} grad_norm {values['grad_norm']:.4f}; "
+          f"sca_overflow {overflow}; {len(frozen)} frozen parameters "
+          f"unchanged {still}", flush=True)
+    print(f"  launches per step {launches} (expected {expected})", flush=True)
+    if launches != expected:
+        raise AssertionError(f"launches per step {launches} != {expected}")
+    if overflow != 0 or not finite or not still or not frozen:
+        raise AssertionError(f"bad flagship train step: {rec}")
+    return model, opt, sched, batch, gen, rec
+
+
 def _category(kernel_name):
     n = kernel_name.lower()
     if "msda_fwd" in n:
         return "K1 msda_fwd"
     if "dcn_im2col" in n:
         return "K2 dcn_im2col"
-    if "fprop" in n or "conv" in n or "addpadding" in n:
+    if "msda_bwd" in n:
+        return "K3 msda_bwd"
+    if "dcn_bwd" in n:
+        return "K4 dcn_bwd"
+    if "scatter_add_rows" in n:
+        return "K5 scatter_add_rows"
+    if "fprop" in n or "dgrad" in n or "wgrad" in n or "conv" in n \
+            or "addpadding" in n:
         return "convolution (cuDNN)"
     if "gemm" in n or "nvjet" in n or "cutlass" in n:
         return "matmul (cuBLAS)"
     return "elementwise, norms and other"
 
 
-def phase_profile(model, batch, wall_ms):
-    print("phase 6: torch.profiler breakdown of one forward (device kernels)",
-          flush=True)
+def _profile(run, wall_ms):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.predict(batch)
+        run()
         torch.cuda.synchronize()
+    # kernels only: the optimizer's record_function range ("Optimizer.step#
+    # AdamW.step") also shows as a device event and would count its kernels
+    # twice
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not e.key.startswith("Optimizer.")]
     if not events:
         raise AssertionError("the profiler recorded no device kernels")
     events.sort(key=lambda e: -e.self_device_time_total)
@@ -247,12 +542,24 @@ def phase_profile(model, batch, wall_ms):
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.3f} ms  {cat}", flush=True)
     idle = 1.0 - total_ms / wall_ms
-    print(f"  device busy {total_ms:.3f} ms of {wall_ms:.3f} ms/sample wall: "
+    print(f"  device busy {total_ms:.3f} ms of {wall_ms:.3f} ms wall: "
           f"idle share {idle:.3f}", flush=True)
     top = [dict(name=e.key[:120], calls=e.count,
-                device_ms=e.self_device_time_total / 1000) for e in events[:25]]
+                device_ms=e.self_device_time_total / 1000) for e in events[:30]]
     return dict(device_ms_total=total_ms, idle_share=idle, by_category=by_cat,
                 top=top)
+
+
+def phase_profile(model, batch, wall_ms):
+    print("phase 6: torch.profiler breakdown of one forward (device kernels)",
+          flush=True)
+    return _profile(lambda: model.predict(batch), wall_ms)
+
+
+def phase_profile_train(model, opt, sched, batch, gen, wall_ms):
+    print("phase 10: torch.profiler breakdown of one train step (device "
+          "kernels)", flush=True)
+    return _profile(lambda: train_step(model, opt, sched, batch, gen), wall_ms)
 
 
 def main():
@@ -280,6 +587,14 @@ def main():
     tiny = phase_tiny()
     model, batch, flagship = phase_flagship()
     prof = phase_profile(model, batch, flagship["ms_per_sample"])
+    del model, batch
+    torch.cuda.empty_cache()
+    bwd = phase_backward(gen)
+    tiny_train = phase_tiny_train()
+    model, opt, sched, batch, tgen, train = phase_flagship_train()
+    prof_train = phase_profile_train(model, opt, sched, batch, tgen,
+                                     1000 * train["s_per_step"])
+    steps = train["launches"]
 
     kernels = [
         dict(name="msda_fwd", route="cuda", source="unibev_tpu_torch/csrc/msda.cu",
@@ -293,6 +608,22 @@ def main():
              launches=flagship["launches"]["dcn_im2col"],
              max_abs_err=dcn["max_abs_err"], ms=dcn["ms"],
              plain_ms=dcn["plain_ms"]),
+        dict(name="msda_bwd", route="cuda", source="unibev_tpu_torch/csrc/msda.cu",
+             replaces="unibev_tpu/ops/msda_pallas.py:106",
+             launches=steps["msda_bwd"], max_abs_err=bwd["msda_bwd"]["max_abs_err"],
+             ms=bwd["msda_bwd"]["ms"], plain_ms=bwd["msda_bwd"]["plain_ms"]),
+        dict(name="dcn_bwd", route="cuda",
+             source="unibev_tpu_torch/csrc/deform_conv.cu",
+             replaces="unibev_tpu/ops/deform_conv.py:323",
+             launches=steps["dcn_bwd"], max_abs_err=bwd["dcn_bwd"]["max_abs_err"],
+             ms=bwd["dcn_bwd"]["ms"], plain_ms=bwd["dcn_bwd"]["plain_ms"]),
+        dict(name="scatter_add_rows", route="cuda",
+             source="unibev_tpu_torch/csrc/scatter.cu",
+             replaces="unibev_tpu/ops/scatter_pallas.py:60",
+             launches=steps["scatter_add_rows"],
+             max_abs_err=bwd["scatter_add_rows"]["max_abs_err"],
+             ms=bwd["scatter_add_rows"]["ms"],
+             plain_ms=bwd["scatter_add_rows"]["plain_ms"]),
     ]
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                   count=torch.cuda.device_count())
@@ -300,7 +631,9 @@ def main():
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
                        build_s=build_s, msda=msda, dcn=dcn, tiny=tiny,
-                       flagship=flagship, profile=prof, kernels=kernels,
+                       flagship=flagship, profile=prof, backward=bwd,
+                       tiny_train=tiny_train, train=train,
+                       profile_train=prof_train, kernels=kernels,
                        device=device), f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

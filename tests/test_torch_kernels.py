@@ -9,7 +9,13 @@ installed::
 Tolerances are relative to max |plain| (at least 1): f32 1e-4 for the
 DCN columns and product, 1e-5 for MSDA (the same terms summed in another
 order, TF32 off); bf16 2^-6 (outputs rounded to bf16, relative 2^-8, with
-margin).
+margin).  The backwards (K3, K4, each followed by the scatter-add K5) sum
+their contributions with float32 atomics in no fixed order: f32 1e-4, bf16
+2^-6 (each contribution row is rounded to bf16 before the sum).  The chunk
+budget is shrunk so that every backward runs several chunks.  d_loc and
+d_offset jump across cell edges, where the kernels and grid_sample may round
+a position to different sides: they are compared at points 1e-3 pixels or
+more inside a cell (``cell_interior`` / ``tap_interior``).
 """
 
 import numpy as np
@@ -17,11 +23,19 @@ import pytest
 import torch
 
 from torch_port_utils import cuda_device  # noqa: F401
-from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.ops import _build, scatter
 from unibev_tpu_torch.ops.deform_conv import (
-    deform_im2col, deform_im2col_reference, modulated_deform_conv2d,
-    modulated_deform_conv2d_reference)
-from unibev_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_reference
+    deform_im2col, deform_im2col_backward, deform_im2col_backward_reference,
+    deform_im2col_reference, modulated_deform_conv2d,
+    modulated_deform_conv2d_reference, tap_interior)
+from unibev_tpu_torch.ops.msda import (cell_interior, ms_deform_attn,
+                                       ms_deform_attn_backward,
+                                       ms_deform_attn_backward_reference,
+                                       ms_deform_attn_reference)
+from unibev_tpu_torch.ops.scatter import (scatter_add_rows,
+                                          scatter_add_rows_reference)
+
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
 pytestmark = pytest.mark.cuda
 
@@ -90,24 +104,120 @@ def test_dcn_kernel_matches_plain(cuda_device, stride, dtype, rel):
            rel)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scatter_kernel_matches_plain(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    M, L, tr = 5000, 96, 700
+    idx = torch.randint(0, tr, (M,), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    contrib = torch.randn(M, L, device=cuda_device, generator=g).to(dtype)
+    contrib[::7] = 0
+    before = _build.launches["scatter_add_rows"]
+    got = scatter_add_rows(idx, contrib, tr)
+    got = scatter_add_rows(idx, contrib, tr, out=got)
+    torch.cuda.synchronize()
+    assert _build.launches["scatter_add_rows"] == before + 2
+    want = scatter_add_rows_reference(idx, contrib, tr)
+    _close(got, 2 * want, 1e-5)
+
+
+@pytest.mark.parametrize("levels,P", [(((29, 50),), 8), (((29, 50), (7, 9)), 4),
+                                      (((200, 200),), 4)], ids=["sca", "L2", "bev"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_msda_backward_kernel_matches_plain(cuda_device, monkeypatch, levels,
+                                            P, dtype):
+    monkeypatch.setattr(scatter, "BWD_CHUNK_BYTES", 1e6)
+    value, loc, attn = _msda_inputs(cuda_device, dtype, levels, P)
+    loc[0, 0, 0, 0, 0] = float("nan")          # samples nothing, gets no grad
+    g = torch.randn(2, 300, 8 * 32, device=cuda_device).to(dtype)
+    before = _build.launches["msda_bwd"]
+    got = ms_deform_attn_backward(value, levels, loc, attn, g)
+    torch.cuda.synchronize()
+    assert _build.launches["msda_bwd"] > before + 1      # several chunks
+    assert got[1][0, 0, 0, 0, 0].abs().sum() == 0 and got[2][0, 0, 0, 0, 0] == 0
+    loc[0, 0, 0, 0, 0] = 5.0                   # as far out: the plain version's
+    want = ms_deform_attn_backward_reference(value, levels, loc, attn, g)
+    interior = cell_interior(loc, levels)
+    masks = (1, interior, 1)
+    for a, b, m, dt in zip(got, want, masks, (dtype, torch.float32, dtype)):
+        assert a.dtype == dt and a.shape == b.shape
+        _close(a * m, b * m, BWD_REL[dtype])
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dcn_backward_kernel_matches_plain(cuda_device, monkeypatch, stride,
+                                           dtype):
+    monkeypatch.setattr(scatter, "BWD_CHUNK_BYTES", 2e5)
+    x, off, mask, _ = _dcn_inputs(cuda_device, dtype, stride=stride)
+    d_cols = torch.randn(deform_im2col_reference(x, off, mask, stride=stride).shape,
+                         device=cuda_device).to(dtype)
+    before = _build.launches["dcn_bwd"]
+    got = deform_im2col_backward(x, off, mask, d_cols, stride=stride)
+    torch.cuda.synchronize()
+    assert _build.launches["dcn_bwd"] > before + 1       # several chunks
+    want = deform_im2col_backward_reference(x, off, mask, d_cols, stride=stride)
+    masks = (1, tap_interior(off, stride=stride), 1)
+    for a, b, m in zip(got, want, masks):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a * m, b * m, BWD_REL[dtype])
+
+
+def test_autograd_goes_through_the_kernels(cuda_device):
+    """Gradients of the ops on CUDA tensors (K1/K3/K5 and K2/K4/K5) against
+    autograd through the plain versions, f32."""
+    value, loc, attn = _msda_inputs(cuda_device, torch.float32, ((29, 50),), 8)
+    x, off, mask, w = _dcn_inputs(cuda_device, torch.float32, stride=1)
+    cases = [(ms_deform_attn, ms_deform_attn_reference, (value, loc, attn),
+              lambda f, a: f(a[0], ((29, 50),), a[1], a[2])),
+             (modulated_deform_conv2d, modulated_deform_conv2d_reference,
+              (x, off, mask, w), lambda f, a: f(*a))]
+    before = dict(_build.launches)
+    for kernel_fn, plain_fn, inputs, call in cases:
+        grads = []
+        for fn in (kernel_fn, plain_fn):
+            leaves = [t.detach().clone().requires_grad_() for t in inputs]
+            out = call(fn, leaves)
+            g = torch.ones_like(out).mul_(torch.arange(
+                out.shape[-1], device=out.device) % 3 - 1)
+            grads.append(torch.autograd.grad(out, leaves, g))
+        masks = [1] * len(inputs)
+        masks[1] = (cell_interior(loc, ((29, 50),)) if kernel_fn is ms_deform_attn
+                    else tap_interior(off))
+        for a, b, m in zip(*grads, masks):
+            _close(a * m, b * m, 1e-4)
+    torch.cuda.synchronize()
+    after = dict(_build.launches)
+    for k in ("msda_fwd", "msda_bwd", "dcn_im2col", "dcn_bwd",
+              "scatter_add_rows"):
+        assert after.get(k, 0) > before.get(k, 0), k
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     value, loc, attn = _msda_inputs(cuda_device, torch.float32, ((29, 50),), 8)
-    with pytest.raises(NotImplementedError):
-        ms_deform_attn(value.requires_grad_(), ((29, 50),), loc, attn)
-    value = value.detach()
     with pytest.raises(TypeError):
         ms_deform_attn(value.half(), ((29, 50),), loc, attn.half())
     with pytest.raises(ValueError):
         ms_deform_attn(value, ((29, 49),), loc, attn)
     with pytest.raises(ValueError):
         ms_deform_attn(value, ((29, 50),), loc.cpu(), attn)
+    with pytest.raises(ValueError):
+        ms_deform_attn_backward(value, ((29, 50),), loc, attn,
+                                torch.zeros(2, 300, 7, device=cuda_device))
     x, off, mask, _ = _dcn_inputs(cuda_device, torch.float32)
-    with pytest.raises(NotImplementedError):
-        deform_im2col(x.requires_grad_(), off, mask, stride=2)
     with pytest.raises(ValueError):
-        deform_im2col(x.detach(), off, mask, stride=1)
+        deform_im2col(x, off, mask, stride=1)
     with pytest.raises(ValueError):
-        deform_im2col(x.detach().transpose(1, 2), off, mask, stride=2)
+        deform_im2col(x.transpose(1, 2), off, mask, stride=2)
+    idx = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        scatter_add_rows(idx, torch.zeros(4, 8, device=cuda_device), 3)
+    with pytest.raises(ValueError):
+        scatter_add_rows(idx.int(), torch.zeros(4, 8, device=cuda_device), 3,
+                         out=torch.zeros(3, 8, device=cuda_device).double())
 
 
 def test_plain_versions_agree_with_themselves_on_cpu_and_card(cuda_device):

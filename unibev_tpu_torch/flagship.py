@@ -9,6 +9,13 @@ builds the camera-only (C) mode of it::
     model = build_flagship(use_lidar=False, device="cuda", dtype=torch.bfloat16)
     out = model.predict(synthetic_batch(np.random.RandomState(0), device="cuda"))
 
+and trains it (float32 parameters, bf16 compute under autocast)::
+
+    model = build_flagship(use_lidar=False, device="cuda", train=True)
+    opt, sched = make_optimizer(model)          # parallel/train_state.py
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    metrics = train_step(model, opt, sched, batch, gen)
+
 ``tiny_model_cfg`` / ``tiny_batch`` are a scaled-down C-only model and batch
 (2 cameras, 8x8 BEV, depth-50 backbone) for parity and smoke checks.
 """
@@ -121,23 +128,34 @@ def flagship_model_cfg(use_lidar=True, use_camera=True, dtype=torch.bfloat16):
     )
 
 
-def build_model(cfg: dict, device="cpu", seed: int = 0) -> UniBEV:
-    """UniBEV(**cfg) with seeded random weights, on ``device`` in cfg's dtype,
-    in eval mode with gradients off.  The backbone runs channels_last."""
+def build_model(cfg: dict, device="cpu", seed: int = 0,
+                train: bool = False) -> UniBEV:
+    """UniBEV(**cfg) with seeded random weights on ``device``; the backbone
+    runs channels_last.
+
+    Inference (``train=False``): parameters in cfg's dtype, eval mode,
+    gradients off.  Training: parameters stay float32 (compute in cfg's dtype
+    comes from autocast in the train step), train mode, gradients on except
+    for the backbone's frozen stages.
+    """
     with torch.device("meta"):
         model = UniBEV(**cfg)
     model = model.to_empty(device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
-    model = model.to(dtype=cfg.get("dtype", torch.float32))
+    if not train:
+        model = model.to(dtype=cfg.get("dtype", torch.float32))
     model.img_backbone.to(memory_format=torch.channels_last)
+    if train:
+        return model.requires_grad_(True).train()
     return model.eval().requires_grad_(False)
 
 
 def build_flagship(device="cuda", dtype=torch.bfloat16, seed: int = 0,
-                   **kwargs) -> UniBEV:
+                   train: bool = False, **kwargs) -> UniBEV:
     """The flagship model with seeded random weights; this slice needs
     ``use_lidar=False`` (camera-only)."""
-    return build_model(flagship_model_cfg(dtype=dtype, **kwargs), device, seed)
+    return build_model(flagship_model_cfg(dtype=dtype, **kwargs), device, seed,
+                       train)
 
 
 def synthetic_batch(rng: np.random.RandomState, B=1, N=6, H=928, W=1600,
@@ -220,13 +238,20 @@ def tiny_model_cfg():
             positional_encoding=dict(num_feats=dim // 2, row_num_embed=8,
                                      col_num_embed=8),
             pc_range=TINY_PC_RANGE),
+        train_cfg=dict(pts=dict(assigner=dict(
+            cls_cost=dict(type="FocalLossCost", weight=2.0),
+            reg_cost=dict(type="BBox3DL1CostBEVFormer", weight=0.25)))),
     )
 
 
-def tiny_batch(rng: np.random.RandomState, B=1, N=2, device="cpu"):
-    """Camera inputs for :func:`tiny_model_cfg`: images (B, N, 64, 96, 3) and
-    the tests' pinhole ``lidar2img`` (cameras 90 degrees apart)."""
+def tiny_batch(rng: np.random.RandomState, B=1, N=2, G=6, device="cpu"):
+    """The tests' tiny batch without its LiDAR points: images
+    (B, N, 64, 96, 3), the pinhole ``lidar2img`` (cameras 90 degrees apart)
+    and G ground-truth boxes, the last two padding.  The same draws from
+    ``rng`` as the JAX package's tests (the points are drawn and dropped)."""
     img = rng.randn(B, N, 64, 96, 3).astype(np.float32)
+    rng.uniform(-9, 9, (B, 1024, 5))
+    rng.uniform(-1.8, 1.8, (B, 1024))
     l2i = np.zeros((B, N, 4, 4), np.float32)
     for n in range(N):
         K = np.array([[60., 0., 48., 0.], [0., 60., 32., 0.],
@@ -237,5 +262,12 @@ def tiny_batch(rng: np.random.RandomState, B=1, N=2, device="cpu"):
                               [0, 0, -1],
                               [np.sin(th), np.cos(th), 0]], np.float32)
         l2i[:, n] = K @ R
-    return dict(img=torch.from_numpy(img).to(device),
-                lidar2img=torch.from_numpy(l2i).to(device))
+    gt = rng.randn(B, G, 9).astype(np.float32)
+    gt[..., :2] *= 5
+    gt[..., 3:6] = np.abs(gt[..., 3:6]) + 0.5
+    labels = rng.randint(0, 10, (B, G))
+    valid = np.ones((B, G), bool)
+    valid[:, -2:] = False
+    arrays = dict(img=img, lidar2img=l2i, gt_bboxes=gt, gt_labels=labels,
+                  gt_valid=valid)
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}

@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from unibev_tpu_torch.models.layers import dropout
 from unibev_tpu_torch.ops.msda import ms_deform_attn
 from unibev_tpu_torch.registry import ATTENTION
 
@@ -54,7 +55,8 @@ class _SamplingHeads(nn.Module):
 
     def project(self, query, value, spatial_shapes):
         """-> value (B, V, heads, D), offsets (B, Q, heads, L, P, 2) in
-        normalized float32 units, weights (B, Q, heads, L, P)."""
+        normalized float32 units, weights (B, Q, heads, L, P) in value's
+        dtype (under autocast the softmax runs in float32)."""
         B, Q, _ = query.shape
         h, L, P = self.num_heads, self.num_levels, self.num_points
         v = self.value_proj(value).view(value.shape[0], -1, h,
@@ -68,13 +70,14 @@ class _SamplingHeads(nn.Module):
             offsets[:, :, :, lvl, :, 1].div_(H)
         weights = self.attention_weights(query).view(B, Q, h, L * P)
         weights = torch.softmax(weights, dim=-1).view(B, Q, h, L, P)
-        return v.contiguous(), offsets, weights
+        return v.contiguous(), offsets, weights.to(v.dtype)
 
 
 @ATTENTION.register_module(name="MultiScaleDeformableAttention")
 class MSDAttention(_SamplingHeads):
     """mmcv MultiScaleDeformableAttention (TSA and decoder cross-attention):
-    value_proj, loc = ref + offsets / normalizer, MSDA, output_proj, + identity."""
+    value_proj, loc = ref + offsets / normalizer, MSDA, output_proj, dropout,
+    + identity."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 4):
@@ -92,7 +95,7 @@ class MSDAttention(_SamplingHeads):
         loc = reference_points.float()[:, :, None, :, None, :] + offsets
         out = ms_deform_attn(v, spatial_shapes, loc.contiguous(),
                              weights.contiguous())
-        return identity + self.output_proj(out)
+        return identity + dropout(self.output_proj(out), self.training)
 
 
 @ATTENTION.register_module(name="CustomMSDeformableAttention")
@@ -132,7 +135,8 @@ class SpatialCrossAttentionImg(nn.Module):
 
     Per camera, every BEV query attends into that camera's feature map at its
     projected pillar points; outputs are averaged over the cameras whose
-    frustum holds the pillar (the hit mask), projected, and added to the query.
+    frustum holds the pillar (the hit mask), projected, dropped out and added
+    to the query.
     ``rebatch_k`` > 0 runs only the top-K hit queries of each camera; 0 runs
     the masked dense form.
     """
@@ -185,4 +189,4 @@ class SpatialCrossAttentionImg(nn.Module):
             slots = (out.view(B, N, Q, C) * hit[..., None]).sum(dim=1)
 
         slots = slots / count[..., None]
-        return self.output_proj(slots) + query
+        return dropout(self.output_proj(slots), self.training) + query

@@ -7,6 +7,13 @@ names are mmdet's, so the reference checkpoint's ``img_backbone.*`` keys load
 as they are.  Inputs and outputs are NCHW tensors; run the module in
 ``torch.channels_last`` so that the NHWC view the deformable im2col reads
 costs no copy.
+
+Training: ``frozen_stages`` (mmcv's ``_freeze_stages``, re-applied by
+``train()``) turns gradients off for the stem and ``layer1..frozen_stages``
+and detaches their outputs, as the JAX package's ``stop_gradient`` does;
+``with_cp`` checkpoints every trainable bottleneck
+(``torch.utils.checkpoint``, non-reentrant), so its activations are
+recomputed in the backward, as the JAX package's remat does.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unibev_tpu_torch.ops.deform_conv import modulated_deform_conv2d
 from unibev_tpu_torch.registry import BACKBONES
@@ -112,13 +120,16 @@ class ResNet(nn.Module):
     """Caffe-style ResNet with frozen BN and optional DCNv2 stages (NCHW)."""
 
     def __init__(self, depth: int = 101, num_stages: int = 4,
-                 out_indices: Sequence[int] = (3,), style: str = "caffe",
+                 out_indices: Sequence[int] = (3,), frozen_stages: int = -1,
+                 style: str = "caffe", with_cp: bool = False,
                  stage_with_dcn: Sequence[bool] = (False, False, False, False),
                  dcn: Optional[dict] = None):
         super().__init__()
         if style != "caffe":
             raise NotImplementedError(f"ResNet style={style!r} is not ported")
         self.out_indices = tuple(out_indices)
+        self.frozen_stages = frozen_stages
+        self.with_cp = with_cp
         deform_groups = (dcn or {}).get("deform_groups", 1)
         self.conv1 = _conv(3, 64, 7, 2, 3)
         self.bn1 = FrozenBatchNorm(64)
@@ -137,13 +148,31 @@ class ResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.frozen_stages >= 0:
+            for m in [self.conv1, self.bn1] + [
+                    getattr(self, f"layer{i}")
+                    for i in range(1, self.frozen_stages + 1)]:
+                m.requires_grad_(False)
+        return self
+
     def forward(self, x):
         """x (B, 3, H, W) -> tuple of the stage outputs at out_indices."""
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        if self.frozen_stages >= 0:
+            x = x.detach()
         outs = []
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            frozen = stage + 1 <= self.frozen_stages
+            for block in getattr(self, f"layer{stage + 1}"):
+                if self.with_cp and not frozen and torch.is_grad_enabled():
+                    x = checkpoint(block, x, use_reentrant=False)
+                else:
+                    x = block(x)
+            if frozen:
+                x = x.detach()
             if stage in self.out_indices:
                 outs.append(x)
         return tuple(outs)

@@ -4,8 +4,8 @@ Counterpart of ``unibev_tpu/models/decoder.py``.  Per layer: MHA self-
 attention over the object queries, CustomMSDeformableAttention into the fused
 BEV map at the xy of the (sigmoid-space) reference points, FFN; then the
 layer's reg branch refines xy (dims 0:2) and z (reg dim 4 -> ref dim 2) in
-inverse-sigmoid space and re-sigmoids.  Inference only, so the reference's
-detach is implicit.
+inverse-sigmoid space, re-sigmoids and detaches (the JAX package's
+stop_gradient).  Dropout sits in the MHA, the cross-attention and the FFN.
 """
 
 from __future__ import annotations
@@ -76,5 +76,6 @@ class DetectionTransformerDecoder(nn.Module):
                 tmp = reg_branches[lid](query)
                 xy = tmp[..., 0:2] + inverse_sigmoid(reference_points[..., 0:2])
                 z = tmp[..., 4:5] + inverse_sigmoid(reference_points[..., 2:3])
-                reference_points = torch.sigmoid(torch.cat([xy, z], dim=-1))
+                reference_points = torch.sigmoid(
+                    torch.cat([xy, z], dim=-1)).detach()
         return torch.stack(states), torch.stack(refs)

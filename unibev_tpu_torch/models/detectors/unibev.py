@@ -1,10 +1,16 @@
 """UniBEV detector, camera branch: images -> ResNet -> FPN -> fused BEV head.
 
-Counterpart of ``unibev_tpu/models/detectors/unibev.py`` for camera-only (C)
-inference.  The batch keeps the JAX package's static-shape contract:
-``img`` (B, N, H, W, 3) float and ``lidar2img`` (B, N, 4, 4); other keys are
-ignored.  The LiDAR and radar branches and GridMask (train only) are not
-ported yet: ``use_lidar=True`` or ``use_radar=True`` raises.
+Counterpart of ``unibev_tpu/models/detectors/unibev.py`` for the camera-only
+(C) mode, inference and training.  The batch keeps the JAX package's
+static-shape contract: ``img`` (B, N, H, W, 3) float and ``lidar2img``
+(B, N, 4, 4), and for the loss ``gt_bboxes`` (B, G, 9), ``gt_labels`` (B, G)
+and ``gt_valid`` (B, G); other keys are ignored.
+
+``train()`` mode is the JAX package's ``train=True``: GridMask on the images
+and dropout in the transformer, both drawn from the ``generator`` handed to
+``forward``.  In C mode the modality flags are fixed, so there is no
+modality dropout.  The LiDAR and radar branches are not ported yet:
+``use_lidar=True`` or ``use_radar=True`` raises.
 """
 
 from __future__ import annotations
@@ -15,7 +21,9 @@ import torch
 from torch import nn
 
 from unibev_tpu_torch.models.backbones.resnet import ResNet
+from unibev_tpu_torch.models.gridmask import grid_mask
 from unibev_tpu_torch.models.heads.unibev_head import UniBEVHead
+from unibev_tpu_torch.models.layers import rng
 from unibev_tpu_torch.models.necks.fpn import FPN
 from unibev_tpu_torch.registry import DETECTORS
 
@@ -44,8 +52,8 @@ class UniBEV(nn.Module):
                  test_cfg: Optional[dict] = None,
                  img_shape: Tuple[int, int] = (900, 1600),
                  dtype: torch.dtype = torch.float32):
-        # The pts_*/radar_* configs, GridMask and train_cfg belong to parts
-        # not yet ported; they are accepted so the JAX config dicts build.
+        # The pts_*/radar_* configs belong to parts not yet ported; they are
+        # accepted so the JAX config dicts build.
         super().__init__()
         if use_lidar or use_radar:
             raise NotImplementedError(
@@ -55,12 +63,15 @@ class UniBEV(nn.Module):
             raise ValueError("the camera-only detector needs use_camera=True")
         self.img_shape = tuple(img_shape)
         self.compute_dtype = dtype
+        self.use_grid_mask = use_grid_mask
 
         cfg = _clean(img_backbone)
         self.img_backbone = ResNet(
             depth=cfg.get("depth", 101), num_stages=cfg.get("num_stages", 4),
             out_indices=tuple(cfg.get("out_indices", (3,))),
+            frozen_stages=cfg.get("frozen_stages", 1),
             style=cfg.get("style", "caffe"),
+            with_cp=cfg.get("with_cp", False),
             stage_with_dcn=tuple(cfg.get("stage_with_dcn", (False,) * 4)),
             dcn=cfg.get("dcn"))
         ncfg = _clean(img_neck)
@@ -78,21 +89,40 @@ class UniBEV(nn.Module):
             bev_h=hcfg.get("bev_h", 200), bev_w=hcfg.get("bev_w", 200),
             transformer=hcfg.get("transformer"),
             bbox_coder=hcfg.get("bbox_coder"),
-            positional_encoding=hcfg.get("positional_encoding"))
+            positional_encoding=hcfg.get("positional_encoding"),
+            loss_cls=hcfg.get("loss_cls"),
+            loss_bbox=hcfg.get("loss_bbox"),
+            train_cfg=(train_cfg or {}).get("pts"))
 
-    def extract_img_feat(self, img: torch.Tensor):
+    def extract_img_feat(self, img: torch.Tensor,
+                         generator: Optional[torch.Generator] = None):
         """img (B, N, H, W, 3) -> list of (B, N, h, w, C)."""
         B, N, H, W, _ = img.shape
         # an NCHW view of NHWC memory: channels_last without a copy
-        x = img.reshape(B * N, H, W, 3).permute(0, 3, 1, 2).to(self.compute_dtype)
-        feats = self.img_neck(self.img_backbone(x))
+        x = img.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
+        if self.use_grid_mask and self.training:
+            if generator is None:
+                raise RuntimeError("a train-mode forward needs a generator")
+            x = grid_mask(x, generator)
+        feats = self.img_neck(self.img_backbone(x.to(self.compute_dtype)))
         return [f.permute(0, 2, 3, 1).reshape(B, N, f.shape[2], f.shape[3], -1)
                 for f in feats]
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        img_feats = self.extract_img_feat(batch["img"])
-        return self.pts_bbox_head(img_feats, None, batch["lidar2img"],
-                                  self.img_shape)
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The head's outputs.  In ``train()`` mode GridMask and dropout draw
+        from ``generator`` (on the batch's device), which is then required."""
+        with rng(generator):
+            img_feats = self.extract_img_feat(batch["img"], generator)
+            return self.pts_bbox_head(img_feats, None, batch["lidar2img"],
+                                      self.img_shape)
+
+    def loss(self, batch: Dict[str, torch.Tensor],
+             preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The head's losses against the batch's ground truth."""
+        return self.pts_bbox_head.loss(preds, batch["gt_bboxes"],
+                                       batch["gt_labels"], batch["gt_valid"])
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,11 @@
-"""UniBEV detection head (DETR3D/BEVFormer-style, NMS-free), inference path.
+"""UniBEV detection head (DETR3D/BEVFormer-style, NMS-free).
 
-Counterpart of ``unibev_tpu/models/heads/unibev_head.py`` forward and
-``get_bboxes``: BEV query embedding, object query embedding, per-decoder-
-layer cls/reg branches (independent copies, box refinement), per-layer box
-decode against the layer's reference points, and NMS-free top-k on the last
-layer with z moved from the gravity center to the box bottom.  The loss and
-the Hungarian assigner come with training.
+Counterpart of ``unibev_tpu/models/heads/unibev_head.py``: BEV query
+embedding, object query embedding, per-decoder-layer cls/reg branches
+(independent copies, box refinement), per-layer box decode against the
+layer's reference points, NMS-free top-k on the last layer with z moved from
+the gravity center to the box bottom, and the training loss (Hungarian
+assignment, sigmoid focal classification, L1 on normalized boxes).
 """
 
 from __future__ import annotations
@@ -15,10 +15,13 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from unibev_tpu_torch.core.bbox.assigners import HungarianAssigner3D
 from unibev_tpu_torch.core.bbox.coders import NMSFreeCoder
+from unibev_tpu_torch.core.bbox.util import normalize_bbox
 from unibev_tpu_torch.models.layers import (LearnedPositionalEncoding,
                                             inverse_sigmoid, layer_norm)
 from unibev_tpu_torch.models.transformer_fusion import UniBEVTransformer
+from unibev_tpu_torch.ops.losses import l1_loss, sigmoid_focal_loss
 from unibev_tpu_torch.registry import HEADS
 
 
@@ -49,8 +52,13 @@ class UniBEVHead(nn.Module):
                  pc_range: Sequence[float] = (-54, -54, -5, 54, 54, 3),
                  transformer: Optional[dict] = None,
                  bbox_coder: Optional[dict] = None,
-                 positional_encoding: Optional[dict] = None):
+                 positional_encoding: Optional[dict] = None,
+                 loss_cls: Optional[dict] = None,
+                 loss_bbox: Optional[dict] = None,
+                 train_cfg: Optional[dict] = None,
+                 code_weights: Sequence[float] = (1.0,) * 8 + (0.2, 0.2)):
         super().__init__()
+        self.num_classes = num_classes
         tcfg = {k: v for k, v in dict(transformer or {}).items() if k != "type"}
         self.bev_h, self.bev_w = bev_h, bev_w
         self.pc_range = tuple(pc_range)
@@ -73,6 +81,15 @@ class UniBEVHead(nn.Module):
         coder_cfg.setdefault("pc_range", self.pc_range)
         coder_cfg.setdefault("num_classes", num_classes)
         self.coder = NMSFreeCoder(**coder_cfg)
+        acfg = {k: v for k, v in dict((train_cfg or {}).get("assigner") or {}).items()
+                if k != "type"}
+        self.assigner = HungarianAssigner3D(**acfg)
+        lc = dict(loss_cls or {})
+        self.cls_weight = lc.get("loss_weight", 2.0)
+        self.focal_alpha = lc.get("alpha", 0.25)
+        self.focal_gamma = lc.get("gamma", 2.0)
+        self.bbox_weight = dict(loss_bbox or {}).get("loss_weight", 0.25)
+        self.code_weights = tuple(code_weights)
 
     def forward(self, img_feats, pts_feats, lidar2img,
                 img_shape) -> Dict[str, torch.Tensor]:
@@ -101,6 +118,57 @@ class UniBEVHead(nn.Module):
         return dict(all_cls_scores=torch.stack(cls_all),
                     all_bbox_preds=torch.stack(bbox_all),
                     bev_embed=bev_embed, sca_overflow=sca_overflow)
+
+    def loss(self, preds: Dict[str, torch.Tensor], gt_bboxes: torch.Tensor,
+             gt_labels: torch.Tensor, gt_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """gt_bboxes (B, G, 9); gt_labels (B, G); gt_valid (B, G) bool.
+
+        Every decoder layer is assigned at once (L * B problems, one host
+        transfer).  The average factor is the layer's matched count over the
+        batch, clamped at 1.  Keys: ``loss_cls`` / ``loss_bbox`` for the last
+        layer and ``d{l}.loss_cls`` / ``d{l}.loss_bbox`` for the others.
+        """
+        all_cls = preds["all_cls_scores"].float()
+        all_bbox = preds["all_bbox_preds"].float()
+        L, B, Q = all_cls.shape[:3]
+        flat_cls = all_cls.reshape(L * B, Q, -1)
+        flat_bbox = all_bbox.reshape(L * B, Q, -1)
+
+        def rep(x):
+            return x[None].expand(L, *x.shape).reshape(L * B, *x.shape[1:])
+
+        gt_b, gt_l = rep(gt_bboxes.float()), rep(gt_labels.long())
+        gt_inds, pos = self.assigner.assign(flat_bbox.detach(), flat_cls.detach(),
+                                            gt_b, gt_l, rep(gt_valid))
+        labels = torch.where(pos, torch.gather(gt_l, 1, gt_inds),
+                             self.num_classes)
+        norm_gt = normalize_bbox(gt_b)                          # (LB, G, 10)
+        targets = torch.gather(norm_gt, 1, gt_inds[..., None].expand(
+            L * B, Q, norm_gt.shape[-1]))
+        total_pos = pos.reshape(L, B * Q).sum(1).float().clamp(min=1.0)   # (L,)
+
+        cls_loss = sigmoid_focal_loss(flat_cls, labels, self.num_classes,
+                                      alpha=self.focal_alpha,
+                                      gamma=self.focal_gamma)
+        cls_losses = self.cls_weight * cls_loss.reshape(L, -1).sum(1) / total_pos
+
+        cw = torch.tensor(self.code_weights, dtype=torch.float32,
+                          device=flat_bbox.device)
+        # the reference's isnotnan guard (nuScenes velocities can be NaN);
+        # the guarded targets are zeroed first so that no NaN reaches the
+        # gradient either
+        finite = torch.isfinite(targets).all(-1, keepdim=True)
+        targets = torch.where(finite, targets, 0.0)
+        diff = l1_loss(flat_bbox, targets) * pos[..., None] * cw
+        diff = torch.where(finite, diff, 0.0)
+        bbox_losses = self.bbox_weight * diff.reshape(L, -1).sum(1) / total_pos
+
+        losses = {}
+        for lvl in range(L):
+            prefix = "" if lvl == L - 1 else f"d{lvl}."
+            losses[f"{prefix}loss_cls"] = cls_losses[lvl]
+            losses[f"{prefix}loss_bbox"] = bbox_losses[lvl]
+        return losses
 
     def get_bboxes(self, preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = self.coder.decode(preds["all_cls_scores"], preds["all_bbox_preds"])

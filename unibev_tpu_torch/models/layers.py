@@ -1,13 +1,21 @@
-"""Common building blocks: FFN, MultiheadAttention, LearnedPositionalEncoding.
+"""Common building blocks: FFN, MultiheadAttention, LearnedPositionalEncoding,
+and dropout drawn from an explicit generator.
 
 Counterpart of ``unibev_tpu/models/layers.py``.  Module attribute names follow
 the reference's mmcv bricks, so ``state_dict`` keys are the reference's:
 ``ffns.0.layers.0.0`` / ``ffns.0.layers.1`` for the FFN and
 ``attn.in_proj_weight`` / ``attn.out_proj`` for MultiheadAttention.
-Inference only: dropout is the identity and is left out.
+
+Dropout runs at the JAX package's sites, only in ``train()`` mode, and draws
+from the generator that :func:`rng` installs around a forward (the
+detector's ``forward(batch, generator)`` does); a train-mode forward without
+one raises.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 from torch import nn
@@ -16,6 +24,34 @@ from unibev_tpu_torch.registry import POSITIONAL_ENCODINGS
 
 # flax's LayerNorm epsilon, which every LayerNorm of the JAX package uses.
 LN_EPS = 1e-6
+# the dropout rate of every site on the camera path (the configs' 0.1)
+DROPOUT = 0.1
+
+_generator: contextvars.ContextVar = contextvars.ContextVar(
+    "unibev_dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def rng(generator):
+    """Draw the dropout masks of the forwards inside from ``generator``."""
+    token = _generator.set(generator)
+    try:
+        yield
+    finally:
+        _generator.reset(token)
+
+
+def dropout(x: torch.Tensor, training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: zero with probability :data:`DROPOUT`, scale the
+    rest by 1 / (1 - DROPOUT); the identity outside training."""
+    if not training:
+        return x
+    gen = _generator.get()
+    if gen is None:
+        raise RuntimeError("train-mode dropout needs a generator: run the "
+                           "forward inside layers.rng(generator)")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= DROPOUT
+    return x * keep.to(x.dtype) / (1.0 - DROPOUT)
 
 
 def layer_norm(dims: int) -> nn.LayerNorm:
@@ -23,7 +59,8 @@ def layer_norm(dims: int) -> nn.LayerNorm:
 
 
 class FFN(nn.Module):
-    """Transformer feed-forward block with residual add."""
+    """Transformer feed-forward block with residual add; dropout after the
+    activation and after the output projection."""
 
     def __init__(self, embed_dims: int, feedforward_channels: int):
         super().__init__()
@@ -33,7 +70,9 @@ class FFN(nn.Module):
             nn.Linear(feedforward_channels, embed_dims))
 
     def forward(self, x, identity=None):
-        return (x if identity is None else identity) + self.layers(x)
+        hidden = dropout(self.layers[0](x), self.training)
+        out = dropout(self.layers[1](hidden), self.training)
+        return (x if identity is None else identity) + out
 
 
 class _InProjAttention(nn.Module):
@@ -64,7 +103,8 @@ class _InProjAttention(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """Standard MHA with residual, (B, N, C) layout (decoder self-attention)."""
+    """Standard MHA with dropout and residual, (B, N, C) layout (decoder
+    self-attention)."""
 
     def __init__(self, embed_dims: int, num_heads: int = 8):
         super().__init__()
@@ -79,7 +119,7 @@ class MultiheadAttention(nn.Module):
             query = query + query_pos
         if key_pos is not None:
             key = key + key_pos
-        return identity + self.attn(query, key, value)
+        return identity + dropout(self.attn(query, key, value), self.training)
 
 
 @POSITIONAL_ENCODINGS.register_module()

@@ -1,19 +1,21 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``unibev_tpu_torch/csrc/*.cu`` file is compiled for Hopper (sm_90a) into
-one shared library with a plain C interface, ``build/kernels/
+Every ``unibev_tpu_torch/csrc/*.cu`` file is compiled for Hopper (sm_90a),
+one ``nvcc`` process per file, all started together, and the objects are
+linked into one shared library with a plain C interface, ``build/kernels/
 libunibev_kernels.so`` under the repository root, the first time a kernel is
-launched in a process.  The library is rebuilt when the sources or the flags
-change (a digest of both sits beside it).  There is no fallback: a failed
-build raises.
+launched in a process.  The library is rebuilt when the sources (``*.cu`` and
+the ``*.cuh`` headers they include) or the flags change (a digest of both
+sits beside it).  There is no fallback: a failed build raises.
 
 Each C entry point launches on the stream it is given and returns the
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero code
 into an exception.
 
 ``launches`` counts kernel launches by kernel name.  The wrappers in
-``ops/msda.py`` and ``ops/deform_conv.py`` add one where they launch and
-nowhere else, so a caller can show that a run went through the kernels.
+``ops/msda.py``, ``ops/deform_conv.py`` and ``ops/scatter.py`` add one where
+they launch and nowhere else, so a caller can show that a run went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -33,10 +35,11 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 LIB_NAME = "libunibev_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> argument types of the C entry point
 _SIGNATURES = {
     # value, loc, attn, out, B, V, Q, heads, D, L, P, shapes, dtype, stream
@@ -45,6 +48,16 @@ _SIGNATURES = {
     # dtype, stream
     "unibev_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
+    # value, loc, attn, grad, d_attn, d_loc, contrib, idx, B, V, Q, heads, D,
+    # L, P, shapes, r0, n_rows, dtype, stream
+    "unibev_msda_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P, _L, _L, _I, _P),
+    # x, offset, mask, d_cols, d_offset, d_mask, contrib, idx, B, H, W, Cin,
+    # Ho, Wo, Kh, Kw, stride, pad, dil, n0, n_pix, dtype, stream
+    "unibev_dcn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _L, _L, _I, _P),
+    # idx, contrib, table, M, L, tr, dtype, stream
+    "unibev_scatter_add_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 launches: Counter = Counter()
@@ -67,7 +80,7 @@ def _sources() -> list:
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sorted(sources + list(CSRC.glob("*.cuh"))):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()
@@ -82,12 +95,23 @@ def build() -> Path:
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    log = "".join(logs) + link.stdout + link.stderr
+    (BUILD_DIR / "nvcc.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if any(p.returncode for p in procs) or link.returncode:
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
     return lib_path

@@ -1,10 +1,14 @@
-"""Modulated deformable convolution (DCNv2): kernel wrapper and plain version.
+"""Modulated deformable convolution (DCNv2): kernel wrappers and plain versions.
 
 Counterpart of ``unibev_tpu/ops/deform_conv.py::modulated_deform_conv2d``
 (semantics from its ``_mdcn_clean``).  The deformable im2col runs in the CUDA
 kernel K2 (``csrc/deform_conv.cu::unibev_dcn_im2col``); the (K*Cin) x Cout
 product after it is a plain ``torch.matmul``, as the JAX package left it to
-XLA.
+XLA.  The gradient follows ``_mdcn_fast_bwd``: d_cols = g W^T and d_weight =
+cols^T g are ``torch.matmul``; kernel K4 (``csrc/deform_conv.cu::
+unibev_dcn_bwd``) turns d_cols into d_offset, d_mask and the d_x
+contribution rows, which the row scatter-add K5 (``ops/scatter.py``) sums,
+in chunks of output pixels.
 
 Each kernel tap moves to a fractional position ``(ho*stride - pad + ky*dil +
 dy, wo*stride - pad + kx*dil + dx)``, is sampled bilinearly with zero
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.ops.scatter import bwd_chunks, scatter_add_rows
 
 
 def _out_size(size, k, stride, padding, dilation):
@@ -71,11 +76,59 @@ def deform_im2col(x, offset, mask, kernel_size=(3, 3), stride=1, padding=1,
                         dilation)
 
 
-def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
+def tap_interior(offset: torch.Tensor, kernel_size=(3, 3), stride=1,
+                 padding=1, dilation=1, margin: float = 1e-3) -> torch.Tensor:
+    """(B, Ho, Wo, 2K) bool: the tap's sampling position lies more than
+    ``margin`` pixels from every cell edge (both entries of a tap alike).
+
+    d_offset jumps across cell edges, and a bf16 offset often puts a tap
+    exactly on one; the kernels and the grid_sample plain version round the
+    position differently, so comparisons of d_offset are made on interior
+    taps only.
+    """
+    B, Ho, Wo, _ = offset.shape
+    Kh, Kw = kernel_size
+    dev = offset.device
+    off = offset.double().reshape(B, Ho, Wo, Kh * Kw, 2)
+    ky, kx = torch.meshgrid(torch.arange(Kh, device=dev),
+                            torch.arange(Kw, device=dev), indexing="ij")
+    sy = (torch.arange(Ho, device=dev)[:, None, None] * stride - padding
+          + ky.reshape(-1) * dilation) + off[..., 0]
+    sx = (torch.arange(Wo, device=dev)[:, None] * stride - padding
+          + kx.reshape(-1) * dilation) + off[..., 1]
+    inside = ((sy - sy.round()).abs() > margin) & ((sx - sx.round()).abs() > margin)
+    return inside[..., None].expand(B, Ho, Wo, Kh * Kw, 2).reshape(B, Ho, Wo, -1)
+
+
+def deform_im2col_backward_reference(x, offset, mask, d_cols,
+                                     kernel_size=(3, 3), stride=1, padding=1,
+                                     dilation=1):
+    """Plain version of the im2col's backward: autograd through
+    :func:`deform_im2col_reference`.  Returns (d_x, d_offset, d_mask)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, offset, mask)]
+        cols = deform_im2col_reference(*inputs, kernel_size, stride, padding,
+                                       dilation)
+        return torch.autograd.grad(cols, inputs, d_cols)
+
+
+def deform_im2col_backward(x, offset, mask, d_cols, kernel_size=(3, 3),
+                           stride=1, padding=1, dilation=1):
+    """(d_x, d_offset, d_mask) of :func:`deform_im2col` for ``d_cols``
+    (B*Ho*Wo, K*Cin); CPU tensors take the plain version, CUDA tensors
+    kernels K4 and K5.  All three in x's dtype."""
+    if x.device.type == "cpu":
+        return deform_im2col_backward_reference(x, offset, mask, d_cols,
+                                                kernel_size, stride, padding,
+                                                dilation)
+    return _dcn_bwd_cuda(x, offset, mask, d_cols, tuple(kernel_size), stride,
+                         padding, dilation)
+
+
+def _check(x, offset, mask, kernel_size, stride, padding, dilation):
+    """Validate the kernels' inputs; returns (B, H, W, Cin, Ho, Wo) and the
+    dtype code."""
     tensors = (x, offset, mask)
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "deform_im2col: the CUDA kernel is forward-only (inference)")
     if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
         raise ValueError("deform_im2col: all tensors must be on one CUDA device")
     if x.device.index != torch.cuda.current_device():
@@ -96,8 +149,15 @@ def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
         raise TypeError("deform_im2col: offset and mask must have x's dtype")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("deform_im2col: the kernel takes contiguous tensors")
+    return (B, H, W, Cin, Ho, Wo), code
 
-    cols = torch.empty((B * Ho * Wo, K * Cin), dtype=x.dtype, device=x.device)
+
+def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
+    (B, H, W, Cin, Ho, Wo), code = _check(x, offset, mask, kernel_size,
+                                          stride, padding, dilation)
+    Kh, Kw = kernel_size
+    cols = torch.empty((B * Ho * Wo, Kh * Kw * Cin), dtype=x.dtype,
+                       device=x.device)
     err = _build.lib().unibev_dcn_im2col(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
         B, H, W, Cin, Ho, Wo, Kh, Kw, stride, padding, dilation, code,
@@ -105,6 +165,69 @@ def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
     _build.check(err, "dcn_im2col")
     _build.launches["dcn_im2col"] += 1
     return cols
+
+
+def _dcn_bwd_cuda(x, offset, mask, d_cols, kernel_size, stride, padding,
+                  dilation):
+    (B, H, W, Cin, Ho, Wo), code = _check(x, offset, mask, kernel_size,
+                                          stride, padding, dilation)
+    Kh, Kw = kernel_size
+    K = Kh * Kw
+    N = B * Ho * Wo
+    if d_cols.shape != (N, K * Cin):
+        raise ValueError(f"d_cols must be {(N, K * Cin)}, got {tuple(d_cols.shape)}")
+    d_cols = d_cols.to(x.dtype).contiguous()
+    d_offset = torch.empty_like(offset)
+    d_mask = torch.empty_like(mask)
+    tr = B * H * W
+    table = torch.zeros((tr, Cin), dtype=torch.float32, device=x.device)
+    rows_per_pixel = K * 4                  # one row per (tap, corner)
+    chunks = bwd_chunks(N, rows_per_pixel * Cin * x.element_size())
+    most = max(n for _, n in chunks) * rows_per_pixel
+    contrib = torch.empty((most, Cin), dtype=x.dtype, device=x.device)
+    idx = torch.empty((most,), dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n0, n in chunks:
+        err = _build.lib().unibev_dcn_bwd(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), d_cols.data_ptr(),
+            d_offset.data_ptr(), d_mask.data_ptr(), contrib.data_ptr(),
+            idx.data_ptr(), B, H, W, Cin, Ho, Wo, Kh, Kw, stride, padding,
+            dilation, n0, n, code, stream)
+        _build.check(err, "dcn_bwd")
+        _build.launches["dcn_bwd"] += 1
+        m = n * rows_per_pixel
+        scatter_add_rows(idx[:m], contrib[:m], tr, out=table)
+    d_x = table.view(B, H, W, Cin).to(x.dtype)
+    return d_x, d_offset, d_mask
+
+
+class _DCNFunction(torch.autograd.Function):
+    """K2 + matmul forward; matmuls + K4 + K5 backward (``_mdcn_fast_bwd``).
+    The columns are saved for d_weight; under the backbone's checkpointing
+    they are dropped after the forward and rebuilt (K2 again) by the
+    recompute, as the JAX package recomputes them with its remat."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, offset, mask, weight, kernel_size, stride, padding,
+                dilation):
+        cols = _im2col_cuda(x, offset, mask, kernel_size, stride, padding,
+                            dilation)
+        ctx.geometry = (kernel_size, stride, padding, dilation)
+        ctx.save_for_backward(x, offset, mask, weight, cols)
+        B, Ho, Wo = offset.shape[:3]
+        return torch.matmul(cols, weight).view(B, Ho, Wo, -1)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        x, offset, mask, weight, cols = ctx.saved_tensors
+        g = grad_out.reshape(cols.shape[0], -1).to(cols.dtype)
+        d_cols = torch.matmul(g, weight.t())
+        d_weight = torch.matmul(cols.t(), g)
+        d_x, d_offset, d_mask = _dcn_bwd_cuda(x, offset, mask, d_cols,
+                                              *ctx.geometry)
+        return d_x, d_offset, d_mask, d_weight, None, None, None, None
 
 
 def _conv_from_cols(cols, weight, bias, shape):
@@ -125,11 +248,17 @@ def modulated_deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
 
     x (B, H, W, Cin); offset (B, Ho, Wo, 2*Kh*Kw) with (dy, dx) per tap;
     mask (B, Ho, Wo, Kh*Kw), already sigmoid-ed; weight (Kh*Kw*Cin, Cout)
-    tap-major; bias (Cout,) or None.  Returns (B, Ho, Wo, Cout).
+    tap-major; bias (Cout,) or None.  Returns (B, Ho, Wo, Cout).  On CPU
+    tensors the plain versions run (and autograd goes through them); on CUDA
+    kernel K2, with the K4 + K5 backward.
     """
-    cols = deform_im2col(x, offset, mask, kernel_size, stride, padding,
-                         dilation)
-    return _conv_from_cols(cols, weight, bias, offset.shape[:3])
+    if x.device.type == "cpu":
+        cols = deform_im2col_reference(x, offset, mask, kernel_size, stride,
+                                       padding, dilation)
+        return _conv_from_cols(cols, weight, bias, offset.shape[:3])
+    out = _DCNFunction.apply(x, offset, mask, weight.to(x.dtype),
+                             tuple(kernel_size), stride, padding, dilation)
+    return out if bias is None else out + bias.to(out.dtype)
 
 
 def modulated_deform_conv2d_reference(x, offset, mask, weight, bias=None,

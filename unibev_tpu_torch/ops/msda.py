@@ -1,4 +1,4 @@
-"""Multi-scale deformable attention (MSDA): kernel wrapper and plain version.
+"""Multi-scale deformable attention (MSDA): kernel wrappers and plain versions.
 
 Counterpart of ``unibev_tpu/ops/msda.py::ms_deform_attn`` and of the Pallas
 kernel ``unibev_tpu/ops/msda_pallas.py::ms_deform_attn_smallv``.  Both JAX
@@ -6,6 +6,11 @@ routes compute one function, which the CUDA kernel K1
 (``csrc/msda.cu::unibev_msda_fwd``) computes for every call site of the slice:
 temporal self-attention and decoder cross-attention over the 200x200 BEV map,
 and the camera cross-attention over the small per-camera maps.
+
+The gradient is a ``torch.autograd.Function`` whose backward is kernel K3
+(``csrc/msda.cu::unibev_msda_bwd``: d_attn, d_loc and the d_value
+contribution rows) followed by the row scatter-add K5 (``ops/scatter.py``),
+in chunks of queries, as ``_slab_level_op2_bwd`` of the JAX package does.
 
 Semantics are the reference's ``multi_scale_deformable_attn_pytorch``:
 locations in [0, 1] over each level's (W, H), bilinear sampling with
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.ops.scatter import bwd_chunks, scatter_add_rows
 
 MAX_LEVELS = 8   # csrc/msda.cu kMaxLevels
 
@@ -54,28 +60,91 @@ def ms_deform_attn_reference(value: torch.Tensor,
     return out.to(value.dtype)
 
 
+def cell_interior(sampling_locations: torch.Tensor,
+                  spatial_shapes: Sequence[Tuple[int, int]],
+                  margin: float = 1e-3) -> torch.Tensor:
+    """(B, Q, heads, L, P, 1) bool: the point lies more than ``margin``
+    pixels from every cell edge of its level.
+
+    The bilinear gradient d_loc jumps across cell edges.  Two correct
+    implementations that round the pixel coordinate differently (the kernels
+    compute ``loc * W - 0.5``, grid_sample ``((2 loc - 1 + 1) * W - 1) / 2``)
+    can put a point that lies on an edge on either side, so comparisons of
+    d_loc are made on interior points only.
+    """
+    size = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float64,
+                        device=sampling_locations.device)         # (L, 2)
+    pix = sampling_locations.double() * size[:, None, :] - 0.5
+    return ((pix - pix.round()).abs() > margin).all(-1, keepdim=True)
+
+
+def ms_deform_attn_backward_reference(value, spatial_shapes, sampling_locations,
+                                      attention_weights, grad_out):
+    """Plain version of the backward: autograd through
+    :func:`ms_deform_attn_reference`.  Returns (d_value, d_loc, d_attn)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_()
+                  for t in (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_reference(inputs[0], spatial_shapes, inputs[1],
+                                       inputs[2])
+        return torch.autograd.grad(out, inputs, grad_out)
+
+
 def ms_deform_attn(value: torch.Tensor,
                    spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
-    """MSDA forward; CPU tensors take the plain version, CUDA tensors kernel K1.
+    """MSDA forward; CPU tensors take the plain version, CUDA tensors kernel
+    K1, with the K3 + K5 backward.
 
-    Same layouts as :func:`ms_deform_attn_reference`.  On CUDA the kernel
-    takes value in bfloat16 or float32, locations in float32 and attention
+    Same layouts as :func:`ms_deform_attn_reference`.  On CUDA the kernels
+    take value in bfloat16 or float32, locations in float32 and attention
     weights in value's dtype, all contiguous; anything else raises.
     """
     if value.device.type == "cpu":
         return ms_deform_attn_reference(value, spatial_shapes,
                                         sampling_locations, attention_weights)
-    return _msda_cuda(value, tuple(tuple(s) for s in spatial_shapes),
-                      sampling_locations, attention_weights)
+    return _MSDAFunction.apply(value, tuple(tuple(s) for s in spatial_shapes),
+                               sampling_locations, attention_weights)
 
 
-def _msda_cuda(value, spatial_shapes, loc, attn):
+def ms_deform_attn_backward(value, spatial_shapes, sampling_locations,
+                            attention_weights, grad_out):
+    """(d_value, d_loc, d_attn) of :func:`ms_deform_attn` for ``grad_out``
+    (B, Q, heads * D); CPU tensors take the plain version, CUDA tensors
+    kernels K3 and K5.  d_loc is float32, the others in their input's dtype."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_backward_reference(
+            value, spatial_shapes, sampling_locations, attention_weights,
+            grad_out)
+    return _msda_bwd_cuda(value, tuple(tuple(s) for s in spatial_shapes),
+                          sampling_locations, attention_weights, grad_out)
+
+
+class _MSDAFunction(torch.autograd.Function):
+    """K1 forward, K3 + K5 backward.  Autocast is declared but casts nothing:
+    locations must stay float32 (a bf16 location is off by up to half a cell
+    on a 200-cell map)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, value, spatial_shapes, loc, attn):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, attn)
+        return _msda_cuda(value, spatial_shapes, loc, attn)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        d_value, d_loc, d_attn = _msda_bwd_cuda(value, ctx.spatial_shapes, loc,
+                                                attn, grad_out)
+        return d_value, None, d_loc, d_attn
+
+
+def _check(value, spatial_shapes, loc, attn):
+    """Validate the kernels' inputs; returns the shapes and the C arguments."""
     tensors = (value, loc, attn)
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ms_deform_attn: the CUDA kernel is forward-only (inference)")
     if any(t.device != value.device for t in tensors) or value.device.type != "cuda":
         raise ValueError("ms_deform_attn: all tensors must be on one CUDA device")
     if value.device.index != torch.cuda.current_device():
@@ -109,6 +178,12 @@ def _msda_cuda(value, spatial_shapes, loc, attn):
         starts.append(starts[-1] + h * w)
     shapes = (ctypes.c_int * (3 * L))(
         *[v for (h, w), s in zip(spatial_shapes, starts) for v in (h, w, s)])
+    return (B, V, Q, heads, D, L, P), shapes, code
+
+
+def _msda_cuda(value, spatial_shapes, loc, attn):
+    (B, V, Q, heads, D, L, P), shapes, code = _check(value, spatial_shapes,
+                                                     loc, attn)
     out = torch.empty((B, Q, heads * D), dtype=value.dtype, device=value.device)
     err = _build.lib().unibev_msda_fwd(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
@@ -117,3 +192,34 @@ def _msda_cuda(value, spatial_shapes, loc, attn):
     _build.check(err, "msda_fwd")
     _build.launches["msda_fwd"] += 1
     return out
+
+
+def _msda_bwd_cuda(value, spatial_shapes, loc, attn, grad_out):
+    (B, V, Q, heads, D, L, P), shapes, code = _check(value, spatial_shapes,
+                                                     loc, attn)
+    if grad_out.shape != (B, Q, heads * D):
+        raise ValueError(f"grad_out must be {(B, Q, heads * D)}, "
+                         f"got {tuple(grad_out.shape)}")
+    grad_out = grad_out.to(value.dtype).contiguous()
+    d_attn = torch.empty_like(attn)
+    d_loc = torch.empty_like(loc)
+    tr = B * V * heads
+    table = torch.zeros((tr, D), dtype=torch.float32, device=value.device)
+    rows_per_query = heads * L * P * 4      # one row per (head, point, corner)
+    chunks = bwd_chunks(B * Q, rows_per_query * D * value.element_size())
+    most = max(n for _, n in chunks) * rows_per_query
+    contrib = torch.empty((most, D), dtype=value.dtype, device=value.device)
+    idx = torch.empty((most,), dtype=torch.int32, device=value.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for r0, n in chunks:
+        err = _build.lib().unibev_msda_bwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            grad_out.data_ptr(), d_attn.data_ptr(), d_loc.data_ptr(),
+            contrib.data_ptr(), idx.data_ptr(), B, V, Q, heads, D, L, P,
+            ctypes.addressof(shapes), r0, n, code, stream)
+        _build.check(err, "msda_bwd")
+        _build.launches["msda_bwd"] += 1
+        m = n * rows_per_query
+        scatter_add_rows(idx[:m], contrib[:m], tr, out=table)
+    d_value = table.view(B, V, heads, D).to(value.dtype)
+    return d_value, d_loc, d_attn

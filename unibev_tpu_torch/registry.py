@@ -54,3 +54,6 @@ TRANSFORMER_LAYER_SEQUENCES = Registry("transformer_layer_sequences")
 ATTENTION = Registry("attention")
 POSITIONAL_ENCODINGS = Registry("positional_encodings")
 BBOX_CODERS = Registry("bbox_coders")
+BBOX_ASSIGNERS = Registry("bbox_assigners")
+MATCH_COSTS = Registry("match_costs")
+LOSSES = Registry("losses")
