@@ -30,7 +30,22 @@ then, each phase printing one line (or a few) and raising on any failure:
      step against the counts derived from the call sites, s/step (median of
      10 after 3 warm-ups), peak memory, finite losses and grad norm, SCA
      overflow, frozen parameters bit-identical after the steps;
- 10. a torch.profiler breakdown of one train step by kernel.
+ 10. a torch.profiler breakdown of one train step by kernel;
+ 11. the voxelizer's time on the synthetic batch's 300k points, and the
+     sparse-conv kernels against their plain versions at every flagship
+     LiDAR site, on the active sets and rulebooks of the voxelized synthetic
+     batch: K6 sparse_nbr exactly, K7 sparse_conv in f32 (TF32 off) and
+     bf16, with both times;
+ 12. the tiny LC model in LC and L mode: CUDA with the kernels against the
+     CPU with the plain versions, same weights and inputs;
+ 13. full-width flagship LC predict in bf16 (6 cameras at 928x1600 and 300k
+     points): launch counts of one forward (18 K1, 26 K2, 8 K6, 21 K7), ms
+     per sample (median of 10 after 3 warm-ups), peak memory, SCA overflow,
+     finite boxes, and, printed, the voxels before the cap and each strided
+     conv's overflow;
+ 14. L predict on the same model (the batch without images): launch counts
+     (12 K1, 0 K2, 8 K6, 21 K7) and ms per sample;
+ 15. torch.profiler breakdowns of one LC and one L forward by kernel.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Numbers are also written to
@@ -53,9 +68,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from unibev_tpu_torch.flagship import (build_flagship, build_model,  # noqa: E402
-                                       synthetic_batch, tiny_batch,
-                                       tiny_model_cfg)
+from unibev_tpu_torch.flagship import (PC_RANGE,  # noqa: E402
+                                       VOXEL_SIZE, build_flagship,
+                                       build_model, synthetic_batch,
+                                       tiny_batch, tiny_model_cfg)
 from unibev_tpu_torch.ops import _build  # noqa: E402
 from unibev_tpu_torch.ops.deform_conv import (  # noqa: E402
     deform_im2col, deform_im2col_backward, deform_im2col_reference,
@@ -66,6 +82,10 @@ from unibev_tpu_torch.ops.msda import (cell_interior,  # noqa: E402
 from unibev_tpu_torch.ops.scatter import (bwd_chunks,  # noqa: E402
                                           scatter_add_rows,
                                           scatter_add_rows_reference)
+from unibev_tpu_torch.ops.sparse_conv import (  # noqa: E402
+    SparseGrid, build_table, downsample_with_table, sparse_conv,
+    sparse_conv_reference, sparse_nbr, sparse_nbr_reference)
+from unibev_tpu_torch.ops.voxelize import voxelize_and_encode  # noqa: E402
 from unibev_tpu_torch.parallel.train_state import (make_optimizer,  # noqa: E402
                                                    train_step)
 
@@ -83,11 +103,16 @@ TINY_REL_TOL = 1e-3     # CPU vs CUDA through a depth-50 backbone, f32, TF32 off
 BWD_REL_TOL = REL_TOL
 SCATTER_REL_TOL = 1e-5
 
-# (name, calls per flagship forward, B, V, Q, heads, D, levels, points)
+# (name, calls per flagship forward, B, V, Q, heads, D, levels, points):
+# the camera-only path's sites (forward and train step), then the LiDAR
+# cross-attention's, which LC adds (forward only)
 MSDA_SITES = [
     ("tsa", 3, 1, 40000, 40000, 8, 32, ((200, 200),), 4),
     ("camera_sca", 3, 6, 1450, 10240, 8, 32, ((29, 50),), 8),
     ("decoder_ca", 6, 1, 40000, 900, 8, 32, ((200, 200),), 4),
+]
+LIDAR_MSDA_SITES = [
+    ("pts_sca", 3, 1, 32400, 40000, 8, 32, ((180, 180),), 8),
 ]
 # (name, calls per flagship forward, B, H, W, Cin, Cout)
 DCN_SITES = [
@@ -147,7 +172,7 @@ def _dcn_inputs(gen, B, H, W, Cin, dtype):
 def phase_msda(gen):
     print("phase 2: K1 msda_fwd vs ms_deform_attn_reference", flush=True)
     rec = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
-    for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES:
+    for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES + LIDAR_MSDA_SITES:
         for dtype in (torch.float32, torch.bfloat16):
             value, loc, attn = _msda_inputs(gen, B, V, Q, heads, D, levels, P,
                                             dtype)
@@ -499,6 +524,211 @@ def phase_flagship_train(iters=10):
     return model, opt, sched, batch, gen, rec
 
 
+# The flagship LiDAR branch (unibev_tpu_torch/flagship.py): voxel grid,
+# SparseEncoder widths, strided paddings and row capacities.
+VOXEL_GRID = (1440, 1440, 40)
+SPARSE_SHAPE = (41, 1440, 1440)
+ENCODER_CHANNELS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128))
+DOWN_PADDINGS = ((1, 1, 1), (1, 1, 1), (0, 1, 1))
+CAPACITIES = (120000, 90000, 60000, 40000)
+
+
+def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
+                sparse_shape=SPARSE_SHAPE, capacities=CAPACITIES):
+    """The flagship LiDAR branch's rulebooks on one cloud, as the
+    SparseEncoder builds them: (K6 sites, K7 sites, counts).
+
+    A K6 site is (name, sparse_nbr arguments); a K7 site is (name, calls per
+    forward, Cin, Cout, rows of its input, rulebook, output mask).  The
+    counts are the voxels before the cap and each strided conv's overflow.
+    """
+    mask = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
+    vox = voxelize_and_encode(points, mask, *voxel, capacities[0])
+    zero = torch.zeros_like(vox.coords[:, :1])
+    coords = torch.where(vox.mask[:, None], torch.cat([zero, vox.coords], 1), -1)
+    grid = SparseGrid(coords.contiguous(), vox.mask, sparse_shape, 1)
+    table = build_table(grid)
+    k6, k7, overflow = [], [], []
+
+    def subm(i, grid, table):
+        args = (table, grid.coords.shape[0], grid.shape, grid.coords,
+                grid.mask, (3, 3, 3), (1, 1, 1), (1, 1, 1))
+        k6.append((f"subm{i}", args))
+        return sparse_nbr_reference(*args)
+
+    def strided(name, grid, table, kernel, stride, padding, capacity):
+        out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                          zip(grid.shape, padding, kernel, stride))
+        co, mo, table_out, over = downsample_with_table(
+            grid, table, kernel, stride, padding, out_shape, capacity)
+        args = (table, grid.coords.shape[0], grid.shape, co, mo, kernel,
+                stride, padding)
+        k6.append((name, args))
+        overflow.append(int(over))
+        return (SparseGrid(co, mo, out_shape, 1), table_out,
+                sparse_nbr_reference(*args))
+
+    nidx = subm(0, grid, table)
+    c0 = ENCODER_CHANNELS[0][0]
+    k7.append(("conv_input", 1, 5, c0, grid.coords.shape[0], nidx, grid.mask))
+    k7.append(("subm0", 4, c0, c0, grid.coords.shape[0], nidx, grid.mask))
+    for i, pad in enumerate(DOWN_PADDINGS):
+        rows = grid.coords.shape[0]
+        grid, table, sidx = strided(f"down{i}", grid, table, (3, 3, 3),
+                                    (2, 2, 2), pad, capacities[i + 1])
+        cin, cout = ENCODER_CHANNELS[i][1], ENCODER_CHANNELS[i][2]
+        k7.append((f"down{i}", 1, cin, cout, rows, sidx, grid.mask))
+        nidx = subm(i + 1, grid, table)
+        k7.append((f"subm{i + 1}", 4, cout, cout, grid.coords.shape[0], nidx,
+                   grid.mask))
+    rows = grid.coords.shape[0]
+    grid, _, sidx = strided("conv_out", grid, table, (3, 1, 1), (2, 1, 1),
+                            (0, 0, 0), capacities[-1])
+    k7.append(("conv_out", 1, 128, 128, rows, sidx, grid.mask))
+    counts = dict(num_distinct_voxels=int(vox.num_distinct),
+                  num_voxels=int(vox.num_voxels), sparse_overflow=overflow)
+    return k6, k7, counts
+
+
+def phase_sparse(gen):
+    print("phase 11: K6 sparse_nbr and K7 sparse_conv vs their plain versions "
+          "at the flagship LiDAR sites", flush=True)
+    points = synthetic_batch(np.random.RandomState(0), device="cuda")["points"][0]
+    k6, k7, counts = lidar_sites(points)
+    mask = torch.ones(points.shape[0], dtype=torch.bool, device="cuda")
+    counts["voxelizer_ms"] = cuda_ms(lambda: voxelize_and_encode(
+        points, mask, VOXEL_SIZE, PC_RANGE, VOXEL_GRID, CAPACITIES[0]), 10)
+    print(f"  voxelized synthetic batch: {counts}", flush=True)
+    rec6 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
+    for name, args in k6:
+        got, want = sparse_nbr(*args), sparse_nbr_reference(*args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 {name}: {int((got != want).sum())} "
+                                 f"entries differ from the plain version")
+        ms = cuda_ms(lambda: sparse_nbr(*args), 20)
+        plain = cuda_ms(lambda: sparse_nbr_reference(*args), 5)
+        live = int((want < args[1]).sum())
+        print(f"  K6 {name}: {tuple(want.shape)} equal ({live} live entries); "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
+        rec6["sites"][name] = dict(ms=ms, plain_ms=plain, calls=1,
+                                   shape=list(want.shape), live=live)
+        rec6["ms"] += ms
+        rec6["plain_ms"] += plain
+    rec7 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
+    for name, calls, cin, cout, rows, nidx, mask in k7:
+        K = nidx.shape[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = torch.randn(rows, cin, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(K * cin, cout, device="cuda", generator=gen)
+                 * (K * cin) ** -0.5).to(dtype)
+            err = check(f"K7 {name} {str(dtype)[6:]}", sparse_conv(feats, nidx, w, mask),
+                        sparse_conv_reference(feats, nidx, w, mask), REL_TOL[dtype])
+            if dtype is torch.bfloat16:
+                ms = cuda_ms(lambda: sparse_conv(feats, nidx, w, mask), 10)
+                plain = cuda_ms(lambda: sparse_conv_reference(feats, nidx, w, mask), 5)
+                print(f"  K7 {name} bf16 ({nidx.shape[0]} x {K} taps, {cin} -> "
+                      f"{cout}): kernel {ms:.4f} ms, plain {plain:.4f} ms "
+                      f"(x{calls} per forward)", flush=True)
+                rec7["sites"][name] = dict(ms=ms, plain_ms=plain, calls=calls,
+                                           err=err)
+                rec7["ms"] += calls * ms
+                rec7["plain_ms"] += calls * plain
+                rec7["max_abs_err"] = max(rec7["max_abs_err"], err)
+    del k6, k7
+    torch.cuda.empty_cache()
+    return rec6, rec7, counts
+
+
+def phase_tiny_lc():
+    print("phase 12: tiny LC model in LC and L mode, CUDA kernels vs CPU plain "
+          "versions", flush=True)
+    cpu_model = build_model(tiny_model_cfg(use_lidar=True), "cpu", seed=0)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    full = tiny_batch(np.random.RandomState(0))
+    rec = {}
+    for mode, drop in (("LC", ()), ("L", ("img",))):
+        batch = {k: v for k, v in full.items() if k not in drop}
+        gpu_batch = {k: v.to("cuda") for k, v in batch.items()}
+        before = dict(_build.launches)
+        with torch.inference_mode():
+            want, got = cpu_model(batch), gpu_model(gpu_batch)
+        launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
+        if not {"sparse_nbr", "sparse_conv", "msda_fwd"} <= launched:
+            raise AssertionError(f"tiny {mode} on CUDA launched only {launched}")
+        for k in ("all_cls_scores", "all_bbox_preds"):
+            rec[f"{mode} {k}"] = check(f"{mode} {k}", got[k].cpu(), want[k],
+                                       TINY_REL_TOL)
+        if not torch.equal(got["sparse_overflow"].cpu(), want["sparse_overflow"]):
+            raise AssertionError(f"{mode}: sparse overflow differs")
+        want, got = cpu_model.predict(batch), gpu_model.predict(gpu_batch)
+        if not torch.equal(got["labels"].cpu(), want["labels"]):
+            raise AssertionError(f"{mode}: decoded labels differ between CUDA and CPU")
+        for k in ("scores", "bboxes"):
+            rec[f"{mode} {k}"] = check(f"{mode} decoded {k}", got[k].cpu(),
+                                       want[k], TINY_REL_TOL)
+    return rec
+
+
+def _predict_run(model, batch, iters, expected, label):
+    """Launch counts of one predict (asserted against ``expected``), peak
+    memory, and ms per sample (median of ``iters`` after 3 warm-ups)."""
+    for _ in range(3):                                     # warm-up
+        model.predict(batch)
+    torch.cuda.synchronize()
+    for k in list(_build.launches):
+        _build.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = model.predict(batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        model.predict(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000
+                     / batch["points"].shape[0])
+    ms = float(np.median(times))
+    boxes, scores = out["bboxes"], out["scores"]
+    finite = bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all())
+    rec = dict(ms_per_sample=ms, ms_min=min(times), ms_max=max(times),
+               iters=iters, peak_bytes=peak, launches=launches,
+               sca_overflow=int(out["sca_overflow"]), boxes_finite=finite,
+               boxes_shape=list(boxes.shape), n_valid=int(out["valid"].sum()),
+               num_distinct_voxels=out["num_distinct_voxels"].tolist(),
+               sparse_overflow=out["sparse_overflow"].tolist())
+    print(f"  {label}: {ms:.2f} ms/sample (median of {iters}; min "
+          f"{min(times):.2f}, max {max(times):.2f}); peak "
+          f"{peak / 2 ** 30:.2f} GiB; launches per forward {launches}; "
+          f"sca_overflow {rec['sca_overflow']}; boxes finite {finite} "
+          f"{tuple(boxes.shape)}; voxels before the cap "
+          f"{rec['num_distinct_voxels']}, strided-conv overflow "
+          f"{rec['sparse_overflow']}", flush=True)
+    if launches != expected:
+        raise AssertionError(f"{label}: expected launches {expected}, got {launches}")
+    if rec["sca_overflow"] != 0 or not finite or tuple(boxes.shape) != (1, 300, 9):
+        raise AssertionError(f"bad flagship {label} output: {rec}")
+    return rec
+
+
+def phase_flagship_lc(iters=10):
+    print("phase 13: full-width flagship LC predict, bf16", flush=True)
+    model = build_flagship(device="cuda", dtype=torch.bfloat16, seed=0)
+    batch = synthetic_batch(np.random.RandomState(0), device="cuda")
+    rec = _predict_run(model, batch, iters, dict(
+        msda_fwd=18, dcn_im2col=26, sparse_nbr=8, sparse_conv=21), "LC")
+    return model, batch, rec
+
+
+def phase_flagship_l(model, batch, iters=10):
+    print("phase 14: L predict on the same model (no images), bf16", flush=True)
+    batch = {k: v for k, v in batch.items() if k != "img"}
+    return batch, _predict_run(model, batch, iters, dict(
+        msda_fwd=12, sparse_nbr=8, sparse_conv=21), "L")
+
+
+
 def _category(kernel_name):
     n = kernel_name.lower()
     if "msda_fwd" in n:
@@ -511,6 +741,16 @@ def _category(kernel_name):
         return "K4 dcn_bwd"
     if "scatter_add_rows" in n:
         return "K5 scatter_add_rows"
+    if "sparse_nbr" in n:
+        return "K6 sparse_nbr"
+    if "sparse_conv" in n:
+        return "K7 sparse_conv"
+    if "sort" in n:
+        return "sort (voxelizer, SCA top-K order)"
+    if "index" in n or "scatter" in n or "scan" in n or "cum" in n:
+        return "index_add, index_copy, scatter, scans"
+    if "pool" in n:
+        return "max pooling (ResNet stem, strided active sets)"
     if "fprop" in n or "dgrad" in n or "wgrad" in n or "conv" in n \
             or "addpadding" in n:
         return "convolution (cuDNN)"
@@ -556,6 +796,16 @@ def phase_profile(model, batch, wall_ms):
     return _profile(lambda: model.predict(batch), wall_ms)
 
 
+def phase_profile_lidar(model, lc_batch, l_batch, lc_ms, l_ms):
+    print("phase 15: torch.profiler breakdowns of one LC and one L forward "
+          "(device kernels; in L the convolutions are SECOND's and "
+          "SECONDFPN's alone)", flush=True)
+    print("  LC:", flush=True)
+    lc = _profile(lambda: model.predict(lc_batch), lc_ms)
+    print("  L:", flush=True)
+    return lc, _profile(lambda: model.predict(l_batch), l_ms)
+
+
 def phase_profile_train(model, opt, sched, batch, gen, wall_ms):
     print("phase 10: torch.profiler breakdown of one train step (device "
           "kernels)", flush=True)
@@ -595,17 +845,26 @@ def main():
     prof_train = phase_profile_train(model, opt, sched, batch, tgen,
                                      1000 * train["s_per_step"])
     steps = train["launches"]
+    del model, opt, sched, batch, tgen
+    torch.cuda.empty_cache()
+    k6, k7, lidar_counts = phase_sparse(gen)
+    tiny_lc = phase_tiny_lc()
+    model, batch, lc = phase_flagship_lc()
+    l_batch, l_only = phase_flagship_l(model, batch)
+    prof_lc, prof_l = phase_profile_lidar(model, batch, l_batch,
+                                          lc["ms_per_sample"],
+                                          l_only["ms_per_sample"])
 
     kernels = [
         dict(name="msda_fwd", route="cuda", source="unibev_tpu_torch/csrc/msda.cu",
              replaces="unibev_tpu/ops/msda_pallas.py:213",
-             launches=flagship["launches"]["msda_fwd"],
+             launches=lc["launches"]["msda_fwd"],
              max_abs_err=msda["max_abs_err"], ms=msda["ms"],
              plain_ms=msda["plain_ms"]),
         dict(name="dcn_im2col", route="cuda",
              source="unibev_tpu_torch/csrc/deform_conv.cu",
              replaces="unibev_tpu/ops/deform_conv.py:442",
-             launches=flagship["launches"]["dcn_im2col"],
+             launches=lc["launches"]["dcn_im2col"],
              max_abs_err=dcn["max_abs_err"], ms=dcn["ms"],
              plain_ms=dcn["plain_ms"]),
         dict(name="msda_bwd", route="cuda", source="unibev_tpu_torch/csrc/msda.cu",
@@ -624,6 +883,16 @@ def main():
              max_abs_err=bwd["scatter_add_rows"]["max_abs_err"],
              ms=bwd["scatter_add_rows"]["ms"],
              plain_ms=bwd["scatter_add_rows"]["plain_ms"]),
+        dict(name="sparse_nbr", route="cuda",
+             source="unibev_tpu_torch/csrc/sparse_conv.cu",
+             replaces="unibev_tpu/ops/sparse_conv.py:170",
+             launches=lc["launches"]["sparse_nbr"], max_abs_err=k6["max_abs_err"],
+             ms=k6["ms"], plain_ms=k6["plain_ms"]),
+        dict(name="sparse_conv", route="cuda",
+             source="unibev_tpu_torch/csrc/sparse_conv.cu",
+             replaces="unibev_tpu/ops/sparse_conv.py:312",
+             launches=lc["launches"]["sparse_conv"], max_abs_err=k7["max_abs_err"],
+             ms=k7["ms"], plain_ms=k7["plain_ms"]),
     ]
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                   count=torch.cuda.device_count())
@@ -633,7 +902,10 @@ def main():
                        build_s=build_s, msda=msda, dcn=dcn, tiny=tiny,
                        flagship=flagship, profile=prof, backward=bwd,
                        tiny_train=tiny_train, train=train,
-                       profile_train=prof_train, kernels=kernels,
+                       profile_train=prof_train, sparse_nbr=k6,
+                       sparse_conv=k7, lidar_counts=lidar_counts,
+                       tiny_lc=tiny_lc, lc=lc, l_only=l_only,
+                       profile_lc=prof_lc, profile_l=prof_l, kernels=kernels,
                        device=device), f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

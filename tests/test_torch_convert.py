@@ -2,9 +2,13 @@
 
 * ``jax_to_state_dict`` inverts ``convert_state_dict`` on the camera-only
   key set of the reference checkpoint (tools/ref_inventory.py): every key
-  comes back, bit for bit.
+  comes back, bit for bit.  On the LiDAR keys every key comes back too, bit
+  for bit but for the SECONDFPN transposed conv, which comes back mirrored
+  in both spatial axes: ``convert_state_dict`` does not flip it for flax's
+  ``ConvTranspose``, ``jax_to_state_dict`` does.
 * The port's C-only UniBEV carries exactly those keys: the reference
-  state_dict and the converted one both load with ``strict=True``.
+  state_dict and the converted one both load with ``strict=True``.  The LC
+  flagship carries exactly the reference flagship's keys and shapes.
 * Importing every module of the port imports no JAX, flax or unibev_tpu.
 * A kernel wrapper given CPU tensors takes the plain version and does not
   count a launch.
@@ -21,7 +25,8 @@ import torch
 
 from unibev_tpu.utils.convert_torch import convert_state_dict
 
-from unibev_tpu_torch.flagship import build_model
+from unibev_tpu_torch.flagship import build_model, flagship_model_cfg
+from unibev_tpu_torch.models.detectors.unibev import UniBEV
 from unibev_tpu_torch.ops import _build
 from unibev_tpu_torch.ops.deform_conv import (deform_im2col,
                                               deform_im2col_reference)
@@ -30,8 +35,10 @@ from unibev_tpu_torch.utils.convert_jax import jax_to_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
-from ref_inventory import (decoder_keys, encoder_keys, fpn_keys,  # noqa: E402
-                           head_keys, resnet101_keys, transformer_top_keys)
+from ref_inventory import (decoder_keys, encoder_keys,  # noqa: E402
+                           flagship_state_dict, fpn_keys, head_keys,
+                           resnet101_keys, second_keys, secondfpn_keys,
+                           sparse_encoder_keys, transformer_top_keys)
 
 C, HEADS = 32, 4
 
@@ -125,7 +132,36 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_converter_refuses_variables_outside_the_slice():
-    lidar = {"params": {"pts_bbox_head": {"transformer": {"pts_level_embeds":
-                                                          np.zeros((1, C))}}}}
-    with pytest.raises(KeyError, match="pts_level_embeds"):
-        jax_to_state_dict(lidar)
+    spatial = {"params": {"pts_bbox_head": {"transformer": {
+        "img_spatial_weights": np.zeros((64,))}}}}
+    with pytest.raises(KeyError, match="img_spatial_weights"):
+        jax_to_state_dict(spatial)
+
+
+def test_lidar_roundtrip_flips_only_the_deconv():
+    """The LiDAR keys at the flagship's widths (pts encoder at C=32)."""
+    rng = np.random.RandomState(0)
+    sd = {}
+    sparse_encoder_keys(sd, rng)
+    second_keys(sd, rng)
+    secondfpn_keys(sd, rng)
+    encoder_keys(sd, rng, "pts", n_layers=1, C=C, heads=HEADS)
+    sd["pts_bbox_head.transformer.pts_level_embeds"] = rng.randn(1, C)
+    conv = convert_state_dict(sd, num_heads=HEADS)
+    assert conv["unmapped"] == []
+    back = jax_to_state_dict({"params": conv["params"],
+                              "batch_stats": conv["batch_stats"]})
+    assert sorted(back) == sorted(sd)
+    deconv = "pts_neck.deblocks.1.0.weight"
+    for k, v in sd.items():
+        want = v[:, :, ::-1, ::-1] if k == deconv else v
+        np.testing.assert_array_equal(back[k].numpy(), want, err_msg=k)
+    assert back["pts_middle_encoder.conv_out.0.weight"].shape == (3, 1, 1, 128, 128)
+
+
+def test_lc_flagship_has_the_reference_keys_and_shapes():
+    with torch.device("meta"):
+        model = UniBEV(**flagship_model_cfg())
+    got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    want = {k: tuple(np.shape(v)) for k, v in flagship_state_dict().items()}
+    assert got == want

@@ -15,7 +15,9 @@ their contributions with float32 atomics in no fixed order: f32 1e-4, bf16
 budget is shrunk so that every backward runs several chunks.  d_loc and
 d_offset jump across cell edges, where the kernels and grid_sample may round
 a position to different sides: they are compared at points 1e-3 pixels or
-more inside a cell (``cell_interior`` / ``tap_interior``).
+more inside a cell (``cell_interior`` / ``tap_interior``).  The sparse-conv
+rulebook K6 must equal its plain version exactly; the sparse conv K7 f32
+1e-4, bf16 2^-6 (the same products summed in another order).
 """
 
 import numpy as np
@@ -34,6 +36,11 @@ from unibev_tpu_torch.ops.msda import (cell_interior, ms_deform_attn,
                                        ms_deform_attn_reference)
 from unibev_tpu_torch.ops.scatter import (scatter_add_rows,
                                           scatter_add_rows_reference)
+from unibev_tpu_torch.ops.sparse_conv import (SparseGrid, build_table,
+                                              downsample_with_table,
+                                              sparse_conv,
+                                              sparse_conv_reference,
+                                              sparse_nbr, sparse_nbr_reference)
 
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
@@ -228,3 +235,89 @@ def test_plain_versions_agree_with_themselves_on_cpu_and_card(cuda_device):
     got = ms_deform_attn_reference(value.to(cuda_device), ((29, 50),),
                                    loc.to(cuda_device), attn.to(cuda_device))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
+def _sparse_grid(device, B=2, shape=(9, 14, 13), n=400, V=512, seed=0):
+    """n distinct active cells in V shuffled rows, the rest padding."""
+    g = torch.Generator().manual_seed(seed)
+    D, H, W = shape
+    cells = torch.randperm(B * D * H * W, generator=g)[:n]
+    coords = torch.stack([cells // (D * H * W), (cells // (H * W)) % D,
+                          (cells // W) % H, cells % W], 1).int()
+    coords = torch.cat([coords, torch.full((V - n, 4), -1, dtype=torch.int32)])
+    perm = torch.randperm(V, generator=g)
+    coords = coords[perm].contiguous().to(device)
+    return SparseGrid(coords, coords[:, 0] >= 0, shape, B)
+
+
+@pytest.mark.parametrize("kernel,stride,padding", [
+    ((3, 3, 3), (1, 1, 1), (1, 1, 1)), ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ((3, 3, 3), (2, 2, 2), (0, 1, 1)), ((3, 1, 1), (2, 1, 1), (0, 0, 0))],
+    ids=["subm", "k3s2p1", "k3s2p011", "conv_out"])
+def test_sparse_nbr_kernel_matches_plain(cuda_device, kernel, stride, padding):
+    grid = _sparse_grid(cuda_device)
+    table = build_table(grid)
+    V = grid.coords.shape[0]
+    if stride == (1, 1, 1):
+        co, mo = grid.coords, grid.mask
+    else:
+        out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                          zip(grid.shape, padding, kernel, stride))
+        co, mo, _, _ = downsample_with_table(grid, table, kernel, stride,
+                                             padding, out_shape, 300)
+    before = _build.launches["sparse_nbr"]
+    got = sparse_nbr(table, V, grid.shape, co, mo, kernel, stride, padding)
+    torch.cuda.synchronize()
+    assert _build.launches["sparse_nbr"] == before + 1
+    want = sparse_nbr_reference(table, V, grid.shape, co, mo, kernel, stride,
+                                padding)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert bool((want < V).any()) and bool((want == V).any())
+
+
+@pytest.mark.parametrize("cin,cout,taps", [(5, 16, 27), (16, 32, 27),
+                                           (40, 24, 27), (128, 128, 3)])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2 ** -6)],
+                         ids=["f32", "bf16"])
+def test_sparse_conv_kernel_matches_plain(cuda_device, cin, cout, taps, dtype,
+                                          rel):
+    grid = _sparse_grid(cuda_device)
+    table = build_table(grid)
+    V = grid.coords.shape[0]
+    kernel = (3, 3, 3) if taps == 27 else (3, 1, 1)
+    nidx = sparse_nbr(table, V, grid.shape, grid.coords, grid.mask, kernel,
+                      (1, 1, 1), tuple(k // 2 for k in kernel))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    feats = torch.randn(V, cin, device=cuda_device, generator=g).to(dtype)
+    w = (torch.randn(taps * cin, cout, device=cuda_device, generator=g)
+         * (taps * cin) ** -0.5).to(dtype)
+    before = _build.launches["sparse_conv"]
+    got = sparse_conv(feats, nidx, w, grid.mask)
+    torch.cuda.synchronize()
+    assert _build.launches["sparse_conv"] == before + 1
+    assert got.dtype == dtype and got.shape == (V, cout)
+    _close(got, sparse_conv_reference(feats, nidx, w, grid.mask), rel)
+    assert bool((got[~grid.mask] == 0).all())
+
+
+def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    grid = _sparse_grid(cuda_device)
+    table = build_table(grid)
+    args = (grid.shape, grid.coords, grid.mask, (3, 3, 3), (1, 1, 1), (1, 1, 1))
+    with pytest.raises(TypeError):
+        sparse_nbr(table.long(), 512, *args)
+    with pytest.raises(ValueError):
+        sparse_nbr(table, 512, grid.shape, grid.coords.t().contiguous(),
+                   *args[2:])
+    nidx = sparse_nbr(table, 512, *args)
+    feats = torch.randn(512, 8, device=cuda_device)
+    w = torch.randn(27 * 8, 16, device=cuda_device)
+    with pytest.raises(TypeError):
+        sparse_conv(feats, nidx, w.bfloat16(), grid.mask)
+    with pytest.raises(ValueError):
+        sparse_conv(feats, nidx, w[:-1], grid.mask)
+    with pytest.raises(ValueError):
+        sparse_conv(feats, nidx, w, grid.mask.cpu())
+    with pytest.raises(NotImplementedError):
+        sparse_conv(feats.requires_grad_(), nidx, w, grid.mask)

@@ -25,7 +25,8 @@ def cuda_device():
 def perturb(variables, seed: int = 0, scale: float = 0.05):
     """JAX variables as numpy, moved off their inits so that no weight is
     zero (DCN offsets and MSDA sampling offsets start from zero in flax) and
-    the frozen BN is not the identity."""
+    no BN is the identity (the frozen BN's ``constants`` and the running
+    statistics in ``batch_stats``)."""
     rng = np.random.RandomState(seed)
 
     def walk(tree, col):
@@ -36,16 +37,16 @@ def perturb(variables, seed: int = 0, scale: float = 0.05):
                 continue
             a = np.asarray(v, np.float32)
             noise = rng.randn(*a.shape).astype(np.float32)
-            if col == "constants" and k == "var":
+            if col in ("constants", "batch_stats") and k == "var":
                 out[k] = a + 0.1 * np.abs(noise)
-            elif col == "constants":
+            elif col in ("constants", "batch_stats"):
                 out[k] = a + 0.1 * noise
             else:
                 out[k] = a + scale * noise
         return out
 
     return {col: walk(tree, col) for col, tree in variables.items()
-            if col in ("params", "constants")}
+            if col in ("params", "constants", "batch_stats")}
 
 
 def port_state(variables, jax_path, torch_prefix):

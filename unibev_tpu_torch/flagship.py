@@ -2,22 +2,29 @@
 
 Counterpart of ``unibev_tpu/flagship.py``.  ``flagship_model_cfg`` returns the
 JAX package's flagship dict (full widths: ResNet-101-caffe with DCNv2 in
-stages 3-4, 256-wide BEV features on a 200x200 grid, 6 cameras, 3 encoder and
-6 decoder layers, 900 queries) with torch dtypes.  This slice of the port
-builds the camera-only (C) mode of it::
+stages 3-4, the SECOND LiDAR branch on a [41, 1440, 1440] voxel grid,
+256-wide BEV features on a 200x200 grid, 6 cameras, 3 encoder layers per
+modality and 6 decoder layers, 900 queries) with torch dtypes, with the
+JAX package's ``fp8_tables=False`` (plain sparse gather tables).  The LC
+model predicts in LC, L (a batch without ``img``) and C (without
+``points``) mode::
 
-    model = build_flagship(use_lidar=False, device="cuda", dtype=torch.bfloat16)
-    out = model.predict(synthetic_batch(np.random.RandomState(0), device="cuda"))
+    model = build_flagship(device="cuda", dtype=torch.bfloat16)
+    batch = synthetic_batch(np.random.RandomState(0), device="cuda")
+    out = model.predict(batch)                                   # LC
+    out_l = model.predict({k: v for k, v in batch.items() if k != "img"})
 
-and trains it (float32 parameters, bf16 compute under autocast)::
+The camera-only model trains (float32 parameters, bf16 compute under
+autocast); LiDAR training is not ported yet::
 
     model = build_flagship(use_lidar=False, device="cuda", train=True)
     opt, sched = make_optimizer(model)          # parallel/train_state.py
     gen = torch.Generator(device="cuda").manual_seed(0)
     metrics = train_step(model, opt, sched, batch, gen)
 
-``tiny_model_cfg`` / ``tiny_batch`` are a scaled-down C-only model and batch
-(2 cameras, 8x8 BEV, depth-50 backbone) for parity and smoke checks.
+``tiny_model_cfg`` / ``tiny_batch`` are a scaled-down C or LC model and batch
+(2 cameras, 8x8 BEV, depth-50 backbone, [25, 32, 32] voxel grid) for parity
+and smoke checks.
 """
 
 from __future__ import annotations
@@ -35,10 +42,10 @@ DIM = 256
 
 def flagship_model_cfg(use_lidar=True, use_camera=True, dtype=torch.bfloat16):
     """The JAX package's flagship dict (``unibev_tpu/flagship.py``) at its
-    defaults, with a torch dtype.
+    defaults (``fp8_tables=False``), with a torch dtype.
 
-    Keys the camera slice does not read (the LiDAR branch, query_chunk, the
-    gather-table dtypes) are kept so the two dicts stay the same."""
+    Keys the port does not read (query_chunk, the DCN table dtype,
+    drop_modality) are kept so the two dicts stay the same."""
     dim = DIM
     max_voxels = 120000
     img_attn = [
@@ -144,7 +151,9 @@ def build_model(cfg: dict, device="cpu", seed: int = 0,
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     if not train:
         model = model.to(dtype=cfg.get("dtype", torch.float32))
-    model.img_backbone.to(memory_format=torch.channels_last)
+    for name in ("img_backbone", "pts_backbone", "pts_neck"):
+        if hasattr(model, name):
+            getattr(model, name).to(memory_format=torch.channels_last)
     if train:
         return model.requires_grad_(True).train()
     return model.eval().requires_grad_(False)
@@ -152,8 +161,8 @@ def build_model(cfg: dict, device="cpu", seed: int = 0,
 
 def build_flagship(device="cuda", dtype=torch.bfloat16, seed: int = 0,
                    train: bool = False, **kwargs) -> UniBEV:
-    """The flagship model with seeded random weights; this slice needs
-    ``use_lidar=False`` (camera-only)."""
+    """The flagship model with seeded random weights: LC by default,
+    ``use_lidar=False`` for the camera-only model (the one that trains)."""
     return build_model(flagship_model_cfg(dtype=dtype, **kwargs), device, seed,
                        train)
 
@@ -194,14 +203,35 @@ def synthetic_batch(rng: np.random.RandomState, B=1, N=6, H=928, W=1600,
 TINY_PC_RANGE = (-9.6, -9.6, -2.0, 9.6, 9.6, 2.0)
 
 
-def tiny_model_cfg():
-    """The camera-only part of the tests' tiny UniBEV (2 cameras, 8x8 BEV,
-    depth-50 backbone with DCN in stage 4, dims 32), float32, with the camera
-    cross-attention rebatched to 16 queries per camera (:func:`tiny_batch`
-    hits 12 per camera)."""
+def tiny_model_cfg(use_lidar=False):
+    """The tests' tiny UniBEV (``tests/test_detector.py``: 2 cameras, 8x8
+    BEV, depth-50 backbone with DCN in stage 4, dims 32; with ``use_lidar``
+    the LiDAR branch on a [25, 32, 32] grid, capacities 2000 / 1500 / 1000 /
+    800), float32, with the camera cross-attention rebatched to 16 queries
+    per camera (:func:`tiny_batch` hits 12 per camera).  Camera-only by
+    default."""
     dim = 32
-    return dict(
-        use_grid_mask=True, use_lidar=False, use_camera=True,
+    sub_attn = [dict(embed_dims=dim, num_levels=1),
+                dict(deformable_attention=dict(embed_dims=dim, num_points=4,
+                                               num_levels=1))]
+    img_attn = [sub_attn[0], dict(sub_attn[1], rebatch_k=16)]
+    transformer = dict(
+        embed_dims=dim, fusion_method="linear",
+        feature_norm="ChannelNormWeights", drop_modality=0.5,
+        num_cams=2,
+        img_encoder=dict(num_layers=1, pc_range=TINY_PC_RANGE,
+                         num_points_in_pillar=2,
+                         transformerlayers=dict(attn_cfgs=img_attn,
+                                                feedforward_channels=dim * 2)),
+        decoder=dict(num_layers=2,
+                     transformerlayers=dict(
+                         attn_cfgs=[
+                             dict(embed_dims=dim, num_heads=4, dropout=0.1),
+                             dict(embed_dims=dim, num_levels=1),
+                         ],
+                         feedforward_channels=dim * 2)))
+    cfg = dict(
+        use_grid_mask=True, use_lidar=use_lidar, use_camera=True,
         img_shape=(64, 96),
         img_backbone=dict(depth=50, num_stages=4, out_indices=(3,),
                           style="caffe",
@@ -210,29 +240,7 @@ def tiny_model_cfg():
         img_neck=dict(in_channels=(2048,), out_channels=dim, num_outs=1),
         pts_bbox_head=dict(
             num_classes=10, in_channels=dim, num_query=24, bev_h=8, bev_w=8,
-            transformer=dict(
-                embed_dims=dim, fusion_method="linear",
-                feature_norm="ChannelNormWeights", drop_modality=0.5,
-                num_cams=2,
-                img_encoder=dict(num_layers=1, pc_range=TINY_PC_RANGE,
-                                 num_points_in_pillar=2,
-                                 transformerlayers=dict(
-                                     attn_cfgs=[
-                                         dict(embed_dims=dim, num_levels=1),
-                                         dict(deformable_attention=dict(
-                                             embed_dims=dim, num_points=4,
-                                             num_levels=1),
-                                             rebatch_k=16),
-                                     ],
-                                     feedforward_channels=dim * 2)),
-                decoder=dict(num_layers=2,
-                             transformerlayers=dict(
-                                 attn_cfgs=[
-                                     dict(embed_dims=dim, num_heads=4,
-                                          dropout=0.1),
-                                     dict(embed_dims=dim, num_levels=1),
-                                 ],
-                                 feedforward_channels=dim * 2))),
+            transformer=transformer,
             bbox_coder=dict(post_center_range=(-12, -12, -4, 12, 12, 4),
                             pc_range=TINY_PC_RANGE, max_num=16, num_classes=10),
             positional_encoding=dict(num_feats=dim // 2, row_num_embed=8,
@@ -242,16 +250,41 @@ def tiny_model_cfg():
             cls_cost=dict(type="FocalLossCost", weight=2.0),
             reg_cost=dict(type="BBox3DL1CostBEVFormer", weight=0.25)))),
     )
+    if use_lidar:
+        transformer["pts_encoder"] = dict(
+            num_layers=1, pc_range=TINY_PC_RANGE, num_points_in_pillar_lidar=2,
+            transformerlayers=dict(attn_cfgs=sub_attn,
+                                   feedforward_channels=dim * 2))
+        cfg.update(
+            pts_voxel_layer=dict(max_num_points=5,
+                                 voxel_size=(0.6, 0.6, 4.0 / 24),
+                                 point_cloud_range=TINY_PC_RANGE,
+                                 max_voxels=(2000, 2000)),
+            # z chain 25 -> 13 -> 7 -> 3 -> conv_out 1, as the flagship's
+            # 41 -> 21 -> 11 -> 5 -> 2
+            pts_middle_encoder=dict(in_channels=5, sparse_shape=(25, 32, 32),
+                                    output_channels=32,
+                                    encoder_channels=((8, 8, 16), (16, 16, 32),
+                                                      (32, 32, 32), (32, 32)),
+                                    encoder_paddings=((0, 0, 1), (0, 0, 1),
+                                                      (0, 0, (0, 1, 1)), (0, 0)),
+                                    capacities=(2000, 1500, 1000, 800)),
+            pts_backbone=dict(in_channels=32, out_channels=(32, 64),
+                              layer_nums=(1, 1), layer_strides=(1, 2)),
+            pts_neck=dict(in_channels=(32, 64), out_channels=(16, 16),
+                          upsample_strides=(1, 2)))
+    return cfg
 
 
-def tiny_batch(rng: np.random.RandomState, B=1, N=2, G=6, device="cpu"):
-    """The tests' tiny batch without its LiDAR points: images
-    (B, N, 64, 96, 3), the pinhole ``lidar2img`` (cameras 90 degrees apart)
-    and G ground-truth boxes, the last two padding.  The same draws from
-    ``rng`` as the JAX package's tests (the points are drawn and dropped)."""
+def tiny_batch(rng: np.random.RandomState, B=1, N=2, P=1024, G=6, device="cpu"):
+    """The tests' tiny batch: images (B, N, 64, 96, 3), P LiDAR points
+    (x, y, intensity-like extras uniform in +-9 m, z in +-1.8 m) with their
+    mask, the pinhole ``lidar2img`` (cameras 90 degrees apart) and G
+    ground-truth boxes, the last two padding.  The same draws from ``rng``
+    as the JAX package's tests."""
     img = rng.randn(B, N, 64, 96, 3).astype(np.float32)
-    rng.uniform(-9, 9, (B, 1024, 5))
-    rng.uniform(-1.8, 1.8, (B, 1024))
+    points = rng.uniform(-9, 9, (B, P, 5)).astype(np.float32)
+    points[..., 2] = rng.uniform(-1.8, 1.8, (B, P))
     l2i = np.zeros((B, N, 4, 4), np.float32)
     for n in range(N):
         K = np.array([[60., 0., 48., 0.], [0., 60., 32., 0.],
@@ -268,6 +301,7 @@ def tiny_batch(rng: np.random.RandomState, B=1, N=2, G=6, device="cpu"):
     labels = rng.randint(0, 10, (B, G))
     valid = np.ones((B, G), bool)
     valid[:, -2:] = False
-    arrays = dict(img=img, lidar2img=l2i, gt_bboxes=gt, gt_labels=labels,
+    arrays = dict(img=img, points=points, points_mask=np.ones((B, P), bool),
+                  lidar2img=l2i, gt_bboxes=gt, gt_labels=labels,
                   gt_valid=valid)
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}

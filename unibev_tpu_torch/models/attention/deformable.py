@@ -9,7 +9,8 @@ The camera cross-attention has both of the JAX package's formulations: the
 per-camera top-K rebatch (only queries whose pillar projects into a camera
 run through that camera's attention) and the masked dense form (every query
 against every camera, non-hits zeroed).  They are the same math when K
-covers every hit.
+covers every hit.  The LiDAR cross-attention runs every query against the
+one LiDAR BEV map.
 """
 
 from __future__ import annotations
@@ -125,7 +126,10 @@ class MSDeformableAttention3D(_SamplingHeads):
         v, offsets, weights = self.project(query, value, spatial_shapes)
         offsets = offsets.view(B, Q, h, L, P // Z, Z, 2)
         loc = reference_points.float()[:, :, None, None, None, :, :] + offsets
-        return ms_deform_attn(v, spatial_shapes, loc.view(B, Q, h, L, P, 2),
+        # an expanded or transposed reference (the LiDAR anchors) can give
+        # the sum a permuted layout
+        return ms_deform_attn(v, spatial_shapes,
+                              loc.contiguous().view(B, Q, h, L, P, 2),
                               weights.contiguous())
 
 
@@ -190,3 +194,25 @@ class SpatialCrossAttentionImg(nn.Module):
 
         slots = slots / count[..., None]
         return dropout(self.output_proj(slots), self.training) + query
+
+
+@ATTENTION.register_module(name="SpatialCrossAttentionPts")
+class SpatialCrossAttentionPts(nn.Module):
+    """BEV-query -> LiDAR BEV map cross attention: every query attends into
+    the one map at its pillar anchors, then output projection, dropout and
+    the residual."""
+
+    def __init__(self, embed_dims: int = 256,
+                 deformable_attention: Optional[dict] = None):
+        super().__init__()
+        da_cfg = {k: v for k, v in dict(deformable_attention or {}).items()
+                  if k != "type"}
+        da_cfg.setdefault("embed_dims", embed_dims)
+        self.deformable_attention = MSDeformableAttention3D(**da_cfg)
+        self.output_proj = nn.Linear(embed_dims, embed_dims)
+
+    def forward(self, query, value, reference_points, spatial_shapes):
+        """query (B, Q, C); value (B, V, C); reference_points (B, Q, Z, 2)."""
+        out = self.deformable_attention(query, value, reference_points,
+                                        spatial_shapes)
+        return dropout(self.output_proj(out), self.training) + query

@@ -1,16 +1,20 @@
-"""UniBEV detector, camera branch: images -> ResNet -> FPN -> fused BEV head.
+"""UniBEV detector: camera and LiDAR branches -> fused BEV head.
 
-Counterpart of ``unibev_tpu/models/detectors/unibev.py`` for the camera-only
-(C) mode, inference and training.  The batch keeps the JAX package's
-static-shape contract: ``img`` (B, N, H, W, 3) float and ``lidar2img``
-(B, N, 4, 4), and for the loss ``gt_bboxes`` (B, G, 9), ``gt_labels`` (B, G)
-and ``gt_valid`` (B, G); other keys are ignored.
+Counterpart of ``unibev_tpu/models/detectors/unibev.py``.  The camera branch
+is images -> ResNet -> FPN; the LiDAR branch is voxelize + mean VFE ->
+SparseEncoder -> SECOND -> SECONDFPN.  The batch keeps the JAX package's
+static-shape contract: ``img`` (B, N, H, W, 3) float, ``points`` (B, P, 5)
+with ``points_mask`` (B, P), ``lidar2img`` (B, N, 4, 4), and for the loss
+``gt_bboxes`` (B, G, 9), ``gt_labels`` (B, G) and ``gt_valid`` (B, G); other
+keys are ignored.  An LC model runs LC, L (no ``img`` in the batch) or C (no
+``points``), as in the JAX package: the modality flags follow from which
+inputs are present.
 
 ``train()`` mode is the JAX package's ``train=True``: GridMask on the images
 and dropout in the transformer, both drawn from the ``generator`` handed to
-``forward``.  In C mode the modality flags are fixed, so there is no
-modality dropout.  The LiDAR and radar branches are not ported yet:
-``use_lidar=True`` or ``use_radar=True`` raises.
+``forward``.  Only the camera branch trains yet: a train-mode forward with
+``points`` raises (the sparse-conv backward, the masked batch statistics and
+modality dropout are not ported), and so does ``use_radar=True``.
 """
 
 from __future__ import annotations
@@ -21,10 +25,13 @@ import torch
 from torch import nn
 
 from unibev_tpu_torch.models.backbones.resnet import ResNet
+from unibev_tpu_torch.models.backbones.second import SECOND
 from unibev_tpu_torch.models.gridmask import grid_mask
 from unibev_tpu_torch.models.heads.unibev_head import UniBEVHead
 from unibev_tpu_torch.models.layers import rng
-from unibev_tpu_torch.models.necks.fpn import FPN
+from unibev_tpu_torch.models.middle_encoder import SparseEncoder
+from unibev_tpu_torch.models.necks.fpn import FPN, SECONDFPN
+from unibev_tpu_torch.ops.voxelize import voxelize_and_encode
 from unibev_tpu_torch.registry import DETECTORS
 
 
@@ -52,33 +59,38 @@ class UniBEV(nn.Module):
                  test_cfg: Optional[dict] = None,
                  img_shape: Tuple[int, int] = (900, 1600),
                  dtype: torch.dtype = torch.float32):
-        # The pts_*/radar_* configs belong to parts not yet ported; they are
-        # accepted so the JAX config dicts build.
+        # pts_voxel_encoder (HardSimpleVFE: the mean is part of the
+        # voxelizer) and the radar_* configs are accepted so that the JAX
+        # config dicts build.
         super().__init__()
-        if use_lidar or use_radar:
-            raise NotImplementedError(
-                "LiDAR and radar branches not yet ported: build with "
-                "use_lidar=False, use_radar=False")
-        if not use_camera:
-            raise ValueError("the camera-only detector needs use_camera=True")
+        if use_radar:
+            raise NotImplementedError("the radar branch is not ported yet: "
+                                      "build with use_radar=False")
+        if not (use_camera or use_lidar):
+            raise ValueError("UniBEV needs use_camera or use_lidar")
+        self.use_camera, self.use_lidar = use_camera, use_lidar
         self.img_shape = tuple(img_shape)
         self.compute_dtype = dtype
         self.use_grid_mask = use_grid_mask
 
-        cfg = _clean(img_backbone)
-        self.img_backbone = ResNet(
-            depth=cfg.get("depth", 101), num_stages=cfg.get("num_stages", 4),
-            out_indices=tuple(cfg.get("out_indices", (3,))),
-            frozen_stages=cfg.get("frozen_stages", 1),
-            style=cfg.get("style", "caffe"),
-            with_cp=cfg.get("with_cp", False),
-            stage_with_dcn=tuple(cfg.get("stage_with_dcn", (False,) * 4)),
-            dcn=cfg.get("dcn"))
-        ncfg = _clean(img_neck)
-        self.img_neck = FPN(
-            in_channels=tuple(ncfg.get("in_channels", (2048,))),
-            out_channels=ncfg.get("out_channels", 256),
-            num_outs=ncfg.get("num_outs", 1))
+        if use_camera:
+            cfg = _clean(img_backbone)
+            self.img_backbone = ResNet(
+                depth=cfg.get("depth", 101), num_stages=cfg.get("num_stages", 4),
+                out_indices=tuple(cfg.get("out_indices", (3,))),
+                frozen_stages=cfg.get("frozen_stages", 1),
+                style=cfg.get("style", "caffe"),
+                with_cp=cfg.get("with_cp", False),
+                stage_with_dcn=tuple(cfg.get("stage_with_dcn", (False,) * 4)),
+                dcn=cfg.get("dcn"))
+            ncfg = _clean(img_neck)
+            self.img_neck = FPN(
+                in_channels=tuple(ncfg.get("in_channels", (2048,))),
+                out_channels=ncfg.get("out_channels", 256),
+                num_outs=ncfg.get("num_outs", 1))
+        if use_lidar:
+            self._build_lidar(pts_voxel_layer, pts_middle_encoder,
+                              pts_backbone, pts_neck)
         hcfg = _clean(pts_bbox_head)
         # As in the JAX package, the head keeps its default pc_range: the
         # config's pts_bbox_head.pc_range is not passed on.
@@ -92,7 +104,46 @@ class UniBEV(nn.Module):
             positional_encoding=hcfg.get("positional_encoding"),
             loss_cls=hcfg.get("loss_cls"),
             loss_bbox=hcfg.get("loss_bbox"),
-            train_cfg=(train_cfg or {}).get("pts"))
+            train_cfg=(train_cfg or {}).get("pts"),
+            use_img=use_camera, use_pts=use_lidar)
+
+    def _build_lidar(self, voxel_layer, middle_encoder, backbone, neck):
+        vcfg = dict(voxel_layer or {})
+        self.voxel_size = tuple(vcfg.get("voxel_size", (0.075, 0.075, 0.2)))
+        self.pc_range = tuple(vcfg.get("point_cloud_range",
+                                       (-54, -54, -5, 54, 54, 3)))
+        mv = vcfg.get("max_voxels", (90000, 120000))
+        self.max_voxels = mv[1] if isinstance(mv, (tuple, list)) else mv
+        self.max_points_per_voxel = vcfg.get("max_num_points", 10)
+        self.grid_size = tuple(
+            int(round((self.pc_range[i + 3] - self.pc_range[i]) / self.voxel_size[i]))
+            for i in range(3))
+        mcfg = _clean(middle_encoder)
+        self.pts_middle_encoder = SparseEncoder(
+            in_channels=mcfg.get("in_channels", 5),
+            sparse_shape=tuple(mcfg.get("sparse_shape", (41, 1440, 1440))),
+            output_channels=mcfg.get("output_channels", 128),
+            encoder_channels=tuple(tuple(c) for c in mcfg.get(
+                "encoder_channels",
+                ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)))),
+            encoder_paddings=mcfg.get("encoder_paddings",
+                                      ((0, 0, 1), (0, 0, 1), (0, 0, (0, 1, 1)),
+                                       (0, 0))),
+            capacities=tuple(mcfg.get("capacities",
+                                      (120000, 90000, 60000, 40000))),
+            table_dtype=mcfg.get("table_dtype", "bf16"))
+        bcfg = _clean(backbone)
+        self.pts_backbone = SECOND(
+            in_channels=bcfg.get("in_channels", 256),
+            out_channels=tuple(bcfg.get("out_channels", (128, 256))),
+            layer_nums=tuple(bcfg.get("layer_nums", (5, 5))),
+            layer_strides=tuple(bcfg.get("layer_strides", (1, 2))))
+        ncfg = _clean(neck)
+        self.pts_neck = SECONDFPN(
+            in_channels=tuple(ncfg.get("in_channels", (128, 256))),
+            out_channels=tuple(ncfg.get("out_channels", (128, 128))),
+            upsample_strides=tuple(ncfg.get("upsample_strides", (1, 2))),
+            use_conv_for_no_stride=ncfg.get("use_conv_for_no_stride", True))
 
     def extract_img_feat(self, img: torch.Tensor,
                          generator: Optional[torch.Generator] = None):
@@ -108,15 +159,59 @@ class UniBEV(nn.Module):
         return [f.permute(0, 2, 3, 1).reshape(B, N, f.shape[2], f.shape[3], -1)
                 for f in feats]
 
+    def extract_pts_feat(self, points: torch.Tensor, points_mask: torch.Tensor):
+        """points (B, P, 5), points_mask (B, P) -> (list of one (B, h, w, C)
+        BEV map, stats): ``num_distinct_voxels`` (B,) occupied voxels before
+        the ``max_voxels`` cap and ``sparse_overflow`` (4,) active sites each
+        strided conv found beyond its capacity."""
+        B = points.shape[0]
+        res = [voxelize_and_encode(points[b], points_mask[b], self.voxel_size,
+                                   self.pc_range, self.grid_size,
+                                   self.max_voxels, self.max_points_per_voxel)
+               for b in range(B)]
+        V = self.max_voxels
+        mask = torch.cat([r.mask for r in res])
+        batch_idx = torch.arange(B, dtype=torch.int32, device=points.device)
+        coords = torch.cat([batch_idx.repeat_interleave(V)[:, None],
+                            torch.cat([r.coords for r in res])], dim=1)
+        coords = torch.where(mask[:, None], coords, -1)
+        feats = torch.cat([r.feats for r in res]).to(self.compute_dtype)
+        bev, overflow = self.pts_middle_encoder(feats, coords, mask, B)
+        bev = self.pts_neck(self.pts_backbone(bev))           # (B, C, h, w)
+        stats = dict(num_distinct_voxels=torch.stack([r.num_distinct for r in res]),
+                     sparse_overflow=overflow)
+        return [bev.permute(0, 2, 3, 1)], stats
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """The head's outputs.  In ``train()`` mode GridMask and dropout draw
-        from ``generator`` (on the batch's device), which is then required."""
+        """The head's outputs, and with LiDAR the branch's capacity counts
+        (``num_distinct_voxels``, ``sparse_overflow``).  Modalities follow
+        from the batch: ``img`` and ``points`` are each used when present and
+        built.  In ``train()`` mode GridMask and dropout draw from
+        ``generator`` (on the batch's device), which is then required."""
+        img = batch.get("img") if self.use_camera else None
+        points = batch.get("points") if self.use_lidar else None
+        if img is None and points is None:
+            raise ValueError("the batch holds no input of a built modality")
         with rng(generator):
-            img_feats = self.extract_img_feat(batch["img"], generator)
-            return self.pts_bbox_head(img_feats, None, batch["lidar2img"],
-                                      self.img_shape)
+            img_feats = pts_feats = None
+            stats = {}
+            if img is not None:
+                img_feats = self.extract_img_feat(img, generator)
+            if points is not None:
+                if self.training:
+                    raise NotImplementedError(
+                        "LiDAR training is not ported yet: train without points")
+                mask = batch.get("points_mask")
+                if mask is None:
+                    mask = torch.ones(points.shape[:2], dtype=torch.bool,
+                                      device=points.device)
+                pts_feats, stats = self.extract_pts_feat(points, mask)
+            preds = self.pts_bbox_head(img_feats, pts_feats,
+                                       batch.get("lidar2img"), self.img_shape)
+        preds.update(stats)
+        return preds
 
     def loss(self, batch: Dict[str, torch.Tensor],
              preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -128,8 +223,12 @@ class UniBEV(nn.Module):
     def predict(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Decoded boxes: bboxes (B, max_num, 9), scores, labels, valid, and
         sca_overflow, the most hit queries any camera had beyond the SCA
-        top-K capacity (0 means the rebatch dropped nothing)."""
+        top-K capacity (0 means the rebatch dropped nothing; 0 without
+        cameras); with LiDAR also ``num_distinct_voxels`` and
+        ``sparse_overflow`` (see :meth:`extract_pts_feat`)."""
         preds = self(batch)
         out = self.pts_bbox_head.get_bboxes(preds)
-        out["sca_overflow"] = preds["sca_overflow"]
+        for k in ("sca_overflow", "num_distinct_voxels", "sparse_overflow"):
+            if k in preds:
+                out[k] = preds[k]
         return out

@@ -1,10 +1,12 @@
-"""BEVFormer-style BEV encoder of the camera branch.
+"""BEVFormer-style BEV encoders of the camera and LiDAR branches.
 
-Counterpart of ``unibev_tpu/models/encoders.py`` (``PtsEncoder`` comes with
-the LiDAR branch).  Geometry as in the JAX package: pillar reference points
-with z anchors at ``linspace(0.5, Z - 0.5, P) / Z``, camera projection through
-``lidar2img`` normalized by the un-padded ``img_shape``, and the layer order
-TSA -> norm -> SCA -> norm -> FFN -> norm.
+Counterpart of ``unibev_tpu/models/encoders.py``.  Geometry as in the JAX
+package: pillar reference points with z anchors at
+``linspace(0.5, Z - 0.5, P) / Z``, camera projection through ``lidar2img``
+normalized by the un-padded ``img_shape``, and the layer order
+TSA -> norm -> SCA -> norm -> FFN -> norm.  The LiDAR encoder's sampling is
+trivial: the normalized xy of each pillar anchor indexes the LiDAR BEV map
+directly.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from unibev_tpu_torch.models.attention.deformable import (
-    MSDAttention, SpatialCrossAttentionImg)
+    MSDAttention, SpatialCrossAttentionImg, SpatialCrossAttentionPts)
 from unibev_tpu_torch.models.layers import FFN, layer_norm
 from unibev_tpu_torch.registry import TRANSFORMER_LAYER_SEQUENCES
 
@@ -72,17 +74,21 @@ class BEVEncoderLayer(nn.Module):
     """One encoder layer: TSA -> LN -> SCA -> LN -> FFN -> LN (post-norm).
 
     Submodules sit under the reference's names: ``attentions.0`` (TSA),
-    ``attentions.1`` (SCA), ``ffns.0``, ``norms.0-2``.
+    ``attentions.1`` (SCA: the camera one, or the LiDAR one when
+    ``modality`` is "pts"), ``ffns.0``, ``norms.0-2``.
     """
 
     def __init__(self, embed_dims: int = 256, ffn_dims: int = 512,
-                 tsa_cfg: Optional[dict] = None, sca_cfg: Optional[dict] = None):
+                 tsa_cfg: Optional[dict] = None, sca_cfg: Optional[dict] = None,
+                 modality: str = "img"):
         super().__init__()
         tsa = {k: v for k, v in dict(tsa_cfg or {}).items() if k != "type"}
         sca = {k: v for k, v in dict(sca_cfg or {}).items() if k != "type"}
+        sca_cls = {"img": SpatialCrossAttentionImg,
+                   "pts": SpatialCrossAttentionPts}[modality]
+        self.modality = modality
         self.attentions = nn.ModuleList([
-            MSDAttention(**tsa),
-            SpatialCrossAttentionImg(embed_dims=embed_dims, **sca)])
+            MSDAttention(**tsa), sca_cls(embed_dims=embed_dims, **sca)])
         self.ffns = nn.ModuleList([FFN(embed_dims, ffn_dims)])
         self.norms = nn.ModuleList([layer_norm(embed_dims) for _ in range(3)])
 
@@ -93,8 +99,11 @@ class BEVEncoderLayer(nn.Module):
                                    ref_2d[None].expand(B, *ref_2d.shape),
                                    (bev_hw,), query_pos=bev_pos)
         query = self.norms[0](query)
-        query = self.attentions[1](query, value, ref_cross, hit_mask,
-                                   value_shapes, topk_idx=topk_idx)
+        if self.modality == "img":
+            query = self.attentions[1](query, value, ref_cross, hit_mask,
+                                       value_shapes, topk_idx=topk_idx)
+        else:
+            query = self.attentions[1](query, value, ref_cross, value_shapes)
         query = self.norms[1](query)
         query = self.ffns[0](query)
         return self.norms[2](query)
@@ -150,3 +159,37 @@ class ImgEncoder(nn.Module):
                               (bev_h, bev_w), ref_cam, hit, value_shapes,
                               topk_idx=topk_idx)
         return bev_query, overflow
+
+
+@TRANSFORMER_LAYER_SEQUENCES.register_module(name="PtsEncoder")
+class PtsEncoder(nn.Module):
+    """LiDAR BEV encoder: N layers of TSA + LiDAR SCA over the LiDAR BEV map."""
+
+    def __init__(self, num_layers: int = 3,
+                 pc_range: Sequence[float] = (-54, -54, -5, 54, 54, 3),
+                 num_points_in_pillar_lidar: int = 4, embed_dims: int = 256,
+                 ffn_dims: int = 512, tsa_cfg: Optional[dict] = None,
+                 sca_cfg: Optional[dict] = None):
+        super().__init__()
+        self.pc_range = tuple(pc_range)
+        self.num_points_in_pillar = num_points_in_pillar_lidar
+        self.layers = nn.ModuleList([
+            BEVEncoderLayer(embed_dims, ffn_dims, tsa_cfg, sca_cfg, "pts")
+            for _ in range(num_layers)])
+
+    def forward(self, bev_query, value, bev_pos, bev_h, bev_w, value_shapes):
+        """bev_query (B, H*W, C); value (B, V, C), the flattened LiDAR BEV map
+        in (h, w) order.  Returns (B, H*W, C)."""
+        dev = bev_query.device
+        Z = self.pc_range[5] - self.pc_range[2]
+        P = self.num_points_in_pillar
+        ref_3d = get_reference_points_3d(bev_h, bev_w, Z, P, dev)
+        ref_2d = get_reference_points_2d(bev_h, bev_w, dev)
+        # every anchor of a pillar shares its xy (the reference's (P, Q, 2)
+        # -> (Q, P, 2) permute)
+        ref_lidar = ref_3d[..., :2].transpose(0, 1)[None].expand(
+            bev_query.shape[0], bev_h * bev_w, P, 2)
+        for layer in self.layers:
+            bev_query = layer(bev_query, value, bev_pos, ref_2d,
+                              (bev_h, bev_w), ref_lidar, None, value_shapes)
+        return bev_query

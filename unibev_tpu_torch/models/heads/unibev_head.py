@@ -56,7 +56,8 @@ class UniBEVHead(nn.Module):
                  loss_cls: Optional[dict] = None,
                  loss_bbox: Optional[dict] = None,
                  train_cfg: Optional[dict] = None,
-                 code_weights: Sequence[float] = (1.0,) * 8 + (0.2, 0.2)):
+                 code_weights: Sequence[float] = (1.0,) * 8 + (0.2, 0.2),
+                 use_img: bool = True, use_pts: bool = False):
         super().__init__()
         self.num_classes = num_classes
         tcfg = {k: v for k, v in dict(transformer or {}).items() if k != "type"}
@@ -64,7 +65,8 @@ class UniBEVHead(nn.Module):
         self.pc_range = tuple(pc_range)
         self.transformer = UniBEVTransformer(
             **{**tcfg, "embed_dims": tcfg.get("embed_dims", in_channels),
-               "bev_h": bev_h, "bev_w": bev_w})
+               "bev_h": bev_h, "bev_w": bev_w, "use_img": use_img,
+               "use_pts": use_pts})
         pe = {k: v for k, v in dict(positional_encoding or {}).items() if k != "type"}
         self.positional_encoding = LearnedPositionalEncoding(
             num_feats=pe.get("num_feats", in_channels // 2),
@@ -93,9 +95,11 @@ class UniBEVHead(nn.Module):
 
     def forward(self, img_feats, pts_feats, lidar2img,
                 img_shape) -> Dict[str, torch.Tensor]:
-        """Returns all_cls_scores (L, B, Q, ncls), all_bbox_preds (L, B, Q, 10),
-        bev_embed (B, HW, C) and sca_overflow (0-dim)."""
-        B = img_feats[0].shape[0]
+        """img_feats / pts_feats: lists of (B, N, h, w, C) / (B, h, w, C), or
+        None for an absent modality.  Returns all_cls_scores (L, B, Q, ncls),
+        all_bbox_preds (L, B, Q, 10), bev_embed (B, HW, C) and sca_overflow
+        (0-dim)."""
+        B = (img_feats if img_feats is not None else pts_feats)[0].shape[0]
         bev_pos = self.positional_encoding(B, self.bev_h, self.bev_w)
         bev_embed, states, _, refs, sca_overflow = self.transformer(
             img_feats, pts_feats, self.bev_embedding.weight,

@@ -4,7 +4,8 @@ Modules are built without touching torch's global RNG (see
 ``flagship.build_model``) and then filled here, so a model is a function of
 its config and seed alone.  The scheme follows the JAX package's flax
 initializers where they give a working network (fan-in normal for convs and
-linears, unit normal for embeddings, identity frozen BN); where flax starts
+linears, He normal for the sparse convs, unit normal for embeddings, identity
+BN, frozen or not); where flax starts
 from zeros (the DCN offset conv, the MSDA offset and weight projections) a
 small random weight is used instead, so random-weight runs sample at
 fractional, query-dependent positions.
@@ -20,6 +21,7 @@ from unibev_tpu_torch.models.attention.deformable import (_SamplingHeads,
 from unibev_tpu_torch.models.backbones.resnet import (DeformConv2d,
                                                       FrozenBatchNorm)
 from unibev_tpu_torch.models.layers import _InProjAttention
+from unibev_tpu_torch.models.middle_encoder import SparseConv3d
 
 _SMALL = {"conv_offset": 0.1, "sampling_offsets": 0.01, "attention_weights": 0.01}
 
@@ -43,6 +45,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
             m.running_mean.zero_()
             m.num_batches_tracked.zero_()
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.reset_parameters()
         elif isinstance(m, nn.Embedding):
             normal_(m.weight, 1.0)
         elif isinstance(m, (nn.Linear, nn.Conv2d)):
@@ -50,6 +54,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             normal_(m.weight, _SMALL.get(leaf, 1.0) * fan_in ** -0.5)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.ConvTranspose2d):
+            # each output pixel sees Cin inputs on kh * kw / (sh * sw) taps
+            cin, _, kh, kw = m.weight.shape
+            fan_in = cin * kh * kw / (m.stride[0] * m.stride[1])
+            normal_(m.weight, fan_in ** -0.5)
+        elif isinstance(m, SparseConv3d):
+            normal_(m.weight, (2.0 / m.weight[..., 0].numel()) ** 0.5)
         elif isinstance(m, DeformConv2d):
             normal_(m.weight, (2.0 / m.weight[0].numel()) ** 0.5)
         elif isinstance(m, _InProjAttention):

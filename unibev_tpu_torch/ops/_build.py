@@ -13,9 +13,9 @@ Each C entry point launches on the stream it is given and returns the
 into an exception.
 
 ``launches`` counts kernel launches by kernel name.  The wrappers in
-``ops/msda.py``, ``ops/deform_conv.py`` and ``ops/scatter.py`` add one where
-they launch and nowhere else, so a caller can show that a run went through
-the kernels.
+``ops/msda.py``, ``ops/deform_conv.py``, ``ops/scatter.py`` and
+``ops/sparse_conv.py`` add one where they launch and nowhere else, so a
+caller can show that a run went through the kernels.
 """
 
 from __future__ import annotations
@@ -58,6 +58,12 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _L, _L, _I, _P),
     # idx, contrib, table, M, L, tr, dtype, stream
     "unibev_scatter_add_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # table, coords, mask, out, Vout, D, H, W, kz, ky, kx, sz, sy, sx, pz,
+    # py, px, sentinel, table_size, stream
+    "unibev_sparse_nbr": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _L, _P),
+    # feats, nidx, weight, mask, out, Vout, K, Cin, Cout, V, dtype, stream
+    "unibev_sparse_conv": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
 }
 
 launches: Counter = Counter()

@@ -49,6 +49,8 @@ DETECTORS = Registry("detectors")
 HEADS = Registry("heads")
 BACKBONES = Registry("backbones")
 NECKS = Registry("necks")
+VOXEL_ENCODERS = Registry("voxel_encoders")
+MIDDLE_ENCODERS = Registry("middle_encoders")
 TRANSFORMERS = Registry("transformers")
 TRANSFORMER_LAYER_SEQUENCES = Registry("transformer_layer_sequences")
 ATTENTION = Registry("attention")

@@ -1,20 +1,28 @@
 """JAX variables -> the port's ``state_dict``.
 
-The inverse of ``unibev_tpu/utils/convert_torch.py::convert_state_dict``,
-restricted to the camera-only slice: ResNet (+DCNv2), FPN, the head and the
-transformer's camera encoder and decoder.  Input is the JAX model's variables
-as numpy arrays (``params``, plus ``constants`` for the frozen BN); the
-output carries the reference checkpoint's key names, which are the port's.
-Layouts converted back:
+The inverse of ``unibev_tpu/utils/convert_torch.py::convert_state_dict`` for
+the LC model: ResNet (+DCNv2), FPN, the sparse middle encoder, SECOND,
+SECONDFPN, the head and the transformer's camera and LiDAR encoders and
+decoder.  Input is the JAX model's variables as numpy arrays (``params``,
+``constants`` for the frozen BN, ``batch_stats`` for the LiDAR branch's BN);
+the output carries the reference checkpoint's key names, which are the
+port's.  Layouts converted back:
 
   * conv kernel (Kh, Kw, Cin, Cout)        -> (Cout, Cin, Kh, Kw)
+  * transposed-conv kernel (Kh, Kw, Cin, Cout) -> (Cin, Cout, Kh, Kw), the
+    kernel mirrored in both spatial axes: flax's ``ConvTranspose`` applies
+    tap ``K - 1 - a`` where torch's ``ConvTranspose2d`` applies tap ``a``
   * Dense kernel (Cin, Cout)               -> Linear weight (Cout, Cin)
   * DCN weight (Kh*Kw*Cin, Cout) tap-major -> (Cout, Cin, Kh, Kw), Kh = Kw = 3
+  * sparse conv weight (K*Cin, Cout) tap-major -> spconv's (kz, ky, kx, Cin,
+    Cout): (3, 3, 3) for 27 taps, (3, 1, 1) for ``conv_out``'s 3
   * flax MHA query/key/value/out           -> in_proj_weight/in_proj_bias/out_proj
   * frozen BN constants gamma/beta/mean/var -> weight/bias/running_mean/running_var
-    (+ num_batches_tracked = 0)
+  * BN params scale/bias and batch_stats mean/var -> weight/bias and
+    running_mean/running_var
+    (every BN gains num_batches_tracked = 0)
 
-A variable this slice has no key for raises ``KeyError``.  Imports no JAX.
+A variable the port has no key for raises ``KeyError``.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import numpy as np
 import torch
 
 _BN = {"gamma": "weight", "beta": "bias", "mean": "running_mean",
-       "var": "running_var"}
+       "var": "running_var", "scale": "weight", "bias": "bias"}
 _WB = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 
 
@@ -51,9 +59,19 @@ def _dcn(w):
     return np.transpose(w.reshape(3, 3, kcin // 9, cout), (3, 2, 0, 1))
 
 
+def _deconv(w):
+    return np.transpose(w[::-1, ::-1], (2, 3, 0, 1))
+
+
+def _spconv(w, taps):
+    kcin, cout = w.shape
+    kernel = (3, 3, 3) if taps == 27 else (3, 1, 1)
+    return w.reshape(*kernel, kcin // taps, cout)
+
+
 def _bn(prefix, name, w):
     out = [(f"{prefix}.{_BN[name]}", w)]
-    if name == "gamma":
+    if name in ("gamma", "scale"):
         out.append((f"{prefix}.num_batches_tracked", np.asarray(0, np.int64)))
     return out
 
@@ -101,8 +119,52 @@ def _attn_ffn_norm(prefix: str, rest: str, w, cross: str):
 
 
 def _encoder(m, w):
-    prefix = f"pts_bbox_head.transformer.img_bev_encoder.layers.{m.group(1)}"
-    return _attn_ffn_norm(prefix, m.group(2), w, "deformable_attention.")
+    prefix = (f"pts_bbox_head.transformer.{m.group(1)}_bev_encoder.layers."
+              f"{m.group(2)}")
+    return _attn_ffn_norm(prefix, m.group(3), w, "deformable_attention.")
+
+
+_ME = "pts_middle_encoder"
+
+
+def _middle(m, w, n_basic):
+    """SparseEncoder variables; ``n_basic[i]`` is stage i's count of basic
+    blocks, which puts its strided conv at index n_basic[i]."""
+    rest = m.group(1)
+    if r := re.fullmatch(r"(conv_input|conv_out)(?:_weight|/weight)", rest):
+        taps = 3 if r.group(1) == "conv_out" else 27
+        return [(f"{_ME}.{r.group(1)}.0.weight", _spconv(w, taps))]
+    if r := re.fullmatch(r"(conv_input|conv_out)(?:_bn|/bn)/(\w+)", rest):
+        return _bn(f"{_ME}.{r.group(1)}.1", r.group(2), w)
+    if r := re.fullmatch(r"stage(\d+)_block(\d+)/conv(\d)/(weight|bn/(\w+))", rest):
+        p = f"{_ME}.encoder_layers.encoder_layer{int(r.group(1)) + 1}.{r.group(2)}"
+        if r.group(4) == "weight":
+            return [(f"{p}.conv{r.group(3)}.weight", _spconv(w, 27))]
+        return _bn(f"{p}.bn{r.group(3)}", r.group(5), w)
+    if r := re.fullmatch(r"down(\d+)_(weight|bn/(\w+))", rest):
+        i = int(r.group(1))
+        p = f"{_ME}.encoder_layers.encoder_layer{i + 1}.{n_basic[i]}"
+        if r.group(2) == "weight":
+            return [(f"{p}.0.weight", _spconv(w, 27))]
+        return _bn(f"{p}.1", r.group(3), w)
+    return None
+
+
+def _second(m, w):
+    stage, kind, i, name = m.groups()
+    p = f"pts_backbone.blocks.{stage}.{3 * int(i) + (kind == 'bn')}"
+    if kind == "conv":
+        return [(f"{p}.weight", _conv(w))]
+    return _bn(p, name, w)
+
+
+def _secondfpn(m, w):
+    i, kind, name = m.groups()
+    if kind == "conv":
+        # a (s, s) kernel with s > 1 is the transposed conv, (1, 1) the conv
+        return [(f"pts_neck.deblocks.{i}.0.weight",
+                 _deconv(w) if w.shape[0] > 1 else _conv(w))]
+    return _bn(f"pts_neck.deblocks.{i}.1", name, w)
 
 
 def _decoder(m, w):
@@ -151,12 +213,15 @@ _RULES: List[Tuple[str, Callable]] = [
     (rf"{_H}/positional_encoding/(row|col)_embed/embedding",
      lambda m, w: [(f"pts_bbox_head.positional_encoding.{m.group(1)}_embed.weight", w)]),
     (rf"{_H}/(cls|reg)_branch(\d+)/(\w+)/(kernel|bias|scale)", _branch),
-    (rf"{_T}/(img_channel_weights|pts_channel_weights|cams_embeds|img_level_embeds)",
+    (rf"{_T}/(img_channel_weights|pts_channel_weights|cams_embeds|img_level_embeds"
+     r"|pts_level_embeds)",
      lambda m, w: [(f"pts_bbox_head.transformer.{m.group(1)}", w)]),
     (rf"{_T}/reference_points/(kernel|bias)",
      lambda m, w: [(f"pts_bbox_head.transformer.reference_points.{_WB[m.group(1)]}",
                  _dense(m.group(1), w))]),
-    (rf"{_T}/img_encoder/layer(\d+)/(.+)", _encoder),
+    (rf"{_T}/(img|pts)_encoder/layer(\d+)/(.+)", _encoder),
+    (r"pts_backbone/block(\d+)_(conv|bn)(\d+)/(kernel|\w+)", _second),
+    (r"pts_neck/deblock(\d+)_(conv|bn)/(\w+)", _secondfpn),
     (rf"{_T}/decoder/layer(\d+)/(.+)", _decoder),
 ]
 
@@ -174,16 +239,28 @@ def _pack_in_proj(parts: Dict) -> Dict[str, np.ndarray]:
     return out
 
 
+def _basic_blocks(variables) -> Dict[int, int]:
+    """Stage -> basic-block count of the SparseEncoder in ``variables``."""
+    n: Dict[int, int] = {}
+    for path, _ in _flatten(variables.get("params", {}).get(_ME, {})):
+        if m := re.fullmatch(r"stage(\d+)_block(\d+)", path[0]):
+            i, j = int(m.group(1)), int(m.group(2))
+            n[i] = max(n.get(i, 0), j + 1)
+    return n
+
+
 def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
-    """The port's state_dict from the JAX camera-only UniBEV's variables."""
+    """The port's state_dict from the JAX UniBEV's variables."""
     out: Dict[str, np.ndarray] = {}
     in_proj: Dict = {}
     unknown = []
-    for col in ("params", "constants"):
+    n_basic = _basic_blocks(variables)
+    rules = _RULES + [(_ME + r"/(.+)", lambda m, w: _middle(m, w, n_basic))]
+    for col in ("params", "constants", "batch_stats"):
         for path, w in _flatten(variables.get(col, {})):
             joined = "/".join(path)
             items = None
-            for pattern, handler in _RULES:
+            for pattern, handler in rules:
                 if m := re.fullmatch(pattern, joined):
                     items = handler(m, w)
                     break
@@ -198,4 +275,4 @@ def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     if unknown:
         raise KeyError(f"no port key for JAX variables: {unknown}")
     out.update(_pack_in_proj(in_proj))
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
