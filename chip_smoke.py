@@ -45,12 +45,40 @@ then, each phase printing one line (or a few) and raising on any failure:
      conv's overflow;
  14. L predict on the same model (the batch without images): launch counts
      (12 K1, 0 K2, 8 K6, 21 K7) and ms per sample;
- 15. torch.profiler breakdowns of one LC and one L forward by kernel.
+ 15. torch.profiler breakdowns of one LC and one L forward by kernel;
+ 16. the sparse conv's backward against its plain versions at every
+     flagship LiDAR site: K8 sparse_inv_nbr exactly at its 4 sites, K9
+     sparse_conv_wgrad at its 21 (f32 with TF32 off, and bf16; the 4
+     submanifold convs of a resolution share a rulebook and take fresh
+     data each), and
+     SparseConvFn's d_feats (K7 with the transposed weights, over the
+     rulebook or K8's inverse one) against autograd through the plain
+     forward, with the times of kernels and plain versions;
+ 17. one tiny LC train step on CUDA against the same step on the CPU, the
+     LiDAR modules in train mode (batch statistics, sparse backward) and the
+     rest in eval mode, so that nothing draws: losses, gradients, updates
+     and the LiDAR running statistics;
+ 18. the full-width flagship LC train step (float32 parameters, bf16
+     autocast, modality dropout, GridMask and dropout on): launch counts of
+     one step against the counts derived from the call sites (K6 8, K7 41,
+     K8 4, K9 21 and K1-K5 with the LiDAR MSDA sites), s/step (median of 10
+     after 3 warm-ups) with the flags each step drew, peak memory, finite
+     losses, SCA overflow on the camera-live steps, frozen parameters
+     bit-identical, LiDAR running statistics moved;
+ 19. a torch.profiler breakdown of one LC train step by kernel.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Numbers are also written to
-chiprun_out/chip_smoke.json.  Exits non-zero without a CUDA device or when
-any phase fails.
+Each kernel's entry in the line before the last gives its launches on the
+path it serves (K1, K2, K6, K7: one LC predict; K3-K5, K8, K9: one LC train
+step), its time summed over that path's call sites (CUDA events), its plain
+version's, the least time the card could take for the same work
+(``bound_ms``: the larger of the bytes each call must move over 3.35 TB/s
+and its operations over 989 TFLOP/s, the H100 SXM's HBM3 and dense bf16
+peaks, counting the rulebook entries this run's data holds), and the time
+of one PyTorch call computing the same function where there is one
+(``library_ms``, K5's float32 ``index_add_``; the port never calls it).
+The last line is {"ok": true, "device": {...}}.  The numbers also go to
+chip_smoke.json in the output directory beside this script.  Exits non-zero
+without a CUDA device or when any phase fails.
 """
 
 from __future__ import annotations
@@ -83,8 +111,10 @@ from unibev_tpu_torch.ops.scatter import (bwd_chunks,  # noqa: E402
                                           scatter_add_rows,
                                           scatter_add_rows_reference)
 from unibev_tpu_torch.ops.sparse_conv import (  # noqa: E402
-    SparseGrid, build_table, downsample_with_table, sparse_conv,
-    sparse_conv_reference, sparse_nbr, sparse_nbr_reference)
+    SparseGrid, build_table, downsample_with_table, gather_conv, sparse_conv,
+    sparse_conv_reference, sparse_conv_wgrad, sparse_conv_wgrad_reference,
+    sparse_inv_nbr, sparse_inv_nbr_reference, sparse_nbr, sparse_nbr_reference,
+    tap_transpose)
 from unibev_tpu_torch.ops.voxelize import voxelize_and_encode  # noqa: E402
 from unibev_tpu_torch.parallel.train_state import (make_optimizer,  # noqa: E402
                                                    train_step)
@@ -102,16 +132,27 @@ TINY_REL_TOL = 1e-3     # CPU vs CUDA through a depth-50 backbone, f32, TF32 off
 # points 1e-3 pixels or more inside a cell (cell_interior / tap_interior).
 BWD_REL_TOL = REL_TOL
 SCATTER_REL_TOL = 1e-5
+# K9 sums its row spans with float32 atomics in no fixed order: f32 1e-4;
+# bf16 inputs 2^-6 (the products are exact in float32 either way).
+WGRAD_REL_TOL = REL_TOL
+
+# The least time of a call: the larger of its bytes (each input read once,
+# each output written once) over the H100 SXM's HBM3 rate and its
+# operations over the H100 SXM's dense bf16 tensor-core peak; the card's
+# name and power limit are printed beside every number.
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 
 # (name, calls per flagship forward, B, V, Q, heads, D, levels, points):
 # the camera-only path's sites (forward and train step), then the LiDAR
-# cross-attention's, which LC adds (forward only)
+# encoder's, which LC adds
 MSDA_SITES = [
     ("tsa", 3, 1, 40000, 40000, 8, 32, ((200, 200),), 4),
     ("camera_sca", 3, 6, 1450, 10240, 8, 32, ((29, 50),), 8),
     ("decoder_ca", 6, 1, 40000, 900, 8, 32, ((200, 200),), 4),
 ]
 LIDAR_MSDA_SITES = [
+    ("pts_tsa", 3, 1, 40000, 40000, 8, 32, ((200, 200),), 4),
     ("pts_sca", 3, 1, 32400, 40000, 8, 32, ((180, 180),), 8),
 ]
 # (name, calls per flagship forward, B, H, W, Cin, Cout)
@@ -133,6 +174,39 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def new_rec():
+    """A kernel's record: times summed over its call sites (calls x ms per
+    call), worst error, the least times, and the sites."""
+    return dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, bound_ms=0.0,
+                bytes_ms=0.0, ops_ms=0.0, sites={})
+
+
+def add_site(rec, site, calls, ms, plain, err, nbytes, ops, **extra):
+    """Add one call site (``calls`` launches per path, ``ms`` / ``plain``
+    per call) with its bytes and operations to ``rec``; returns the site's
+    least time per call in ms."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    rec["sites"][site] = dict(ms=ms, plain_ms=plain, calls=calls, err=err,
+                              bytes=nbytes, ops=ops, bound_ms=bound, **extra)
+    for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                 ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+        rec[k] += calls * v
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    return bound
+
+
+def kernel_entry(name, source, replaces, launches, rec, library_ms=None):
+    """One entry of the ``kernels`` line."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=rec["max_abs_err"],
+                ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"],
+                bound_by="bytes" if rec["bytes_ms"] >= rec["ops_ms"]
+                else "operations", library_ms=library_ms)
 
 
 def check(name, got, want, rel):
@@ -171,7 +245,7 @@ def _dcn_inputs(gen, B, H, W, Cin, dtype):
 
 def phase_msda(gen):
     print("phase 2: K1 msda_fwd vs ms_deform_attn_reference", flush=True)
-    rec = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
+    rec = new_rec()
     for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES + LIDAR_MSDA_SITES:
         for dtype in (torch.float32, torch.bfloat16):
             value, loc, attn = _msda_inputs(gen, B, V, Q, heads, D, levels, P,
@@ -182,18 +256,19 @@ def phase_msda(gen):
             if dtype is torch.bfloat16:
                 ms = cuda_ms(lambda: ms_deform_attn(value, levels, loc, attn), 20)
                 plain = cuda_ms(lambda: ms_deform_attn_reference(value, levels, loc, attn), 5)
-                print(f"  {name} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-                      f"(x{calls} per forward)", flush=True)
-                rec["sites"][name] = dict(ms=ms, plain_ms=plain, calls=calls, err=err)
-                rec["ms"] += calls * ms
-                rec["plain_ms"] += calls * plain
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                # value, loc (f32), attn, out; 4 corners x D FMAs per point
+                pts = B * Q * heads * len(levels) * P
+                bound = add_site(rec, name, calls, ms, plain, err,
+                                 2 * B * V * heads * D + 10 * pts
+                                 + 2 * B * Q * heads * D, 8 * D * pts)
+                print(f"  {name} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                      f"bound {bound:.4f} ms (x{calls} per forward)", flush=True)
     return rec
 
 
 def phase_dcn(gen):
     print("phase 3: K2 dcn_im2col vs deform_im2col_reference", flush=True)
-    rec = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
+    rec = new_rec()
     for name, calls, B, H, W, Cin, Cout in DCN_SITES:
         for dtype in (torch.float32, torch.bfloat16):
             x, off, mask = _dcn_inputs(gen, B, H, W, Cin, dtype)
@@ -207,12 +282,13 @@ def phase_dcn(gen):
             if dtype is torch.bfloat16:
                 ms = cuda_ms(lambda: deform_im2col(x, off, mask), 20)
                 plain = cuda_ms(lambda: deform_im2col_reference(x, off, mask), 5)
-                print(f"  {name} bf16 im2col: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-                      f"(x{calls} per forward)", flush=True)
-                rec["sites"][name] = dict(ms=ms, plain_ms=plain, calls=calls, err=err)
-                rec["ms"] += calls * ms
-                rec["plain_ms"] += calls * plain
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                # x, offsets, mask, columns; 4 corners x Cin FMAs per tap
+                pix = B * H * W
+                bound = add_site(rec, name, calls, ms, plain, err,
+                                 2 * pix * (Cin + 27 + 9 * Cin),
+                                 8 * pix * 9 * Cin)
+                print(f"  {name} bf16 im2col: kernel {ms:.4f} ms, plain {plain:.4f} "
+                      f"ms, bound {bound:.4f} ms (x{calls} per forward)", flush=True)
     return rec
 
 
@@ -286,17 +362,13 @@ def phase_flagship(iters=10):
 def phase_backward(gen):
     print("phase 7: K3 msda_bwd, K4 dcn_bwd (with their K5 scatter-adds) and "
           "K5 scatter_add_rows vs plain versions", flush=True)
-    recs = {k: dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
-            for k in ("msda_bwd", "dcn_bwd", "scatter_add_rows")}
+    recs = {k: new_rec() for k in ("msda_bwd", "dcn_bwd", "scatter_add_rows")}
+    recs["scatter_add_rows"]["library_ms"] = 0.0
 
-    def record(kernel, site, calls, ms, plain, err):
-        rec = recs[kernel]
-        rec["sites"][site] = dict(ms=ms, plain_ms=plain, calls=calls, err=err)
-        rec["ms"] += calls * ms
-        rec["plain_ms"] += calls * plain
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    def record(kernel, site, calls, ms, plain, err, nbytes, ops):
+        bound = add_site(recs[kernel], site, calls, ms, plain, err, nbytes, ops)
         print(f"  {kernel} {site} bf16: kernel {ms:.4f} ms, plain {plain:.4f} "
-              f"ms (x{calls} per train step)", flush=True)
+              f"ms, bound {bound:.4f} ms (x{calls} per train step)", flush=True)
 
     def scatter_site(site, calls, M, L, tr):
         idx = torch.randint(0, tr, (M,), device="cuda", generator=gen,
@@ -305,12 +377,20 @@ def phase_backward(gen):
         err = check(f"{site} scatter", scatter_add_rows(idx, contrib, tr),
                     scatter_add_rows_reference(idx, contrib, tr),
                     SCATTER_REL_TOL)
+        # the library call: index_add_ into a float32 table, its inputs
+        # converted beforehand
+        table = torch.zeros(tr, L, device="cuda")
+        idx64, contrib32 = idx.long(), contrib.float()
+        lib = cuda_ms(lambda: table.index_add_(0, idx64, contrib32), 20)
+        recs["scatter_add_rows"]["library_ms"] += calls * lib
         record("scatter_add_rows", site, calls,
                cuda_ms(lambda: scatter_add_rows(idx, contrib, tr), 20),
                cuda_ms(lambda: scatter_add_rows_reference(idx, contrib, tr), 5),
-               err)
+               err, 4 * M + 2 * M * L + 4 * tr * L, M * L)
+        recs["scatter_add_rows"]["sites"][site]["library_ms"] = lib
+        print(f"  index_add_ {site}: {lib:.4f} ms", flush=True)
 
-    for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES:
+    for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES + LIDAR_MSDA_SITES:
         for dtype in (torch.float32, torch.bfloat16):
             value, loc, attn = _msda_inputs(gen, B, V, Q, heads, D, levels, P,
                                             dtype)
@@ -327,10 +407,15 @@ def phase_backward(gen):
             print(f"  ({int((~interior).sum())} of {interior.numel()} points "
                   f"on a cell edge left out of d_loc)", flush=True)
             if dtype is torch.bfloat16:
+                # value, loc, attn, g in; d_value, d_loc, d_attn out; three
+                # 4-corner x D products per point
+                pts = B * Q * heads * len(levels) * P
                 record("msda_bwd", name, calls,
                        cuda_ms(lambda: ms_deform_attn_backward(value, levels, loc,
                                                                attn, g), 10),
-                       cuda_ms(plain, 3), max(errs))
+                       cuda_ms(plain, 3), max(errs),
+                       4 * B * V * heads * D + 20 * pts + 2 * B * Q * heads * D,
+                       24 * D * pts)
             del plain, got
         chunk = bwd_chunks(B * Q, heads * len(levels) * P * 4 * D * 2)
         scatter_site(name, calls * len(chunk), chunk[0][1] * heads * len(levels)
@@ -352,10 +437,13 @@ def phase_backward(gen):
             print(f"  ({int((~interior).sum()) // 2} of {interior.numel() // 2} "
                   f"taps on a cell edge left out of d_offset)", flush=True)
             if dtype is torch.bfloat16:
+                # x, offsets, mask, d_cols in; d_x, d_offset, d_mask out
+                pix = B * H * W
                 record("dcn_bwd", name, calls,
                        cuda_ms(lambda: deform_im2col_backward(x, off, mask,
                                                               d_cols), 10),
-                       cuda_ms(plain, 3), max(errs))
+                       cuda_ms(plain, 3), max(errs),
+                       2 * pix * (2 * Cin + 54 + 9 * Cin), 24 * pix * 9 * Cin)
             del plain, got
         chunk = bwd_chunks(B * H * W, 9 * 4 * Cin * 2)
         scatter_site(name, calls * len(chunk), chunk[0][1] * 36, Cin, B * H * W)
@@ -363,19 +451,34 @@ def phase_backward(gen):
     return recs
 
 
-def expected_train_launches():
-    """Kernel launches of one flagship C train step, from the call sites:
-    K1 once per MSDA call; K2 once per DCN call and once more in the
-    backbone's checkpoint recompute; K3 and K4 once per chunk of their
-    call's contribution rows (bf16, ops/scatter.py::bwd_chunks); K5 once
-    after each K3 or K4 launch."""
+def expected_train_launches(lidar=False):
+    """Kernel launches of one flagship train step, C or (``lidar``) LC, from
+    the call sites: K1 once per MSDA call; K2 once per DCN call and once
+    more in the backbone's checkpoint recompute; K3 and K4 once per chunk of
+    their call's contribution rows (bf16, ops/scatter.py::bwd_chunks); K5
+    once after each K3 or K4 launch.  LC adds the LiDAR encoder's MSDA
+    sites and the sparse encoder: one K6 rulebook per resolution and per
+    strided conv, K7 once per conv forward and once per conv but conv_input
+    backward (d_feats; the voxel features need none), K8 once per strided
+    conv, K9 once per conv."""
+    sites = MSDA_SITES + (LIDAR_MSDA_SITES if lidar else [])
     msda_bwd = sum(calls * len(bwd_chunks(B * Q, heads * len(lv) * P * 4 * D * 2))
-                   for _, calls, B, _, Q, heads, D, lv, P in MSDA_SITES)
+                   for _, calls, B, _, Q, heads, D, lv, P in sites)
     dcn_bwd = sum(calls * len(bwd_chunks(B * H * W, 9 * 4 * Cin * 2))
                   for _, calls, B, H, W, Cin, _ in DCN_SITES)
-    return dict(msda_fwd=sum(s[1] for s in MSDA_SITES), msda_bwd=msda_bwd,
-                dcn_im2col=2 * sum(s[1] for s in DCN_SITES), dcn_bwd=dcn_bwd,
-                scatter_add_rows=msda_bwd + dcn_bwd)
+    out = dict(msda_fwd=sum(s[1] for s in sites), msda_bwd=msda_bwd,
+               dcn_im2col=2 * sum(s[1] for s in DCN_SITES), dcn_bwd=dcn_bwd,
+               scatter_add_rows=msda_bwd + dcn_bwd)
+    if lidar:
+        last = len(ENCODER_CHANNELS) - 1
+        subm = sum(2 * (len(c) - 1 if i < last else len(c))
+                   for i, c in enumerate(ENCODER_CHANNELS))
+        strided = len(DOWN_PADDINGS) + 1                    # and conv_out
+        convs = 1 + subm + strided                          # and conv_input
+        out.update(sparse_nbr=len(ENCODER_CHANNELS) + strided,
+                   sparse_conv=2 * convs - 1, sparse_inv_nbr=strided,
+                   sparse_conv_wgrad=convs)
+    return out
 
 
 def check_each(prefix, got, want, rel, floor=1e-12):
@@ -395,12 +498,31 @@ def check_each(prefix, got, want, rel, floor=1e-12):
     return worst
 
 
-def phase_tiny_train():
-    print("phase 8: tiny C-only train step, CUDA kernels vs CPU plain versions",
-          flush=True)
-    cpu_model = build_model(tiny_model_cfg(), "cpu", seed=0, train=True).eval()
+# The LiDAR branch's modules: their BatchNorms use batch statistics in train
+# mode and update their running statistics.
+LIDAR_MODULES = ("pts_middle_encoder", "pts_backbone", "pts_neck")
+
+
+def lidar_running_stats(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers()
+            if n.startswith(LIDAR_MODULES) and n.endswith(("running_mean",
+                                                             "running_var"))}
+
+
+def phase_tiny_train(lidar=False):
+    if lidar:
+        print("phase 17: tiny LC train step, CUDA kernels vs CPU plain "
+              "versions, the LiDAR modules in train mode", flush=True)
+    else:
+        print("phase 8: tiny C-only train step, CUDA kernels vs CPU plain "
+              "versions", flush=True)
+    cpu_model = build_model(tiny_model_cfg(use_lidar=lidar), "cpu", seed=0,
+                            train=True).eval()
+    for name in LIDAR_MODULES if lidar else ():
+        getattr(cpu_model, name).train()       # batch statistics; no draws
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     start = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    stats0 = lidar_running_stats(cpu_model)
     batch = tiny_batch(np.random.RandomState(0))
     gpu_batch = {k: v.to("cuda") for k, v in batch.items()}
     metrics = []
@@ -410,7 +532,11 @@ def phase_tiny_train():
         metrics.append(train_step(model, opt, sched, b))
         torch.cuda.synchronize()
     launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
-    if not {"msda_bwd", "dcn_bwd", "scatter_add_rows"} <= launched:
+    need = {"msda_bwd", "dcn_bwd", "scatter_add_rows"}
+    if lidar:
+        need |= {"sparse_nbr", "sparse_conv", "sparse_inv_nbr",
+                 "sparse_conv_wgrad"}
+    if not need <= launched:
         raise AssertionError(f"the tiny CUDA step launched only {launched}")
     cpu_p = dict(cpu_model.named_parameters())
     gpu_p = {n: p.detach().cpu() for n, p in gpu_model.named_parameters()}
@@ -419,6 +545,13 @@ def phase_tiny_train():
         losses=check_each("losses", metrics[1], metrics[0], TINY_REL_TOL),
         grads=check_each("gradients", {n: gpu_model.get_parameter(n).grad
                                        for n in grads}, grads, TINY_REL_TOL))
+    if lidar:
+        want = lidar_running_stats(cpu_model)
+        if any(torch.equal(want[n], stats0[n]) for n in want):
+            raise AssertionError("a LiDAR running statistic did not move")
+        rec["running_stats"] = check_each(
+            "LiDAR running statistics", lidar_running_stats(gpu_model), want,
+            TINY_REL_TOL)
     want, sure = {}, {}
     for n, g in grads.items():
         want[n] = cpu_p[n].detach() - start[n]
@@ -471,16 +604,21 @@ def phase_tiny_train():
     return rec
 
 
-def phase_flagship_train(iters=10):
-    print("phase 9: full-width flagship camera-only train step (f32 params, "
-          "bf16 autocast)", flush=True)
-    model = build_flagship(use_lidar=False, device="cuda", dtype=torch.bfloat16,
+def phase_flagship_train(iters=10, lidar=False):
+    if lidar:
+        print("phase 18: full-width flagship LC train step (f32 params, bf16 "
+              "autocast, modality dropout)", flush=True)
+    else:
+        print("phase 9: full-width flagship camera-only train step (f32 "
+              "params, bf16 autocast)", flush=True)
+    model = build_flagship(use_lidar=lidar, device="cuda", dtype=torch.bfloat16,
                            seed=0, train=True)
     batch = synthetic_batch(np.random.RandomState(0), device="cuda")
     opt, sched = make_optimizer(model)
     gen = torch.Generator(device="cuda").manual_seed(0)
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if not p.requires_grad}
+    stats0 = lidar_running_stats(model)
     for _ in range(3):                                     # warm-up
         train_step(model, opt, sched, batch, gen)
     torch.cuda.synchronize()
@@ -490,37 +628,54 @@ def phase_flagship_train(iters=10):
     torch.cuda.reset_peak_memory_stats()
     metrics = train_step(model, opt, sched, batch, gen)
     torch.cuda.synchronize()
-    launches = dict(_build.launches)
+    launches = {k: v for k, v in _build.launches.items() if v}
     peak = torch.cuda.max_memory_allocated()
 
-    times = []
+    times, steps = [], []
     for _ in range(iters):
         t0 = time.perf_counter()
-        train_step(model, opt, sched, batch, gen)
+        m = train_step(model, opt, sched, batch, gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        steps.append({k: float(m[k]) for k in ("loss", "sca_overflow",
+                                               "l_flag", "c_flag")})
     s_step = float(np.median(times))
     values = {k: float(v) for k, v in metrics.items()}
-    overflow = int(values.pop("sca_overflow"))
-    finite = all(np.isfinite(v) for v in values.values())
+    finite = all(np.isfinite(v) for v in values.values()) and all(
+        np.isfinite(st["loss"]) for st in steps)
+    # the camera branch runs on every step; its overflow counts where the
+    # fusion keeps it
+    overflow = max([int(values["sca_overflow"])]
+                   + [int(st["sca_overflow"]) for st in steps
+                      if st["c_flag"] == 1.0])
     still = all(torch.equal(p, frozen[n]) for n, p in model.named_parameters()
                 if n in frozen)
-    expected = expected_train_launches()
+    stats = lidar_running_stats(model)
+    moved = [n for n in stats if not torch.equal(stats[n], stats0[n])]
+    expected = expected_train_launches(lidar)
+    flags = [(st["l_flag"], st["c_flag"]) for st in steps]
     rec = dict(s_per_step=s_step, s_min=min(times), s_max=max(times),
-               iters=iters, peak_bytes=peak, launches=launches,
-               expected_launches=expected, metrics=values,
+               iters=iters, times=times, peak_bytes=peak, launches=launches,
+               expected_launches=expected, metrics=values, steps=steps,
                sca_overflow=overflow, finite=finite,
-               frozen_params=len(frozen), frozen_unchanged=still)
+               frozen_params=len(frozen), frozen_unchanged=still,
+               lidar_stats=len(stats), lidar_stats_moved=len(moved))
     print(f"  {s_step:.4f} s/step (median of {iters}; min {min(times):.4f}, "
           f"max {max(times):.4f}); peak {peak / 2 ** 30:.2f} GiB; loss "
           f"{values['loss']:.4f} grad_norm {values['grad_norm']:.4f}; "
           f"sca_overflow {overflow}; {len(frozen)} frozen parameters "
-          f"unchanged {still}", flush=True)
+          f"unchanged {still}; LiDAR running statistics moved {len(moved)} of "
+          f"{len(stats)}", flush=True)
+    if lidar:
+        print(f"  flags (l, c) of the timed steps: {flags}", flush=True)
     print(f"  launches per step {launches} (expected {expected})", flush=True)
     if launches != expected:
         raise AssertionError(f"launches per step {launches} != {expected}")
     if overflow != 0 or not finite or not still or not frozen:
         raise AssertionError(f"bad flagship train step: {rec}")
+    if len(moved) != len(stats) or (lidar and not stats):
+        raise AssertionError(f"LiDAR running statistics moved: {len(moved)} "
+                             f"of {len(stats)}")
     return model, opt, sched, batch, gen, rec
 
 
@@ -536,11 +691,13 @@ CAPACITIES = (120000, 90000, 60000, 40000)
 def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
                 sparse_shape=SPARSE_SHAPE, capacities=CAPACITIES):
     """The flagship LiDAR branch's rulebooks on one cloud, as the
-    SparseEncoder builds them: (K6 sites, K7 sites, counts).
+    SparseEncoder builds them: (K6 sites, K7 sites, K8 sites, counts).
 
-    A K6 site is (name, sparse_nbr arguments); a K7 site is (name, calls per
-    forward, Cin, Cout, rows of its input, rulebook, output mask).  The
-    counts are the voxels before the cap and each strided conv's overflow.
+    A K6 site is (name, sparse_nbr arguments); a K7 site (also K9's) is
+    (name, calls per forward, Cin, Cout, rows of its input, rulebook, output
+    mask); a K8 site is (name, sparse_inv_nbr arguments) of a strided conv.
+    The counts are the voxels before the cap and each strided conv's
+    overflow.
     """
     mask = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
     vox = voxelize_and_encode(points, mask, *voxel, capacities[0])
@@ -548,7 +705,7 @@ def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
     coords = torch.where(vox.mask[:, None], torch.cat([zero, vox.coords], 1), -1)
     grid = SparseGrid(coords.contiguous(), vox.mask, sparse_shape, 1)
     table = build_table(grid)
-    k6, k7, overflow = [], [], []
+    k6, k7, k8, overflow = [], [], [], []
 
     def subm(i, grid, table):
         args = (table, grid.coords.shape[0], grid.shape, grid.coords,
@@ -564,6 +721,8 @@ def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
         args = (table, grid.coords.shape[0], grid.shape, co, mo, kernel,
                 stride, padding)
         k6.append((name, args))
+        k8.append((name, (table_out, capacity, out_shape, grid.coords,
+                          grid.mask, kernel, stride, padding)))
         overflow.append(int(over))
         return (SparseGrid(co, mo, out_shape, 1), table_out,
                 sparse_nbr_reference(*args))
@@ -587,19 +746,28 @@ def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
     k7.append(("conv_out", 1, 128, 128, rows, sidx, grid.mask))
     counts = dict(num_distinct_voxels=int(vox.num_distinct),
                   num_voxels=int(vox.num_voxels), sparse_overflow=overflow)
-    return k6, k7, counts
+    return k6, k7, k8, counts
+
+
+def _live(idx, sentinel):
+    """Rulebook entries that hold a row: the taps this run's data has."""
+    return int((idx < sentinel).sum())
 
 
 def phase_sparse(gen):
     print("phase 11: K6 sparse_nbr and K7 sparse_conv vs their plain versions "
           "at the flagship LiDAR sites", flush=True)
     points = synthetic_batch(np.random.RandomState(0), device="cuda")["points"][0]
-    k6, k7, counts = lidar_sites(points)
+    k6, k7, _, counts = lidar_sites(points)
     mask = torch.ones(points.shape[0], dtype=torch.bool, device="cuda")
     counts["voxelizer_ms"] = cuda_ms(lambda: voxelize_and_encode(
         points, mask, VOXEL_SIZE, PC_RANGE, VOXEL_GRID, CAPACITIES[0]), 10)
+    # points and mask in; per voxel f32 features, int32 coords and mask out
+    P, F = points.shape
+    counts["voxelizer_bound_ms"] = ((4 * F + 1) * P + (4 * F + 13)
+                                    * CAPACITIES[0]) / HBM_BYTES_PER_S * 1e3
     print(f"  voxelized synthetic batch: {counts}", flush=True)
-    rec6 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
+    rec6 = new_rec()
     for name, args in k6:
         got, want = sparse_nbr(*args), sparse_nbr_reference(*args)
         if not torch.equal(got, want):
@@ -607,16 +775,18 @@ def phase_sparse(gen):
                                  f"entries differ from the plain version")
         ms = cuda_ms(lambda: sparse_nbr(*args), 20)
         plain = cuda_ms(lambda: sparse_nbr_reference(*args), 5)
-        live = int((want < args[1]).sum())
-        print(f"  K6 {name}: {tuple(want.shape)} equal ({live} live entries); "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
-        rec6["sites"][name] = dict(ms=ms, plain_ms=plain, calls=1,
-                                   shape=list(want.shape), live=live)
-        rec6["ms"] += ms
-        rec6["plain_ms"] += plain
-    rec7 = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, sites={})
+        live = _live(want, args[1])
+        Vout, K = want.shape
+        # coords, mask, the table entries that hold a row, the rulebook
+        bound = add_site(rec6, name, 1, ms, plain, 0.0,
+                         17 * Vout + 4 * live + 4 * Vout * K, 0,
+                         shape=[Vout, K], live=live)
+        print(f"  K6 {name}: {(Vout, K)} equal ({live} live entries); "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms",
+              flush=True)
+    rec7 = new_rec()
     for name, calls, cin, cout, rows, nidx, mask in k7:
-        K = nidx.shape[1]
+        Vout, K = nidx.shape
         for dtype in (torch.float32, torch.bfloat16):
             feats = torch.randn(rows, cin, device="cuda", generator=gen).to(dtype)
             w = (torch.randn(K * cin, cout, device="cuda", generator=gen)
@@ -626,17 +796,112 @@ def phase_sparse(gen):
             if dtype is torch.bfloat16:
                 ms = cuda_ms(lambda: sparse_conv(feats, nidx, w, mask), 10)
                 plain = cuda_ms(lambda: sparse_conv_reference(feats, nidx, w, mask), 5)
-                print(f"  K7 {name} bf16 ({nidx.shape[0]} x {K} taps, {cin} -> "
-                      f"{cout}): kernel {ms:.4f} ms, plain {plain:.4f} ms "
-                      f"(x{calls} per forward)", flush=True)
-                rec7["sites"][name] = dict(ms=ms, plain_ms=plain, calls=calls,
-                                           err=err)
-                rec7["ms"] += calls * ms
-                rec7["plain_ms"] += calls * plain
-                rec7["max_abs_err"] = max(rec7["max_abs_err"], err)
+                live = _live(nidx, rows)
+                # feats, rulebook, weight, mask, out; a product per live tap
+                bound = add_site(rec7, name, calls, ms, plain, err,
+                                 2 * rows * cin + 4 * Vout * K
+                                 + 2 * K * cin * cout + Vout + 2 * Vout * cout,
+                                 2 * live * cin * cout, live=live)
+                print(f"  K7 {name} bf16 ({Vout} x {K} taps, {live} live, {cin} "
+                      f"-> {cout}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                      f"bound {bound:.4f} ms (x{calls} per forward)", flush=True)
     del k6, k7
     torch.cuda.empty_cache()
     return rec6, rec7, counts
+
+
+def phase_sparse_backward(gen):
+    print("phase 16: the sparse conv's backward at the flagship LiDAR sites: "
+          "K8 sparse_inv_nbr, K9 sparse_conv_wgrad and SparseConvFn's d_feats "
+          "(K7) vs their plain versions", flush=True)
+    points = synthetic_batch(np.random.RandomState(0), device="cuda")["points"][0]
+    _, k7, k8, _ = lidar_sites(points)
+    rec8, rec9, rec_df = new_rec(), new_rec(), new_rec()
+    inv = {}
+    for name, args in k8:
+        got, want = sparse_inv_nbr(*args), sparse_inv_nbr_reference(*args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K8 {name}: {int((got != want).sum())} "
+                                 f"entries differ from the plain version")
+        ms = cuda_ms(lambda: sparse_inv_nbr(*args), 20)
+        plain = cuda_ms(lambda: sparse_inv_nbr_reference(*args), 5)
+        live = _live(want, args[1])
+        Vin, K = want.shape
+        bound = add_site(rec8, name, 1, ms, plain, 0.0,
+                         17 * Vin + 4 * live + 4 * Vin * K, 0,
+                         shape=[Vin, K], live=live)
+        print(f"  K8 {name}: {(Vin, K)} equal ({live} live entries); kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms",
+              flush=True)
+        inv[name] = want
+    for name, calls, cin, cout, rows, nidx, mask in k7:
+        Vout, K = nidx.shape
+        live = _live(nidx, rows)
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = []
+            for call in range(calls):       # each launch of a step, new data
+                feats = torch.randn(rows, cin, device="cuda", generator=gen).to(dtype)
+                g = torch.randn(Vout, cout, device="cuda", generator=gen).to(dtype)
+                errs.append(check(
+                    f"K9 {name}{f' #{call}' if calls > 1 else ''} "
+                    f"{str(dtype)[6:]}", sparse_conv_wgrad(feats, nidx, g),
+                    sparse_conv_wgrad_reference(feats, nidx, g),
+                    WGRAD_REL_TOL[dtype]))
+            err = max(errs)
+            if dtype is torch.bfloat16:
+                ms = cuda_ms(lambda: sparse_conv_wgrad(feats, nidx, g), 10)
+                plain = cuda_ms(lambda: sparse_conv_wgrad_reference(feats, nidx, g), 5)
+                # feats, rulebook, g in, the float32 dW out
+                bound = add_site(rec9, name, calls, ms, plain, err,
+                                 2 * rows * cin + 4 * Vout * K + 2 * Vout * cout
+                                 + 4 * K * cin * cout, 2 * live * cin * cout,
+                                 live=live)
+                print(f"  K9 {name} bf16 ({Vout} x {K} taps, {live} live, {cin} "
+                      f"-> {cout}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                      f"bound {bound:.4f} ms (x{calls} per step)", flush=True)
+        if name == "conv_input":
+            continue            # the voxel features take no gradient
+        subm = name.startswith("subm")
+        idx = nidx if subm else inv[name]
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = torch.randn(rows, cin, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(K * cin, cout, device="cuda", generator=gen)
+                 * (K * cin) ** -0.5).to(dtype)
+            g = torch.randn(Vout, cout, device="cuda", generator=gen).to(dtype)
+            f = feats.clone().requires_grad_()
+            got = torch.autograd.grad(sparse_conv(f, nidx, w, mask,
+                                                  None if subm else idx), f, g)[0]
+            # held against the plain backward in float32 on the same
+            # (bf16-exact) values: a bf16 plain backward rounds every
+            # scattered row, the kernel only its float32 sums
+            want = _plain_backward(
+                lambda x: sparse_conv_reference(x, nidx, w.float(), mask),
+                (feats.float(),), g.float())()[0]
+            err = check(f"d_feats {name} {str(dtype)[6:]}", got, want,
+                        BWD_REL_TOL[dtype])
+            del got, want
+            if dtype is torch.bfloat16:
+                plain = _plain_backward(
+                    lambda x: sparse_conv_reference(x, nidx, w, mask), (feats,), g)
+                # the backward's K7 launch alone, at the transposed shape
+                gm = torch.where(mask[:, None], g, 0.0).contiguous()
+                wt = tap_transpose(w, K, subm)
+                out_mask = mask if subm else torch.ones(
+                    rows, dtype=torch.bool, device="cuda")
+                ms = cuda_ms(lambda: gather_conv(gm, idx, wt, out_mask), 10)
+                plain_ms = cuda_ms(plain, 3)
+                bound = add_site(rec_df, name, calls, ms, plain_ms, err,
+                                 2 * Vout * cout + 4 * rows * K
+                                 + 2 * K * cin * cout + rows + 2 * rows * cin,
+                                 2 * live * cin * cout, live=live)
+                print(f"  K7 d_feats {name} bf16 ({rows} x {K} taps, {cout} -> "
+                      f"{cin}): kernel {ms:.4f} ms, plain backward "
+                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms (x{calls} per "
+                      f"step)", flush=True)
+                del plain
+    del k7, k8, inv
+    torch.cuda.empty_cache()
+    return rec8, rec9, rec_df
 
 
 def phase_tiny_lc():
@@ -741,6 +1006,10 @@ def _category(kernel_name):
         return "K4 dcn_bwd"
     if "scatter_add_rows" in n:
         return "K5 scatter_add_rows"
+    if "sparse_inv_nbr" in n:
+        return "K8 sparse_inv_nbr"
+    if "sparse_wgrad" in n:
+        return "K9 sparse_conv_wgrad"
     if "sparse_nbr" in n:
         return "K6 sparse_nbr"
     if "sparse_conv" in n:
@@ -806,9 +1075,9 @@ def phase_profile_lidar(model, lc_batch, l_batch, lc_ms, l_ms):
     return lc, _profile(lambda: model.predict(l_batch), l_ms)
 
 
-def phase_profile_train(model, opt, sched, batch, gen, wall_ms):
-    print("phase 10: torch.profiler breakdown of one train step (device "
-          "kernels)", flush=True)
+def phase_profile_train(model, opt, sched, batch, gen, wall_ms, lidar=False):
+    print(f"phase {19 if lidar else 10}: torch.profiler breakdown of one "
+          f"{'LC' if lidar else 'C'} train step (device kernels)", flush=True)
     return _profile(lambda: train_step(model, opt, sched, batch, gen), wall_ms)
 
 
@@ -844,7 +1113,6 @@ def main():
     model, opt, sched, batch, tgen, train = phase_flagship_train()
     prof_train = phase_profile_train(model, opt, sched, batch, tgen,
                                      1000 * train["s_per_step"])
-    steps = train["launches"]
     del model, opt, sched, batch, tgen
     torch.cuda.empty_cache()
     k6, k7, lidar_counts = phase_sparse(gen)
@@ -854,45 +1122,45 @@ def main():
     prof_lc, prof_l = phase_profile_lidar(model, batch, l_batch,
                                           lc["ms_per_sample"],
                                           l_only["ms_per_sample"])
+    del model, batch, l_batch
+    torch.cuda.empty_cache()
+    k8, k9, k7_bwd = phase_sparse_backward(gen)
+    tiny_lc_train = phase_tiny_train(lidar=True)
+    model, opt, sched, batch, tgen, lc_train = phase_flagship_train(lidar=True)
+    prof_lc_train = phase_profile_train(model, opt, sched, batch, tgen,
+                                        1000 * lc_train["s_per_step"],
+                                        lidar=True)
+    lc_steps = lc_train["launches"]
+    del model, opt, sched, batch, tgen
 
+    sparse_cu = "unibev_tpu_torch/csrc/sparse_conv.cu"
     kernels = [
-        dict(name="msda_fwd", route="cuda", source="unibev_tpu_torch/csrc/msda.cu",
-             replaces="unibev_tpu/ops/msda_pallas.py:213",
-             launches=lc["launches"]["msda_fwd"],
-             max_abs_err=msda["max_abs_err"], ms=msda["ms"],
-             plain_ms=msda["plain_ms"]),
-        dict(name="dcn_im2col", route="cuda",
-             source="unibev_tpu_torch/csrc/deform_conv.cu",
-             replaces="unibev_tpu/ops/deform_conv.py:442",
-             launches=lc["launches"]["dcn_im2col"],
-             max_abs_err=dcn["max_abs_err"], ms=dcn["ms"],
-             plain_ms=dcn["plain_ms"]),
-        dict(name="msda_bwd", route="cuda", source="unibev_tpu_torch/csrc/msda.cu",
-             replaces="unibev_tpu/ops/msda_pallas.py:106",
-             launches=steps["msda_bwd"], max_abs_err=bwd["msda_bwd"]["max_abs_err"],
-             ms=bwd["msda_bwd"]["ms"], plain_ms=bwd["msda_bwd"]["plain_ms"]),
-        dict(name="dcn_bwd", route="cuda",
-             source="unibev_tpu_torch/csrc/deform_conv.cu",
-             replaces="unibev_tpu/ops/deform_conv.py:323",
-             launches=steps["dcn_bwd"], max_abs_err=bwd["dcn_bwd"]["max_abs_err"],
-             ms=bwd["dcn_bwd"]["ms"], plain_ms=bwd["dcn_bwd"]["plain_ms"]),
-        dict(name="scatter_add_rows", route="cuda",
-             source="unibev_tpu_torch/csrc/scatter.cu",
-             replaces="unibev_tpu/ops/scatter_pallas.py:60",
-             launches=steps["scatter_add_rows"],
-             max_abs_err=bwd["scatter_add_rows"]["max_abs_err"],
-             ms=bwd["scatter_add_rows"]["ms"],
-             plain_ms=bwd["scatter_add_rows"]["plain_ms"]),
-        dict(name="sparse_nbr", route="cuda",
-             source="unibev_tpu_torch/csrc/sparse_conv.cu",
-             replaces="unibev_tpu/ops/sparse_conv.py:170",
-             launches=lc["launches"]["sparse_nbr"], max_abs_err=k6["max_abs_err"],
-             ms=k6["ms"], plain_ms=k6["plain_ms"]),
-        dict(name="sparse_conv", route="cuda",
-             source="unibev_tpu_torch/csrc/sparse_conv.cu",
-             replaces="unibev_tpu/ops/sparse_conv.py:312",
-             launches=lc["launches"]["sparse_conv"], max_abs_err=k7["max_abs_err"],
-             ms=k7["ms"], plain_ms=k7["plain_ms"]),
+        kernel_entry("msda_fwd", "unibev_tpu_torch/csrc/msda.cu",
+                     "unibev_tpu/ops/msda_pallas.py:213",
+                     lc["launches"]["msda_fwd"], msda),
+        kernel_entry("dcn_im2col", "unibev_tpu_torch/csrc/deform_conv.cu",
+                     "unibev_tpu/ops/deform_conv.py:442",
+                     lc["launches"]["dcn_im2col"], dcn),
+        kernel_entry("msda_bwd", "unibev_tpu_torch/csrc/msda.cu",
+                     "unibev_tpu/ops/msda_pallas.py:106",
+                     lc_steps["msda_bwd"], bwd["msda_bwd"]),
+        kernel_entry("dcn_bwd", "unibev_tpu_torch/csrc/deform_conv.cu",
+                     "unibev_tpu/ops/deform_conv.py:323",
+                     lc_steps["dcn_bwd"], bwd["dcn_bwd"]),
+        kernel_entry("scatter_add_rows", "unibev_tpu_torch/csrc/scatter.cu",
+                     "unibev_tpu/ops/scatter_pallas.py:60",
+                     lc_steps["scatter_add_rows"], bwd["scatter_add_rows"],
+                     library_ms=bwd["scatter_add_rows"]["library_ms"]),
+        kernel_entry("sparse_nbr", sparse_cu, "unibev_tpu/ops/sparse_conv.py:170",
+                     lc["launches"]["sparse_nbr"], k6),
+        kernel_entry("sparse_conv", sparse_cu, "unibev_tpu/ops/sparse_conv.py:312",
+                     lc["launches"]["sparse_conv"], k7),
+        kernel_entry("sparse_inv_nbr", sparse_cu,
+                     "unibev_tpu/ops/sparse_conv.py:701",
+                     lc_steps["sparse_inv_nbr"], k8),
+        kernel_entry("sparse_conv_wgrad", sparse_cu,
+                     "unibev_tpu/ops/sparse_conv.py:358",
+                     lc_steps["sparse_conv_wgrad"], k9),
     ]
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                   count=torch.cuda.device_count())
@@ -905,8 +1173,11 @@ def main():
                        profile_train=prof_train, sparse_nbr=k6,
                        sparse_conv=k7, lidar_counts=lidar_counts,
                        tiny_lc=tiny_lc, lc=lc, l_only=l_only,
-                       profile_lc=prof_lc, profile_l=prof_l, kernels=kernels,
-                       device=device), f, indent=1)
+                       profile_lc=prof_lc, profile_l=prof_l,
+                       sparse_inv_nbr=k8, sparse_conv_wgrad=k9,
+                       sparse_conv_bwd=k7_bwd, tiny_lc_train=tiny_lc_train,
+                       lc_train=lc_train, profile_lc_train=prof_lc_train,
+                       kernels=kernels, device=device), f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

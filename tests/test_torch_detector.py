@@ -47,7 +47,7 @@ def test_flagship_cfg_is_the_jax_packages():
 def test_registry_builds_the_tiny_model():
     model = DETECTORS.build(dict(type="UniBEV", **tiny_model_cfg()))
     assert sorted(model.state_dict()) == sorted(
-        build_model(tiny_model_cfg()).state_dict())
+        build_model(tiny_model_cfg(), "cpu").state_dict())
 
 
 def test_tiny_cfg_is_the_camera_part_of_the_tests_config():

@@ -16,8 +16,10 @@ budget is shrunk so that every backward runs several chunks.  d_loc and
 d_offset jump across cell edges, where the kernels and grid_sample may round
 a position to different sides: they are compared at points 1e-3 pixels or
 more inside a cell (``cell_interior`` / ``tap_interior``).  The sparse-conv
-rulebook K6 must equal its plain version exactly; the sparse conv K7 f32
-1e-4, bf16 2^-6 (the same products summed in another order).
+rulebook K6 and the inverse rulebook K8 must equal their plain versions
+exactly; the sparse conv K7 and the weight gradient K9 f32 1e-4, bf16 2^-6
+(the same products summed in another order; K9's float32 atomics sum its
+row spans in no fixed order).
 """
 
 import numpy as np
@@ -36,11 +38,10 @@ from unibev_tpu_torch.ops.msda import (cell_interior, ms_deform_attn,
                                        ms_deform_attn_reference)
 from unibev_tpu_torch.ops.scatter import (scatter_add_rows,
                                           scatter_add_rows_reference)
-from unibev_tpu_torch.ops.sparse_conv import (SparseGrid, build_table,
-                                              downsample_with_table,
-                                              sparse_conv,
-                                              sparse_conv_reference,
-                                              sparse_nbr, sparse_nbr_reference)
+from unibev_tpu_torch.ops.sparse_conv import (
+    SparseGrid, build_table, downsample_with_table, sparse_conv,
+    sparse_conv_reference, sparse_conv_wgrad, sparse_conv_wgrad_reference,
+    sparse_inv_nbr, sparse_inv_nbr_reference, sparse_nbr, sparse_nbr_reference)
 
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
@@ -314,10 +315,111 @@ def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     feats = torch.randn(512, 8, device=cuda_device)
     w = torch.randn(27 * 8, 16, device=cuda_device)
     with pytest.raises(TypeError):
-        sparse_conv(feats, nidx, w.bfloat16(), grid.mask)
+        sparse_conv(feats.half(), nidx, w, grid.mask)
     with pytest.raises(ValueError):
         sparse_conv(feats, nidx, w[:-1], grid.mask)
     with pytest.raises(ValueError):
         sparse_conv(feats, nidx, w, grid.mask.cpu())
-    with pytest.raises(NotImplementedError):
-        sparse_conv(feats.requires_grad_(), nidx, w, grid.mask)
+    g = torch.randn(512, 16, device=cuda_device)
+    with pytest.raises(TypeError):
+        sparse_conv_wgrad(feats, nidx, g.bfloat16())
+    with pytest.raises(ValueError):
+        sparse_conv_wgrad(feats, nidx, g[:-1])
+    with pytest.raises(TypeError):
+        sparse_inv_nbr(table.long(), 100, (5, 7, 7), *args[1:3], (3, 3, 3),
+                       (2, 2, 2), (1, 1, 1))
+
+
+STRIDED = [((3, 3, 3), (2, 2, 2), (1, 1, 1)), ((3, 3, 3), (2, 2, 2), (0, 1, 1)),
+           ((3, 1, 1), (2, 1, 1), (0, 0, 0))]
+
+
+def _strided(grid, table, kernel, stride, padding, cap=100):
+    """(out_shape, coords, mask, table) of a strided conv's output sites, the
+    capacity below the site count."""
+    out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                      zip(grid.shape, padding, kernel, stride))
+    co, mo, tab, over = downsample_with_table(grid, table, kernel, stride,
+                                              padding, out_shape, cap)
+    assert int(over) > 0
+    return out_shape, co, mo, tab
+
+
+@pytest.mark.parametrize("kernel,stride,padding", STRIDED,
+                         ids=["k3s2p1", "k3s2p011", "conv_out"])
+def test_sparse_inv_nbr_kernel_matches_plain(cuda_device, kernel, stride,
+                                             padding):
+    grid = _sparse_grid(cuda_device)
+    out_shape, _, _, tab = _strided(grid, build_table(grid), kernel, stride,
+                                    padding)
+    args = (tab, 100, out_shape, grid.coords, grid.mask, kernel, stride, padding)
+    before = _build.launches["sparse_inv_nbr"]
+    got = sparse_inv_nbr(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["sparse_inv_nbr"] == before + 1
+    want = sparse_inv_nbr_reference(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert bool((want < 100).any()) and bool((want == 100).any())
+
+
+@pytest.mark.parametrize("cin,cout,taps", [(5, 16, 27), (16, 32, 27),
+                                           (40, 24, 27), (64, 128, 27),
+                                           (128, 128, 3)])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2 ** -6)],
+                         ids=["f32", "bf16"])
+def test_sparse_conv_wgrad_kernel_matches_plain(cuda_device, cin, cout, taps,
+                                                dtype, rel):
+    grid = _sparse_grid(cuda_device, n=3000, V=3500, shape=(20, 30, 31))
+    table = build_table(grid)
+    V = grid.coords.shape[0]
+    kernel = (3, 3, 3) if taps == 27 else (3, 1, 1)
+    nidx = sparse_nbr(table, V, grid.shape, grid.coords, grid.mask, kernel,
+                      (1, 1, 1), tuple(k // 2 for k in kernel))
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    feats = torch.randn(V, cin, device=cuda_device, generator=g).to(dtype)
+    cot = torch.randn(V, cout, device=cuda_device, generator=g).to(dtype)
+    before = _build.launches["sparse_conv_wgrad"]
+    got = sparse_conv_wgrad(feats, nidx, cot)
+    torch.cuda.synchronize()
+    assert _build.launches["sparse_conv_wgrad"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (taps * cin, cout)
+    _close(got, sparse_conv_wgrad_reference(feats, nidx, cot), rel)
+
+
+@pytest.mark.parametrize("case", ["subm"] + ["k3s2p1", "k3s2p011", "conv_out"])
+def test_sparse_conv_backward_goes_through_the_kernels(cuda_device, case):
+    """d_feats and d_weight of ``sparse_conv`` on CUDA (K7 forward, K7 and
+    K9 backward, K8 for a strided conv's inverse rulebook) against autograd
+    through the plain forward, f32."""
+    grid = _sparse_grid(cuda_device)
+    table = build_table(grid)
+    V = grid.coords.shape[0]
+    if case == "subm":
+        kernel, mo, inv = (3, 3, 3), grid.mask, None
+        nidx = sparse_nbr(table, V, grid.shape, grid.coords, grid.mask, kernel,
+                          (1, 1, 1), (1, 1, 1))
+    else:
+        kernel, stride, padding = STRIDED[["k3s2p1", "k3s2p011",
+                                           "conv_out"].index(case)]
+        out_shape, co, mo, tab = _strided(grid, table, kernel, stride, padding)
+        nidx = sparse_nbr(table, V, grid.shape, co, mo, kernel, stride, padding)
+        inv = sparse_inv_nbr(tab, 100, out_shape, grid.coords, grid.mask,
+                             kernel, stride, padding)
+    K = nidx.shape[1]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    feats = torch.randn(V, 24, device=cuda_device, generator=g)
+    w = torch.randn(K * 24, 40, device=cuda_device, generator=g) * K ** -0.5
+    cot = torch.randn(nidx.shape[0], 40, device=cuda_device, generator=g)
+    grads = []
+    before = dict(_build.launches)
+    for fn in (lambda f, ww: sparse_conv(f, nidx, ww, mo, inv),
+               lambda f, ww: sparse_conv_reference(f, nidx, ww, mo)):
+        f, ww = feats.clone().requires_grad_(), w.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(f, ww), (f, ww), cot))
+    torch.cuda.synchronize()
+    assert _build.launches["sparse_conv"] == before.get("sparse_conv", 0) + 2
+    assert _build.launches["sparse_conv_wgrad"] == before.get(
+        "sparse_conv_wgrad", 0) + 1
+    for a, b in zip(*grads):
+        _close(a, b, 1e-4)

@@ -147,7 +147,9 @@ def test_train_step_moves_only_trainable_parameters():
     metrics = train_step(model, opt, sched, tiny_batch(np.random.RandomState(0)),
                          torch.Generator().manual_seed(0))
     assert set(metrics) == {"loss_cls", "loss_bbox", "d0.loss_cls",
-                            "d0.loss_bbox", "loss", "grad_norm", "sca_overflow"}
+                            "d0.loss_bbox", "loss", "grad_norm", "sca_overflow",
+                            "l_flag", "c_flag"}
+    assert (float(metrics["l_flag"]), float(metrics["c_flag"])) == (0.0, 1.0)
     assert int(metrics["sca_overflow"]) == 0
     assert all(torch.isfinite(v) for v in metrics.values())
     np.testing.assert_allclose(

@@ -86,7 +86,7 @@ def test_flagship_cloud_fills_the_voxel_cap():
     """The flagship synthetic batch at full size (300k points on the
     [1440, 1440, 40] grid, 120,000 voxels): equal to the JAX voxelizer, with
     298,949 distinct voxels before the cap."""
-    pts = synthetic_batch(np.random.RandomState(0))["points"][0]
+    pts = synthetic_batch(np.random.RandomState(0), device="cpu")["points"][0]
     grid = tuple(int(round((PC_RANGE[i + 3] - PC_RANGE[i]) / VOXEL_SIZE[i]))
                  for i in range(3))
     mask = torch.ones(pts.shape[0], dtype=torch.bool)

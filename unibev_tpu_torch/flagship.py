@@ -14,13 +14,14 @@ model predicts in LC, L (a batch without ``img``) and C (without
     out = model.predict(batch)                                   # LC
     out_l = model.predict({k: v for k, v in batch.items() if k != "img"})
 
-The camera-only model trains (float32 parameters, bf16 compute under
-autocast); LiDAR training is not ported yet::
+The LC model trains with modality dropout (float32 parameters, bf16
+compute under autocast; ``use_lidar=False`` trains the camera-only model)::
 
-    model = build_flagship(use_lidar=False, device="cuda", train=True)
+    model = build_flagship(train=True)                           # LC, cuda
     opt, sched = make_optimizer(model)          # parallel/train_state.py
     gen = torch.Generator(device="cuda").manual_seed(0)
     metrics = train_step(model, opt, sched, batch, gen)
+    metrics["l_flag"], metrics["c_flag"]        # the modalities it kept
 
 ``tiny_model_cfg`` / ``tiny_batch`` are a scaled-down C or LC model and batch
 (2 cameras, 8x8 BEV, depth-50 backbone, [25, 32, 32] voxel grid) for parity
@@ -135,7 +136,7 @@ def flagship_model_cfg(use_lidar=True, use_camera=True, dtype=torch.bfloat16):
     )
 
 
-def build_model(cfg: dict, device="cpu", seed: int = 0,
+def build_model(cfg: dict, device="cuda", seed: int = 0,
                 train: bool = False) -> UniBEV:
     """UniBEV(**cfg) with seeded random weights on ``device``; the backbone
     runs channels_last.
@@ -162,13 +163,13 @@ def build_model(cfg: dict, device="cpu", seed: int = 0,
 def build_flagship(device="cuda", dtype=torch.bfloat16, seed: int = 0,
                    train: bool = False, **kwargs) -> UniBEV:
     """The flagship model with seeded random weights: LC by default,
-    ``use_lidar=False`` for the camera-only model (the one that trains)."""
+    ``use_lidar=False`` for the camera-only model."""
     return build_model(flagship_model_cfg(dtype=dtype, **kwargs), device, seed,
                        train)
 
 
 def synthetic_batch(rng: np.random.RandomState, B=1, N=6, H=928, W=1600,
-                    P=300000, G=64, img_hw=(900, 1600), device="cpu"):
+                    P=300000, G=64, img_hw=(900, 1600), device="cuda"):
     """Realistic-scale synthetic batch (nuScenes geometry), the JAX package's
     draws from the same ``rng``, as torch tensors on ``device``."""
     img = rng.randn(B, N, H, W, 3).astype(np.float32)

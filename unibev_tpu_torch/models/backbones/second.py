@@ -2,9 +2,11 @@
 
 Counterpart of ``unibev_tpu/models/backbones/second.py``: per stage one 3x3
 conv carrying the stride, then ``layer_nums`` stride-1 3x3 convs, each
-bias-free and followed by BatchNorm (eps 1e-3, running statistics in eval)
-and ReLU.  NCHW; module names are mmdet3d's (``blocks.i.{3j, 3j + 1}``), so
-``pts_backbone.*`` checkpoint keys load as they are.
+bias-free and followed by flax's BatchNorm (eps 1e-3, momentum 0.01;
+``layers.BatchNorm2d``: running statistics in eval, batch statistics and a
+biased running variance in train) and ReLU.  NCHW; module names are
+mmdet3d's (``blocks.i.{3j, 3j + 1}``), so ``pts_backbone.*`` checkpoint keys
+load as they are.
 """
 
 from __future__ import annotations
@@ -13,12 +15,13 @@ from typing import Sequence
 
 from torch import nn
 
+from unibev_tpu_torch.models.layers import BatchNorm2d
 from unibev_tpu_torch.registry import BACKBONES
 
 
 def conv_bn_relu(cin: int, cout: int, stride: int = 1):
     return [nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False),
-            nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01), nn.ReLU(inplace=True)]
+            BatchNorm2d(cout, eps=1e-3, momentum=0.01), nn.ReLU(inplace=True)]
 
 
 @BACKBONES.register_module(name="SECOND")

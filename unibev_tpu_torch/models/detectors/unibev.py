@@ -10,11 +10,12 @@ keys are ignored.  An LC model runs LC, L (no ``img`` in the batch) or C (no
 ``points``), as in the JAX package: the modality flags follow from which
 inputs are present.
 
-``train()`` mode is the JAX package's ``train=True``: GridMask on the images
-and dropout in the transformer, both drawn from the ``generator`` handed to
-``forward``.  Only the camera branch trains yet: a train-mode forward with
-``points`` raises (the sparse-conv backward, the masked batch statistics and
-modality dropout are not ported), and so does ``use_radar=True``.
+``train()`` mode is the JAX package's ``train=True``: GridMask on the images,
+dropout in the transformer and, with both inputs and the config's
+``drop_modality``, modality dropout, all drawn from the ``generator`` handed
+to ``forward``; the LiDAR branch's BatchNorms use and update their batch
+statistics.  Both branches run whatever the flags say, and the fusion
+multiplies a dropped one by 0.  ``use_radar=True`` raises (not ported).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from unibev_tpu_torch.models.heads.unibev_head import UniBEVHead
 from unibev_tpu_torch.models.layers import rng
 from unibev_tpu_torch.models.middle_encoder import SparseEncoder
 from unibev_tpu_torch.models.necks.fpn import FPN, SECONDFPN
+from unibev_tpu_torch.models.transformer_fusion import (present_flags,
+                                                        sample_modality_flags)
 from unibev_tpu_torch.ops.voxelize import voxelize_and_encode
 from unibev_tpu_torch.registry import DETECTORS
 
@@ -92,6 +95,14 @@ class UniBEV(nn.Module):
             self._build_lidar(pts_voxel_layer, pts_middle_encoder,
                               pts_backbone, pts_neck)
         hcfg = _clean(pts_bbox_head)
+        # modality dropout: (dropout probability, LiDAR-survives
+        # probability), or None
+        drop = (hcfg.get("transformer") or {}).get("drop_modality")
+        if isinstance(drop, dict):
+            self.drop_modality = (drop.get("dropout_prob", 0.5),
+                                  drop.get("lidar_prob", 0.5))
+        else:
+            self.drop_modality = (float(drop), 0.5) if drop else None
         # As in the JAX package, the head keeps its default pc_range: the
         # config's pts_bbox_head.pc_range is not passed on.
         self.pts_bbox_head = UniBEVHead(
@@ -185,11 +196,13 @@ class UniBEV(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """The head's outputs, and with LiDAR the branch's capacity counts
+        """The head's outputs, the modality flags ``l_flag`` / ``c_flag``
+        (float32 0-dim) and with LiDAR the branch's capacity counts
         (``num_distinct_voxels``, ``sparse_overflow``).  Modalities follow
         from the batch: ``img`` and ``points`` are each used when present and
-        built.  In ``train()`` mode GridMask and dropout draw from
-        ``generator`` (on the batch's device), which is then required."""
+        built.  In ``train()`` mode GridMask, dropout and, with both inputs,
+        modality dropout draw from ``generator`` (on the batch's device),
+        which is then required."""
         img = batch.get("img") if self.use_camera else None
         points = batch.get("points") if self.use_lidar else None
         if img is None and points is None:
@@ -200,17 +213,25 @@ class UniBEV(nn.Module):
             if img is not None:
                 img_feats = self.extract_img_feat(img, generator)
             if points is not None:
-                if self.training:
-                    raise NotImplementedError(
-                        "LiDAR training is not ported yet: train without points")
                 mask = batch.get("points_mask")
                 if mask is None:
                     mask = torch.ones(points.shape[:2], dtype=torch.bool,
                                       device=points.device)
                 pts_feats, stats = self.extract_pts_feat(points, mask)
+            if (self.training and self.drop_modality
+                    and img_feats is not None and pts_feats is not None):
+                if generator is None:
+                    raise RuntimeError("a train-mode forward needs a generator")
+                l_flag, c_flag = sample_modality_flags(generator,
+                                                       *self.drop_modality)
+            else:
+                l_flag, c_flag = present_flags(
+                    img_feats, pts_feats,
+                    (img if img is not None else points).device)
             preds = self.pts_bbox_head(img_feats, pts_feats,
-                                       batch.get("lidar2img"), self.img_shape)
-        preds.update(stats)
+                                       batch.get("lidar2img"), self.img_shape,
+                                       l_flag, c_flag)
+        preds.update(stats, l_flag=l_flag, c_flag=c_flag)
         return preds
 
     def loss(self, batch: Dict[str, torch.Tensor],

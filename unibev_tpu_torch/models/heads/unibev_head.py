@@ -93,18 +93,19 @@ class UniBEVHead(nn.Module):
         self.bbox_weight = dict(loss_bbox or {}).get("loss_weight", 0.25)
         self.code_weights = tuple(code_weights)
 
-    def forward(self, img_feats, pts_feats, lidar2img,
-                img_shape) -> Dict[str, torch.Tensor]:
+    def forward(self, img_feats, pts_feats, lidar2img, img_shape,
+                l_flag=None, c_flag=None) -> Dict[str, torch.Tensor]:
         """img_feats / pts_feats: lists of (B, N, h, w, C) / (B, h, w, C), or
-        None for an absent modality.  Returns all_cls_scores (L, B, Q, ncls),
-        all_bbox_preds (L, B, Q, 10), bev_embed (B, HW, C) and sca_overflow
-        (0-dim)."""
+        None for an absent modality; l_flag / c_flag the modality flags
+        (float32 0-dim; by default those of the modalities present).
+        Returns all_cls_scores (L, B, Q, ncls), all_bbox_preds (L, B, Q,
+        10), bev_embed (B, HW, C) and sca_overflow (0-dim)."""
         B = (img_feats if img_feats is not None else pts_feats)[0].shape[0]
         bev_pos = self.positional_encoding(B, self.bev_h, self.bev_w)
         bev_embed, states, _, refs, sca_overflow = self.transformer(
             img_feats, pts_feats, self.bev_embedding.weight,
             self.query_embedding.weight, bev_pos, lidar2img, img_shape,
-            reg_branches=self.reg_branches)
+            l_flag, c_flag, reg_branches=self.reg_branches)
 
         pr = self.pc_range
         cls_all, bbox_all = [], []

@@ -1,5 +1,5 @@
 """Common building blocks: FFN, MultiheadAttention, LearnedPositionalEncoding,
-and dropout drawn from an explicit generator.
+flax's BatchNorm, and dropout drawn from an explicit generator.
 
 Counterpart of ``unibev_tpu/models/layers.py``.  Module attribute names follow
 the reference's mmcv bricks, so ``state_dict`` keys are the reference's:
@@ -56,6 +56,29 @@ def dropout(x: torch.Tensor, training: bool) -> torch.Tensor:
 
 def layer_norm(dims: int) -> nn.LayerNorm:
     return nn.LayerNorm(dims, eps=LN_EPS)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax ``BatchNorm`` (the LiDAR backbone's and neck's) under torch's
+    names.  Eval: ``nn.BatchNorm2d``.  Train: normalize with the batch's
+    mean and biased variance, as torch does, and move the running
+    statistics by ``(1 - momentum) * running + momentum * batch`` with the
+    *biased* variance, as flax does; ``nn.BatchNorm2d`` would use the
+    unbiased one, n / (n - 1) larger.  The ``state_dict`` keys are
+    ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
+            for running, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                running.mul_(1 - self.momentum).add_(self.momentum * batch)
+            self.num_batches_tracked += 1
+        return nn.functional.batch_norm(x, None, None, self.weight, self.bias,
+                                        True, 0.0, self.eps)
 
 
 class FFN(nn.Module):

@@ -1,4 +1,4 @@
-"""SECOND-style sparse middle encoder, inference.
+"""SECOND-style sparse middle encoder.
 
 Counterpart of ``unibev_tpu/models/middle_encoder.py`` (mmdet3d v0.18
 ``SparseEncoder``, block_type 'basicblock'):
@@ -16,9 +16,10 @@ The active set of each resolution is a fixed-capacity row set with a mask
 and shared by every submanifold conv there, and every conv is kernel K7.
 Module names are the reference's, so ``pts_middle_encoder.*`` checkpoint
 keys load as they are; a conv weight keeps spconv's (kz, ky, kx, Cin, Cout).
-BatchNorm runs on its running statistics (eps 1e-3) and leaves padding rows
-exactly 0.  Training (the masked batch statistics and the sparse-conv
-backward) is not ported yet: ``train()`` mode raises.
+BatchNorm (eps 1e-3) leaves padding rows exactly 0; in ``train()`` mode it
+normalizes with the statistics of the live rows and updates its running
+ones.  With gradients on, each strided conv also gets its inverse rulebook
+(kernel K8) for the backward of ``ops/sparse_conv.py::SparseConvFn``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from torch import nn
 
 from unibev_tpu_torch.ops.sparse_conv import (SparseGrid, build_table,
                                               downsample_with_table,
-                                              sparse_conv,
+                                              sparse_conv, sparse_inv_nbr,
                                               strided_neighbor_idx,
                                               subm_neighbor_idx, to_dense)
 from unibev_tpu_torch.registry import MIDDLE_ENCODERS, VOXEL_ENCODERS
@@ -49,20 +50,36 @@ class HardSimpleVFE:
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
-    """BatchNorm1d over voxel rows, eps 1e-3, on the running statistics:
+    """BatchNorm1d over voxel rows, eps 1e-3, momentum 0.01:
     ``(x - mean) * (weight / sqrt(var + eps)) + bias`` in x's dtype (the
-    scale formed in float32), padding rows exactly 0."""
+    scale formed in float32), padding rows exactly 0.
+
+    Eval: the running statistics.  Train: the mean and the biased variance
+    of the live rows (``mask``), in float32 over ``n = max(live, 1)`` rows,
+    with gradients through both; the running statistics move by
+    ``(1 - momentum) * running + momentum * batch``, the biased variance
+    included, as the JAX package's ``MaskedBatchNorm`` does.
+    """
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-3, momentum=0.01)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm: the masked batch statistics are not ported yet")
-        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        out = ((x - self.running_mean.to(x.dtype)) * scale.to(x.dtype)
-               + self.bias.to(x.dtype))
+            m = mask[:, None].float()
+            n = m.sum().clamp(min=1.0)
+            xf = x.float()
+            mean = (xf * m).sum(0) / n
+            var = ((xf - mean) ** 2 * m).sum(0) / n
+            with torch.no_grad():
+                for running, batch in ((self.running_mean, mean),
+                                       (self.running_var, var)):
+                    running.mul_(1 - self.momentum).add_(self.momentum * batch)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        scale = self.weight.float() * torch.rsqrt(var + self.eps)
+        out = (x - mean.to(x.dtype)) * scale.to(x.dtype) + self.bias.to(x.dtype)
         return torch.where(mask[:, None], out, 0.0)
 
 
@@ -74,9 +91,10 @@ class SparseConv3d(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(*kernel, cin, cout))
 
-    def forward(self, feats, nidx, mask):
+    def forward(self, feats, nidx, mask, inv_idx=None):
         w = self.weight
-        return sparse_conv(feats, nidx, w.reshape(-1, w.shape[-1]), mask)
+        return sparse_conv(feats, nidx, w.reshape(-1, w.shape[-1]), mask,
+                           inv_idx)
 
 
 class SparseConvBN(nn.Sequential):
@@ -86,8 +104,8 @@ class SparseConvBN(nn.Sequential):
     def __init__(self, cin: int, cout: int, kernel: Triple = (3, 3, 3)):
         super().__init__(SparseConv3d(cin, cout, kernel), MaskedBatchNorm(cout))
 
-    def forward(self, feats, nidx, mask):
-        return torch.relu(self[1](self[0](feats, nidx, mask), mask))
+    def forward(self, feats, nidx, mask, inv_idx=None):
+        return torch.relu(self[1](self[0](feats, nidx, mask, inv_idx), mask))
 
 
 class SparseBasicBlock(nn.Module):
@@ -190,5 +208,11 @@ class SparseEncoder(nn.Module):
             grid, table, kernel, stride, padding, out_shape, capacity)
         sidx = strided_neighbor_idx(grid, table, co, mo, kernel, stride,
                                     padding)
-        x = conv(x, sidx, mo)
+        inv = None
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or conv[0].weight.requires_grad):
+            # d_feats of the strided conv gathers over the output rows
+            inv = sparse_inv_nbr(new_table, capacity, out_shape, grid.coords,
+                                 grid.mask, kernel, stride, padding)
+        x = conv(x, sidx, mo, inv)
         return SparseGrid(co, mo, out_shape, grid.batch), new_table, x, overflow

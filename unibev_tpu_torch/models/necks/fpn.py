@@ -14,6 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from unibev_tpu_torch.models.layers import BatchNorm2d
 from unibev_tpu_torch.registry import NECKS
 
 
@@ -59,7 +60,8 @@ class FPN(nn.Module):
 class SECONDFPN(nn.Module):
     """SECOND neck: each scale to a common resolution by a bias-free
     transposed conv (kernel = stride) or, at stride 1, a 1x1 conv, then
-    BatchNorm (eps 1e-3) and ReLU, concatenated over channels.
+    BatchNorm (eps 1e-3; ``layers.BatchNorm2d``, flax's train-mode update)
+    and ReLU, concatenated over channels.
 
     Counterpart of ``unibev_tpu/models/necks/fpn.py::SECONDFPN``, with torch's
     ``ConvTranspose2d`` as the reference has it; the JAX package's flax
@@ -81,7 +83,7 @@ class SECONDFPN(nn.Module):
             up = (nn.ConvTranspose2d(cin, cout, s, stride=s, bias=False) if s > 1
                   else nn.Conv2d(cin, cout, 1, bias=False))
             deblocks.append(nn.Sequential(
-                up, nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01),
+                up, BatchNorm2d(cout, eps=1e-3, momentum=0.01),
                 nn.ReLU(inplace=True)))
         self.deblocks = nn.ModuleList(deblocks)
 

@@ -2,13 +2,15 @@
 object decoder.
 
 Counterpart of ``unibev_tpu/models/transformer_fusion.py``.  Fusion is the
-flagship's: ChannelNormWeights (CNW) with linear fusion.  CNW softmaxes the
-two modalities' per-channel weights against each other only when both are
-live; with one modality the survivor's weight is exactly 1.0 and the missing
-modality's features are zeros, so the linear fusion ``c * img + l * pts`` is
-the survivor's BEV.  Modality dropout is not ported yet, so the flags follow
-from which inputs are present: LC, L (no ``img_feats``) and C (no
-``pts_feats``) run on one LC model.
+flagship's: ChannelNormWeights (CNW) with linear fusion ``c * img + l * pts``
+under the modality flags ``l_flag`` and ``c_flag`` (float32 0-dim tensors,
+0 or 1).  CNW softmaxes the two modalities' per-channel weights against each
+other only when both flags are on; otherwise each weight is exactly 1.0.  A
+missing modality's features are zeros.  The flags come from which inputs are
+present (LC, L without ``img_feats``, C without ``pts_feats``, on one LC
+model) or, for modality dropout in training, from
+:func:`sample_modality_flags`; a dropped modality's branch still runs and
+its BEV is multiplied by 0, as in the JAX package.
 
 Not ported yet: the avg / cat fusions, the MLP-CNW / ModalityProjection /
 spatial norms, modal embeddings and dual queries.  Each raises
@@ -27,6 +29,27 @@ from unibev_tpu_torch.models.encoders import ImgEncoder, PtsEncoder
 from unibev_tpu_torch.registry import TRANSFORMERS
 
 
+def sample_modality_flags(generator: torch.Generator, dropout_prob: float,
+                          lidar_prob: float):
+    """Modality dropout's flags (l_flag, c_flag), float32 0-dim tensors on
+    the generator's device, drawn there without a host sync: with
+    probability ``dropout_prob`` one modality is dropped, LiDAR surviving
+    with probability ``lidar_prob``; otherwise both are on.  The JAX
+    package's ``sample_modality_flags`` (its draws differ: another
+    generator)."""
+    r = torch.rand(2, generator=generator, device=generator.device)
+    drop, lidar = r[0] < dropout_prob, r[1] < lidar_prob
+    l_flag = torch.where(drop, lidar.float(), 1.0)
+    c_flag = torch.where(drop, (~lidar).float(), 1.0)
+    return l_flag, c_flag
+
+
+def present_flags(img_feats, pts_feats, device):
+    """(l_flag, c_flag) of the modalities whose features are given."""
+    return (torch.full((), float(pts_feats is not None), device=device),
+            torch.full((), float(img_feats is not None), device=device))
+
+
 @TRANSFORMERS.register_module(name="UniBEVTransformer")
 class UniBEVTransformer(nn.Module):
 
@@ -41,7 +64,7 @@ class UniBEVTransformer(nn.Module):
                  pts_encoder: Optional[dict] = None,
                  decoder: Optional[dict] = None,
                  use_img: bool = True, use_pts: bool = False):
-        # drop_modality is train-time only (not ported yet)
+        # drop_modality is read by the detector, which draws the flags
         super().__init__()
         if fusion_method != "linear":
             raise NotImplementedError(f"fusion_method={fusion_method!r} not yet ported")
@@ -100,11 +123,13 @@ class UniBEVTransformer(nn.Module):
             cross_attn_cfg={k: v for k, v in ca.items() if k != "type"})
 
     def forward(self, img_feats, pts_feats, bev_queries, object_query_embed,
-                bev_pos, lidar2img, img_shape, reg_branches=None):
+                bev_pos, lidar2img, img_shape, l_flag=None, c_flag=None,
+                reg_branches=None):
         """img_feats: list of (B, N, H, W, C) or None (camera absent);
         pts_feats: list of (B, H, W, C) or None (LiDAR absent); at least one
         is given.  bev_queries (HW, C); object_query_embed (Nq, 2C); bev_pos
-        (B, HW, C).
+        (B, HW, C); l_flag / c_flag float32 0-dim, 0 or 1, by default
+        :func:`present_flags`.
 
         Returns (bev_embed, states (L, B, Nq, C), init_ref (B, Nq, 3),
         refs (L, B, Nq, 3), sca_overflow).
@@ -140,17 +165,23 @@ class UniBEVTransformer(nn.Module):
             pts_bev = self.pts_bev_encoder(bev_q, value, bev_pos, self.bev_h,
                                            self.bev_w, tuple(shapes))
 
-        # With one modality its CNW weight is exactly 1.0 and the other's
-        # features are zeros: c * img + l * pts is the survivor's BEV.
-        if img_bev is None or pts_bev is None:
-            fused = img_bev if pts_bev is None else pts_bev
-        else:
-            if self.cnw:
-                joint = torch.softmax(torch.stack([self.img_channel_weights,
-                                                   self.pts_channel_weights]), 0)
-                img_bev = img_bev * joint[0].to(img_bev.dtype)
-                pts_bev = pts_bev * joint[1].to(pts_bev.dtype)
-            fused = img_bev + pts_bev
+        if l_flag is None or c_flag is None:
+            l_flag, c_flag = present_flags(img_feats, pts_feats, bev_q.device)
+        # with one input the flags cannot both be on: no softmax, so the CNW
+        # weights get no gradient
+        both_present = img_bev is not None and pts_bev is not None
+        # a missing modality's features are zeros
+        img_bev = torch.zeros_like(pts_bev) if img_bev is None else img_bev
+        pts_bev = torch.zeros_like(img_bev) if pts_bev is None else pts_bev
+        if self.cnw and both_present:
+            # each weight is exactly 1.0 unless both flags are on
+            joint = torch.softmax(torch.stack([self.img_channel_weights,
+                                               self.pts_channel_weights]), 0)
+            joint = torch.where((l_flag > 0.5) & (c_flag > 0.5), joint, 1.0)
+            img_bev = img_bev * joint[0].to(img_bev.dtype)
+            pts_bev = pts_bev * joint[1].to(pts_bev.dtype)
+        fused = (c_flag.to(img_bev.dtype) * img_bev
+                 + l_flag.to(pts_bev.dtype) * pts_bev)
 
         query_pos, query = object_query_embed.split(C, dim=1)
         query_pos = query_pos[None].expand(B, -1, -1)

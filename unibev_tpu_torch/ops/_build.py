@@ -15,7 +15,10 @@ into an exception.
 ``launches`` counts kernel launches by kernel name.  The wrappers in
 ``ops/msda.py``, ``ops/deform_conv.py``, ``ops/scatter.py`` and
 ``ops/sparse_conv.py`` add one where they launch and nowhere else, so a
-caller can show that a run went through the kernels.
+caller can show that a run went through the kernels: ``msda_fwd`` (K1),
+``dcn_im2col`` (K2), ``msda_bwd`` (K3), ``dcn_bwd`` (K4),
+``scatter_add_rows`` (K5), ``sparse_nbr`` (K6), ``sparse_conv`` (K7),
+``sparse_inv_nbr`` (K8), ``sparse_conv_wgrad`` (K9).
 """
 
 from __future__ import annotations
@@ -64,6 +67,12 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _L, _P),
     # feats, nidx, weight, mask, out, Vout, K, Cin, Cout, V, dtype, stream
     "unibev_sparse_conv": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # table, coords, mask, out, Vin, Do, Ho, Wo, kz, ky, kx, sz, sy, sx, pz,
+    # py, px, sentinel, table_size, stream
+    "unibev_sparse_inv_nbr": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _L, _P),
+    # feats, nidx, g, dw, Vout, K, Cin, Cout, V, dtype, stream
+    "unibev_sparse_conv_wgrad": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
 }
 
 launches: Counter = Counter()

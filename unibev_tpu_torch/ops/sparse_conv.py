@@ -24,10 +24,23 @@ row that a gather appends to the features.
   the first ``capacity`` kept.  Which rows exist after a saturated downsample
   depends on that order, so it is exact, not approximate.
 
+* The backward (``SparseConvFn``), the JAX package's scatter-free VJPs
+  (``_subm_gc_bwd``, ``_strided_xp_bwd``): d_feats is K7 again, over the
+  same rulebook with each tap transposed and the taps reversed for a
+  submanifold conv, or over the inverse rulebook with each tap transposed
+  for a strided one; d_weight is kernel K9.
+* The inverse rulebook, kernel K8 (``csrc/sparse_conv.cu::
+  unibev_sparse_inv_nbr``, the JAX ``inverse_strided_idx``): for each input
+  row and tap, the output row of a strided conv that reads the row through
+  the tap, or the output capacity (the sentinel, passed in).
+* The weight gradient, kernel K9 (``csrc/sparse_conv.cu::
+  unibev_sparse_conv_wgrad``, the JAX ``_dw_dot`` over the gathered
+  columns): ``dW[k * Cin + c] = sum_v feats_pad[nidx[v, k], c] * g[v]``,
+  float32 products and sums, float32 out.
+
 CPU tensors take the plain versions (``sparse_nbr_reference``,
-``sparse_conv_reference``); CUDA tensors launch the kernels or raise.
-Forward only: the backward (the JAX package's ``inverse_strided_idx`` and
-the scatter-free VJPs) is not ported yet.
+``sparse_conv_reference``, ``sparse_inv_nbr_reference``,
+``sparse_conv_wgrad_reference``); CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -201,18 +214,16 @@ def sparse_conv_reference(feats: torch.Tensor, nidx: torch.Tensor,
     return torch.where(out_mask[:, None], out, 0.0)
 
 
-def sparse_conv(feats: torch.Tensor, nidx: torch.Tensor, weight: torch.Tensor,
-                out_mask: torch.Tensor) -> torch.Tensor:
-    """Sparse conv over a rulebook; CPU tensors take the plain version, CUDA
-    tensors kernel K7.  Arguments as :func:`sparse_conv_reference`; on CUDA
-    feats and weight share one dtype (float32 or bfloat16), nidx is int32,
-    the mask bool, all contiguous."""
+def gather_conv(feats: torch.Tensor, nidx: torch.Tensor, weight: torch.Tensor,
+          out_mask: torch.Tensor) -> torch.Tensor:
+    """One sparse conv without autograd (the JAX ``gather_conv``): CPU
+    tensors take the plain version, CUDA tensors kernel K7.  Arguments as
+    :func:`sparse_conv_reference`; on CUDA feats and weight share one dtype
+    (float32 or bfloat16), nidx is int32, the mask bool, all contiguous."""
     if feats.device.type == "cpu":
         return sparse_conv_reference(feats, nidx, weight, out_mask)
     tensors = (feats, nidx, weight, out_mask)
     _on_current_cuda_device("sparse_conv", tensors)
-    if torch.is_grad_enabled() and (feats.requires_grad or weight.requires_grad):
-        raise NotImplementedError("sparse_conv: the backward is not ported yet")
     V, Cin = feats.shape
     Vout, K = nidx.shape
     if weight.dim() != 2 or weight.shape[0] != K * Cin or out_mask.shape != (Vout,):
@@ -235,6 +246,185 @@ def sparse_conv(feats: torch.Tensor, nidx: torch.Tensor, weight: torch.Tensor,
     _build.check(err, "sparse_conv")
     _build.launches["sparse_conv"] += 1
     return out
+
+
+def sparse_inv_nbr_reference(table_out: torch.Tensor, sentinel: int,
+                             out_shape: Triple, coords_in: torch.Tensor,
+                             mask_in: torch.Tensor, kernel: Triple,
+                             stride: Triple, padding: Triple) -> torch.Tensor:
+    """Plain version of K8: (Vin, K) int32 output rows of a strided conv.
+
+    Input row i feeds output o through tap d iff ``o = (i + p - d) / s``
+    exactly on every axis, o lies in ``out_shape``, and ``table_out`` (the
+    output resolution's cell -> row table) holds a row in [0, sentinel)
+    there; every other entry, and every tap of a masked input row, is
+    ``sentinel`` (the output capacity: a site dropped by the capacity reads
+    it, never a real row).  Taps (dz, dy, dx) row-major, dx fastest.
+    """
+    Do, Ho, Wo = out_shape
+    offs = _tap_offsets(kernel, coords_in.device)                 # (K, 3)
+    c = coords_in.to(torch.int64)
+    q, ok = [], mask_in[:, None]
+    for a, size in enumerate(out_shape):
+        # shifted by k * s so the numerator stays non-negative
+        v = c[:, a + 1:a + 2] + padding[a] + kernel[a] * stride[a] - offs[:, a]
+        qa = torch.div(v, stride[a], rounding_mode="floor") - kernel[a]
+        ok = ok & (v % stride[a] == 0) & (qa >= 0) & (qa < size)
+        q.append(qa)
+    flat = torch.where(ok, ((c[:, 0:1] * Do + q[0]) * Ho + q[1]) * Wo + q[2], 0)
+    rows = table_out[flat]
+    ok = ok & (rows >= 0) & (rows < sentinel)
+    return torch.where(ok, rows, sentinel).to(torch.int32)
+
+
+def sparse_inv_nbr(table_out: torch.Tensor, sentinel: int, out_shape: Triple,
+                   coords_in: torch.Tensor, mask_in: torch.Tensor,
+                   kernel: Triple, stride: Triple,
+                   padding: Triple) -> torch.Tensor:
+    """The inverse rulebook of a strided conv; CPU tensors take the plain
+    version, CUDA tensors kernel K8.  Arguments as
+    :func:`sparse_inv_nbr_reference`; on CUDA the table and coords are
+    int32, the mask bool, all contiguous."""
+    if table_out.device.type == "cpu":
+        return sparse_inv_nbr_reference(table_out, sentinel, out_shape,
+                                        coords_in, mask_in, kernel, stride,
+                                        padding)
+    tensors = (table_out, coords_in, mask_in)
+    _on_current_cuda_device("sparse_inv_nbr", tensors)
+    Vin = coords_in.shape[0]
+    if coords_in.shape != (Vin, 4) or mask_in.shape != (Vin,):
+        raise ValueError(f"sparse_inv_nbr: coords (V, 4) and mask (V,), got "
+                         f"{tuple(coords_in.shape)} and {tuple(mask_in.shape)}")
+    if table_out.dtype != torch.int32 or coords_in.dtype != torch.int32 \
+            or mask_in.dtype != torch.bool:
+        raise TypeError("sparse_inv_nbr: table and coords int32, mask bool")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sparse_inv_nbr: the kernel takes contiguous tensors")
+    K = kernel[0] * kernel[1] * kernel[2]
+    out = torch.empty((Vin, K), dtype=torch.int32, device=table_out.device)
+    err = _build.lib().unibev_sparse_inv_nbr(
+        table_out.data_ptr(), coords_in.data_ptr(), mask_in.data_ptr(),
+        out.data_ptr(), Vin, *out_shape, *kernel, *stride, *padding, sentinel,
+        table_out.numel(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "sparse_inv_nbr")
+    _build.launches["sparse_inv_nbr"] += 1
+    return out
+
+
+def sparse_conv_wgrad_reference(feats: torch.Tensor, nidx: torch.Tensor,
+                                g: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: the (K * Cin, Cout) float32 weight gradient
+    ``cols^T @ g`` of the (Vout, K * Cin) columns gathered from the
+    zero-padded features, float32 products and sums (the JAX ``_dw_dot``).
+
+    feats (V, Cin); nidx (Vout, K) in [0, V], V the zero row; g (Vout, Cout).
+    """
+    V, Cin = feats.shape
+    Vout, K = nidx.shape
+    padded = torch.cat([feats, feats.new_zeros((1, Cin))])
+    cols = padded.index_select(0, nidx.reshape(-1).to(torch.int64))
+    return cols.view(Vout, K * Cin).float().t() @ g.float()
+
+
+def sparse_conv_wgrad(feats: torch.Tensor, nidx: torch.Tensor,
+                      g: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of a sparse conv; CPU tensors take the plain
+    version, CUDA tensors kernel K9.  Arguments as
+    :func:`sparse_conv_wgrad_reference`; on CUDA feats and g share one dtype
+    (float32 or bfloat16), nidx is int32, all contiguous.  On the card the
+    row spans are summed with float32 atomics, in no fixed order."""
+    if feats.device.type == "cpu":
+        return sparse_conv_wgrad_reference(feats, nidx, g)
+    tensors = (feats, nidx, g)
+    _on_current_cuda_device("sparse_conv_wgrad", tensors)
+    V, Cin = feats.shape
+    Vout, K = nidx.shape
+    if g.dim() != 2 or g.shape[0] != Vout:
+        raise ValueError(f"sparse_conv_wgrad: g ({Vout}, Cout), got "
+                         f"{tuple(g.shape)}")
+    code = _build.dtype_code(feats.dtype)
+    if g.dtype != feats.dtype:
+        raise TypeError(f"sparse_conv_wgrad: g must be {feats.dtype}, got {g.dtype}")
+    if nidx.dtype != torch.int32:
+        raise TypeError("sparse_conv_wgrad: nidx int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sparse_conv_wgrad: the kernel takes contiguous tensors")
+    Cout = g.shape[1]
+    dw = torch.zeros((K * Cin, Cout), dtype=torch.float32, device=feats.device)
+    err = _build.lib().unibev_sparse_conv_wgrad(
+        feats.data_ptr(), nidx.data_ptr(), g.data_ptr(), dw.data_ptr(), Vout,
+        K, Cin, Cout, V, code, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "sparse_conv_wgrad")
+    _build.launches["sparse_conv_wgrad"] += 1
+    return dw
+
+
+def tap_transpose(weight: torch.Tensor, K: int, mirror: bool) -> torch.Tensor:
+    """(K * Cin, Cout) tap-major -> (K * Cout, Cin): each tap transposed,
+    the taps reversed when ``mirror`` (the JAX ``_mirror_transpose_weight``).
+    Reversing the flat tap index is the point reflection of the window only
+    because the window is odd and symmetric (3 x 3 x 3)."""
+    w = weight.reshape(K, -1, weight.shape[1])
+    if mirror:
+        w = w.flip(0)
+    return w.transpose(1, 2).reshape(-1, w.shape[1])
+
+
+class SparseConvFn(torch.autograd.Function):
+    """A sparse conv with the JAX package's gather-only backward.
+
+    Forward: K7 (the plain version on the CPU), the weight cast to the
+    features' dtype here, so float32 parameters run under bf16 autocast.
+    Backward, with the cotangent g masked by ``out_mask`` and cast to the
+    features' dtype:
+
+    * submanifold (``inv_idx`` None; the input and output rows are one set):
+      d_feats = K7(g, nidx, taps reversed and transposed, out_mask), since
+      "j is tap k's neighbour of i" iff "i is tap K-1-k's neighbour of j";
+    * strided: d_feats = K7(g, inv_idx, each tap transposed, all rows), over
+      the inverse rulebook K8 of the output rows;
+    * d_weight = K9(feats, nidx, g), cast to the weight's dtype.
+
+    d_feats is skipped when the features need no gradient (the voxel
+    features of ``conv_input``).
+    """
+
+    @staticmethod
+    def forward(ctx, feats, nidx, weight, out_mask, inv_idx=None):
+        ctx.save_for_backward(feats, nidx, weight, out_mask, inv_idx)
+        return gather_conv(feats, nidx, weight.to(feats.dtype), out_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, nidx, weight, out_mask, inv_idx = ctx.saved_tensors
+        g = torch.where(out_mask[:, None], g, 0.0).to(feats.dtype).contiguous()
+        K = nidx.shape[1]
+        d_feats = d_weight = None
+        if ctx.needs_input_grad[0]:
+            w = weight.to(feats.dtype)
+            if inv_idx is None:
+                d_feats = gather_conv(g, nidx, tap_transpose(w, K, True),
+                                      out_mask)
+            else:
+                rows = torch.ones(feats.shape[0], dtype=torch.bool,
+                                  device=feats.device)
+                d_feats = gather_conv(g, inv_idx, tap_transpose(w, K, False),
+                                      rows)
+        if ctx.needs_input_grad[2]:
+            d_weight = sparse_conv_wgrad(feats, nidx, g).to(weight.dtype)
+        return d_feats, None, d_weight, None, None
+
+
+def sparse_conv(feats: torch.Tensor, nidx: torch.Tensor, weight: torch.Tensor,
+                out_mask: torch.Tensor,
+                inv_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Sparse conv over a rulebook, differentiable (:class:`SparseConvFn`):
+    CPU tensors take the plain versions, CUDA tensors kernels K7 and, in the
+    backward, K7 and K9.  Arguments as :func:`sparse_conv_reference`, the
+    weight in any float dtype (it is cast to the features'); ``inv_idx`` the
+    inverse rulebook of a strided conv (:func:`sparse_inv_nbr`), needed for
+    its d_feats, None for a submanifold conv."""
+    return SparseConvFn.apply(feats, nidx, weight, out_mask, inv_idx)
 
 
 def to_dense(feats: torch.Tensor, grid: SparseGrid) -> torch.Tensor:

@@ -77,15 +77,18 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
     AdamW and the schedule.
 
     A model whose compute dtype is not float32 (the flagship's bf16) runs
-    the forward and the loss under ``torch.autocast`` in that dtype while its
-    parameters stay float32, as flax keeps them.  Returns the losses,
-    ``loss`` (their sum) and ``grad_norm`` (before clipping), as the JAX
-    step's metrics, and the forward's ``sca_overflow``, detached, on the
-    model's device.
+    the forward and the loss under ``torch.autocast`` in that dtype, on the
+    parameters' device, while its parameters stay float32, as flax keeps
+    them.  In train mode the LiDAR branch's BatchNorms update their running
+    statistics once per step.  Returns the losses, ``loss`` (their sum) and
+    ``grad_norm`` (before clipping), as the JAX step's metrics, and the
+    forward's ``sca_overflow`` and modality flags ``l_flag`` / ``c_flag``,
+    detached, on the model's device.
     """
     dtype = model.compute_dtype
+    device = next(model.parameters()).device
     opt.zero_grad(set_to_none=True)
-    with torch.autocast(batch["img"].device.type, dtype=dtype,
+    with torch.autocast(device.type, dtype=dtype,
                         enabled=dtype != torch.float32):
         preds = model(batch, generator)
         losses = model.loss(batch, preds)
@@ -101,5 +104,6 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["loss"] = total.detach()
     metrics["grad_norm"] = grad_norm.detach()
-    metrics["sca_overflow"] = preds["sca_overflow"]
+    for k in ("sca_overflow", "l_flag", "c_flag"):
+        metrics[k] = preds[k]
     return metrics
