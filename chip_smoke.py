@@ -2,14 +2,17 @@
 """Smoke run of the PyTorch port (unibev_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --predict   # phases 13-15 alone (predict_only)
 
 Builds the hand-written CUDA kernels from unibev_tpu_torch/csrc with nvcc,
 then, each phase printing one line (or a few) and raising on any failure:
 
-  1. the card (nvidia-smi name and power limit), torch / CUDA versions and
-     the kernel build time;
-  2. kernel K1 (MSDA) against its plain PyTorch version at the three
-     flagship call shapes, in f32 (TF32 off) and bf16, with both times;
+  1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
+     kernel build time, and what ``nvcc -Xptxas -v`` reports for K1 and K7
+     (registers, static shared memory, stack, spills);
+  2. kernel K1 (MSDA) against its plain PyTorch version at the five
+     flagship call shapes, in f32 (TF32 off) and bf16, with both times,
+     their ratio and the access width each site takes;
   3. kernel K2 (DCNv2 im2col) the same way at the stage-3 and stage-4 shapes;
   4. the tiny camera-only model: CUDA with the kernels against the CPU with
      the plain versions, same weights and inputs;
@@ -35,7 +38,7 @@ then, each phase printing one line (or a few) and raising on any failure:
      sparse-conv kernels against their plain versions at every flagship
      LiDAR site, on the active sets and rulebooks of the voxelized synthetic
      batch: K6 sparse_nbr exactly, K7 sparse_conv in f32 (TF32 off) and
-     bf16, with both times;
+     bf16, with both times and their ratio;
  12. the tiny LC model in LC and L mode: CUDA with the kernels against the
      CPU with the plain versions, same weights and inputs;
  13. full-width flagship LC predict in bf16 (6 cameras at 928x1600 and 300k
@@ -45,7 +48,9 @@ then, each phase printing one line (or a few) and raising on any failure:
      conv's overflow;
  14. L predict on the same model (the batch without images): launch counts
      (12 K1, 0 K2, 8 K6, 21 K7) and ms per sample;
- 15. torch.profiler breakdowns of one LC and one L forward by kernel;
+ 15. torch.profiler breakdowns of one LC and one L forward by kernel, and
+     the host's time in each (the traced wall less the time spent waiting
+     in CUDA synchronizing calls);
  16. the sparse conv's backward against its plain versions at every
      flagship LiDAR site: K8 sparse_inv_nbr exactly at its 4 sites, K9
      sparse_conv_wgrad at its 21 (f32 with TF32 off, and bf16; the 4
@@ -53,7 +58,7 @@ then, each phase printing one line (or a few) and raising on any failure:
      data each), and
      SparseConvFn's d_feats (K7 with the transposed weights, over the
      rulebook or K8's inverse one) against autograd through the plain
-     forward, with the times of kernels and plain versions;
+     forward, with the times of kernels and plain versions and their ratio;
  17. one tiny LC train step on CUDA against the same step on the CPU, the
      LiDAR modules in train mode (batch statistics, sparse backward) and the
      rest in eval mode, so that nothing draws: losses, gradients, updates
@@ -86,6 +91,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -209,6 +215,40 @@ def kernel_entry(name, source, replaces, launches, rec, library_ms=None):
                 else "operations", library_ms=library_ms)
 
 
+def ratio_line(label, rec):
+    """The summed kernel and plain times of ``rec`` and their ratio, both
+    measured in this run."""
+    print(f"  {label}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+          f"ms, kernel/plain {rec['ms'] / rec['plain_ms']:.4f}, bound "
+          f"{rec['bound_ms']:.4f} ms", flush=True)
+
+
+def ptxas_report(kernels=("msda_fwd", "sparse_conv_kernel")):
+    """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
+    entry functions whose names hold one of ``kernels``: one dict each."""
+    log = _build.BUILD_DIR / "nvcc.log"
+    found, cur = [], None
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = dict(name=name) if any(k in name for k in kernels) else None
+            if cur is not None:
+                found.append(cur)
+        elif cur is not None and "stack frame" in line:
+            cur["frame"] = line.strip()
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["used"] = line.split(":", 1)[1].strip()
+            cur = None
+    names = [f["name"] for f in found]
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), text=True,
+                             capture_output=True).stdout.splitlines()
+        for f, n in zip(found, out):
+            f["name"] = n
+    return found
+
+
 def check(name, got, want, rel):
     err = (got.float() - want.float()).abs().max().item()
     tol = rel * max(1.0, want.float().abs().max().item())
@@ -244,6 +284,8 @@ def _dcn_inputs(gen, B, H, W, Cin, dtype):
 
 
 def phase_msda(gen):
+    # imported here: --predict also runs against checkouts that predate it
+    from unibev_tpu_torch.ops.msda import msda_fwd_route
     print("phase 2: K1 msda_fwd vs ms_deform_attn_reference", flush=True)
     rec = new_rec()
     for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES + LIDAR_MSDA_SITES:
@@ -253,16 +295,24 @@ def phase_msda(gen):
             got = ms_deform_attn(value, levels, loc, attn)
             want = ms_deform_attn_reference(value, levels, loc, attn)
             err = check(f"{name} {str(dtype)[6:]}", got, want, REL_TOL[dtype])
+            vec = msda_fwd_route(D, value.element_size(), value.data_ptr())
+            print(f"  {name} {str(dtype)[6:]}: K1 {vec}-byte loads",
+                  flush=True)
             if dtype is torch.bfloat16:
                 ms = cuda_ms(lambda: ms_deform_attn(value, levels, loc, attn), 20)
                 plain = cuda_ms(lambda: ms_deform_attn_reference(value, levels, loc, attn), 5)
-                # value, loc (f32), attn, out; 4 corners x D FMAs per point
+                # value (the whole map, or the four D-wide corner rows of
+                # every point where those are fewer bytes), loc (f32), attn,
+                # out; 4 corners x D FMAs per point
                 pts = B * Q * heads * len(levels) * P
+                gathered = min(2 * B * V * heads * D, 4 * pts * 2 * D)
                 bound = add_site(rec, name, calls, ms, plain, err,
-                                 2 * B * V * heads * D + 10 * pts
-                                 + 2 * B * Q * heads * D, 8 * D * pts)
+                                 gathered + 10 * pts + 2 * B * Q * heads * D,
+                                 8 * D * pts, vec_bytes=vec)
                 print(f"  {name} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                      f"bound {bound:.4f} ms (x{calls} per forward)", flush=True)
+                      f"kernel/plain {ms / plain:.4f}, bound {bound:.4f} ms "
+                      f"(x{calls} per forward)", flush=True)
+    ratio_line("K1 over the 18 launches of one LC forward", rec)
     return rec
 
 
@@ -804,7 +854,9 @@ def phase_sparse(gen):
                                  2 * live * cin * cout, live=live)
                 print(f"  K7 {name} bf16 ({Vout} x {K} taps, {live} live, {cin} "
                       f"-> {cout}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                      f"bound {bound:.4f} ms (x{calls} per forward)", flush=True)
+                      f"kernel/plain {ms / plain:.4f}, bound {bound:.4f} ms "
+                      f"(x{calls} per forward)", flush=True)
+    ratio_line("K7 over the 21 launches of one LC forward", rec7)
     del k6, k7
     torch.cuda.empty_cache()
     return rec6, rec7, counts
@@ -896,9 +948,11 @@ def phase_sparse_backward(gen):
                                  2 * live * cin * cout, live=live)
                 print(f"  K7 d_feats {name} bf16 ({rows} x {K} taps, {cout} -> "
                       f"{cin}): kernel {ms:.4f} ms, plain backward "
-                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms (x{calls} per "
-                      f"step)", flush=True)
+                      f"{plain_ms:.4f} ms, kernel/plain {ms / plain_ms:.4f}, "
+                      f"bound {bound:.4f} ms (x{calls} per step)", flush=True)
                 del plain
+    ratio_line("K7 as d_feats over the 20 launches of one LC train step",
+               rec_df)
     del k7, k8, inv
     torch.cuda.empty_cache()
     return rec8, rec9, rec_df
@@ -1028,12 +1082,22 @@ def _category(kernel_name):
     return "elementwise, norms and other"
 
 
+# CUDA runtime calls in which the host waits for the card
+WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
+
+
 def _profile(run, wall_ms):
+    """Device time by kernel category of one traced ``run``, its idle share
+    against ``wall_ms``, and the host's time in the traced run: its wall
+    less the time the host spent in WAIT_CALLS (tracing adds to it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1000
     # kernels only: the optimizer's record_function range ("Optimizer.step#
     # AdamW.step") also shows as a device event and would count its kernels
     # twice
@@ -1053,10 +1117,16 @@ def _profile(run, wall_ms):
     idle = 1.0 - total_ms / wall_ms
     print(f"  device busy {total_ms:.3f} ms of {wall_ms:.3f} ms wall: "
           f"idle share {idle:.3f}", flush=True)
+    waits = [e for e in prof.key_averages() if e.key in WAIT_CALLS]
+    wait_ms = sum(e.self_cpu_time_total for e in waits) / 1000
+    print(f"  host: traced run {traced_ms:.3f} ms, of which {wait_ms:.3f} ms "
+          f"in {sum(e.count for e in waits)} waiting calls; host time "
+          f"{traced_ms - wait_ms:.3f} ms", flush=True)
     top = [dict(name=e.key[:120], calls=e.count,
                 device_ms=e.self_device_time_total / 1000) for e in events[:30]]
     return dict(device_ms_total=total_ms, idle_share=idle, by_category=by_cat,
-                top=top)
+                traced_ms=traced_ms, wait_ms=wait_ms,
+                host_ms=traced_ms - wait_ms, top=top)
 
 
 def phase_profile(model, batch, wall_ms):
@@ -1081,12 +1151,30 @@ def phase_profile_train(model, opt, sched, batch, gen, wall_ms, lidar=False):
     return _profile(lambda: train_step(model, opt, sched, batch, gen), wall_ms)
 
 
-def main():
+def predict_only():
+    """``--predict``: phases 13-15 alone.  To compare two checkouts with one
+    harness, copy this file into the other's root and run both in one call,
+    in the order A B B A."""
+    print(f"package {os.path.join(ROOT, 'unibev_tpu_torch')}", flush=True)
+    model, batch, lc = phase_flagship_lc()
+    l_batch, l_only = phase_flagship_l(model, batch)
+    phase_profile_lidar(model, batch, l_batch, lc["ms_per_sample"],
+                        l_only["ms_per_sample"])
+    return 0
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv == ["--predict"]:
+        _build.lib()
+        return predict_only()
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1099,6 +1187,10 @@ def main():
     print(f"  {smi}; torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; kernels built and loaded "
           f"in {build_s:.1f} s", flush=True)
+    ptxas = ptxas_report()
+    for f in ptxas:
+        print(f"  ptxas {f['name'][:110]}: {f.get('used')}; {f.get('frame')}",
+              flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     msda = phase_msda(gen)
@@ -1167,7 +1259,8 @@ def main():
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
-                       build_s=build_s, msda=msda, dcn=dcn, tiny=tiny,
+                       build_s=build_s, ptxas=ptxas, msda=msda, dcn=dcn,
+                       tiny=tiny,
                        flagship=flagship, profile=prof, backward=bwd,
                        tiny_train=tiny_train, train=train,
                        profile_train=prof_train, sparse_nbr=k6,
@@ -1185,4 +1278,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

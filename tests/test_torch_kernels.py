@@ -35,7 +35,8 @@ from unibev_tpu_torch.ops.deform_conv import (
 from unibev_tpu_torch.ops.msda import (cell_interior, ms_deform_attn,
                                        ms_deform_attn_backward,
                                        ms_deform_attn_backward_reference,
-                                       ms_deform_attn_reference)
+                                       ms_deform_attn_reference,
+                                       msda_fwd_route)
 from unibev_tpu_torch.ops.scatter import (scatter_add_rows,
                                           scatter_add_rows_reference)
 from unibev_tpu_torch.ops.sparse_conv import (
@@ -81,18 +82,54 @@ def _dcn_inputs(device, dtype, B=2, H=11, W=13, Cin=40, Cout=24, stride=2,
     return x, off, mask, w
 
 
-@pytest.mark.parametrize("levels,P", [(((29, 50),), 8), (((29, 50), (7, 9)), 4),
-                                      (((200, 200),), 4)], ids=["sca", "L2", "bev"])
+# name: (levels, points, heads, D)
+MSDA_CASES = {
+    "sca": (((29, 50),), 8, 8, 32),
+    "L2": (((29, 50), (7, 9)), 4, 8, 32),
+    "bev": (((200, 200),), 4, 8, 32),
+    "sca_d8": (((29, 50),), 8, 8, 8),
+    # 8-byte rows in bf16: no 16-byte access
+    "sca_d4": (((29, 50),), 8, 8, 4),
+    "bev_d4": (((200, 200),), 4, 8, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(MSDA_CASES))
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2 ** -6)],
                          ids=["f32", "bf16"])
-def test_msda_kernel_matches_plain(cuda_device, levels, P, dtype, rel):
-    value, loc, attn = _msda_inputs(cuda_device, dtype, levels, P)
+def test_msda_kernel_matches_plain(cuda_device, case, dtype, rel):
+    levels, P, heads, D = MSDA_CASES[case]
+    value, loc, attn = _msda_inputs(cuda_device, dtype, levels, P, heads=heads,
+                                    D=D)
+    vec = msda_fwd_route(D, value.element_size(), value.data_ptr())
+    assert vec == min(16, D * value.element_size())
     before = _build.launches["msda_fwd"]
     got = ms_deform_attn(value, levels, loc, attn)
     torch.cuda.synchronize()
     assert _build.launches["msda_fwd"] == before + 1
-    assert got.dtype == dtype and got.shape == (2, 300, 8 * 32)
+    assert got.dtype == dtype and got.shape == (2, 300, heads * D)
+    _close(got, ms_deform_attn_reference(value, levels, loc, attn), rel)
+
+
+@pytest.mark.parametrize("dtype,offset,vec", [
+    (torch.bfloat16, 2, 2), (torch.bfloat16, 4, 4), (torch.bfloat16, 8, 8),
+    (torch.float32, 4, 4), (torch.float32, 8, 8)])
+def test_msda_kernel_takes_unaligned_value(cuda_device, dtype, offset, vec):
+    """A contiguous value that starts ``offset`` bytes past a 16-byte
+    boundary (a view into a larger buffer) takes the narrower accesses of
+    the same kernel."""
+    levels = ((29, 50),)
+    value, loc, attn = _msda_inputs(cuda_device, dtype, levels, 8)
+    skip = offset // value.element_size()
+    buf = torch.empty(value.numel() + skip, dtype=dtype, device=cuda_device)
+    view = buf[skip:].view(value.shape)
+    view.copy_(value)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    assert msda_fwd_route(32, view.element_size(), view.data_ptr()) == vec
+    got = ms_deform_attn(view, levels, loc, attn)
+    torch.cuda.synchronize()
+    rel = 1e-5 if dtype is torch.float32 else 2 ** -6
     _close(got, ms_deform_attn_reference(value, levels, loc, attn), rel)
 
 
@@ -238,7 +275,7 @@ def test_plain_versions_agree_with_themselves_on_cpu_and_card(cuda_device):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
 
 
-def _sparse_grid(device, B=2, shape=(9, 14, 13), n=400, V=512, seed=0):
+def _sparse_grid(device, B=2, shape=(9, 14, 13), n=400, V=500, seed=0):
     """n distinct active cells in V shuffled rows, the rest padding."""
     g = torch.Generator().manual_seed(seed)
     D, H, W = shape
@@ -276,19 +313,25 @@ def test_sparse_nbr_kernel_matches_plain(cuda_device, kernel, stride, padding):
     assert bool((want < V).any()) and bool((want == V).any())
 
 
-@pytest.mark.parametrize("cin,cout,taps", [(5, 16, 27), (16, 32, 27),
-                                           (40, 24, 27), (128, 128, 3)])
+# (Cin, Cout, taps): the flagship's forward widths, their transposes (the
+# d_feats of the strided convs), narrow and ragged widths
+@pytest.mark.parametrize("cin,cout,taps", [
+    (5, 16, 27), (8, 8, 27), (16, 32, 27), (40, 24, 27), (128, 128, 27),
+    (32, 16, 27), (64, 32, 27), (128, 64, 27), (24, 40, 27), (128, 128, 3)])
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2 ** -6)],
                          ids=["f32", "bf16"])
 def test_sparse_conv_kernel_matches_plain(cuda_device, cin, cout, taps, dtype,
                                           rel):
+    """500 rows (not a multiple of K7's 64-row tile), rows 64-127 all
+    sentinels (a tile with no live tap)."""
     grid = _sparse_grid(cuda_device)
     table = build_table(grid)
     V = grid.coords.shape[0]
     kernel = (3, 3, 3) if taps == 27 else (3, 1, 1)
     nidx = sparse_nbr(table, V, grid.shape, grid.coords, grid.mask, kernel,
                       (1, 1, 1), tuple(k // 2 for k in kernel))
+    nidx[64:128] = V
     g = torch.Generator(device=cuda_device).manual_seed(1)
     feats = torch.randn(V, cin, device=cuda_device, generator=g).to(dtype)
     w = (torch.randn(taps * cin, cout, device=cuda_device, generator=g)
@@ -302,17 +345,35 @@ def test_sparse_conv_kernel_matches_plain(cuda_device, cin, cout, taps, dtype,
     assert bool((got[~grid.mask] == 0).all())
 
 
+def test_sparse_conv_mma_fragments(cuda_device):
+    """K7's bf16 tensor-core tile on exact products, 16 x 16 x 16: identity
+    weights pass the gathered rows through, identity rows pass the weights
+    through, and permuted rows land on their own outputs; a wrong mma or
+    ldmatrix fragment layout misplaces values."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(16, 16, device=cuda_device, generator=g).bfloat16()
+    eye = torch.eye(16, device=cuda_device, dtype=torch.bfloat16)
+    nidx = torch.arange(16, dtype=torch.int32, device=cuda_device)[:, None]
+    mask = torch.ones(16, dtype=torch.bool, device=cuda_device)
+    perm = torch.randperm(16, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda_device)
+    assert torch.equal(sparse_conv(x, nidx, eye, mask), x)
+    assert torch.equal(sparse_conv(eye, nidx, x, mask), x)
+    assert torch.equal(sparse_conv(x, nidx[perm].contiguous(), eye, mask),
+                       x[perm])
+
+
 def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     grid = _sparse_grid(cuda_device)
     table = build_table(grid)
     args = (grid.shape, grid.coords, grid.mask, (3, 3, 3), (1, 1, 1), (1, 1, 1))
     with pytest.raises(TypeError):
-        sparse_nbr(table.long(), 512, *args)
+        sparse_nbr(table.long(), 500, *args)
     with pytest.raises(ValueError):
-        sparse_nbr(table, 512, grid.shape, grid.coords.t().contiguous(),
+        sparse_nbr(table, 500, grid.shape, grid.coords.t().contiguous(),
                    *args[2:])
-    nidx = sparse_nbr(table, 512, *args)
-    feats = torch.randn(512, 8, device=cuda_device)
+    nidx = sparse_nbr(table, 500, *args)
+    feats = torch.randn(500, 8, device=cuda_device)
     w = torch.randn(27 * 8, 16, device=cuda_device)
     with pytest.raises(TypeError):
         sparse_conv(feats.half(), nidx, w, grid.mask)
@@ -320,7 +381,7 @@ def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         sparse_conv(feats, nidx, w[:-1], grid.mask)
     with pytest.raises(ValueError):
         sparse_conv(feats, nidx, w, grid.mask.cpu())
-    g = torch.randn(512, 16, device=cuda_device)
+    g = torch.randn(500, 16, device=cuda_device)
     with pytest.raises(TypeError):
         sparse_conv_wgrad(feats, nidx, g.bfloat16())
     with pytest.raises(ValueError):
@@ -388,10 +449,15 @@ def test_sparse_conv_wgrad_kernel_matches_plain(cuda_device, cin, cout, taps,
 
 
 @pytest.mark.parametrize("case", ["subm"] + ["k3s2p1", "k3s2p011", "conv_out"])
-def test_sparse_conv_backward_goes_through_the_kernels(cuda_device, case):
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2 ** -6)],
+                         ids=["f32", "bf16"])
+def test_sparse_conv_backward_goes_through_the_kernels(cuda_device, case,
+                                                       dtype, rel):
     """d_feats and d_weight of ``sparse_conv`` on CUDA (K7 forward, K7 and
     K9 backward, K8 for a strided conv's inverse rulebook) against autograd
-    through the plain forward, f32."""
+    through the plain forward in float32 on the same (for bf16, bf16-exact)
+    values."""
     grid = _sparse_grid(cuda_device)
     table = build_table(grid)
     V = grid.coords.shape[0]
@@ -408,18 +474,23 @@ def test_sparse_conv_backward_goes_through_the_kernels(cuda_device, case):
                              kernel, stride, padding)
     K = nidx.shape[1]
     g = torch.Generator(device=cuda_device).manual_seed(3)
-    feats = torch.randn(V, 24, device=cuda_device, generator=g)
-    w = torch.randn(K * 24, 40, device=cuda_device, generator=g) * K ** -0.5
-    cot = torch.randn(nidx.shape[0], 40, device=cuda_device, generator=g)
+    feats = torch.randn(V, 24, device=cuda_device, generator=g).to(dtype)
+    w = (torch.randn(K * 24, 40, device=cuda_device, generator=g)
+         * K ** -0.5).to(dtype)
+    cot = torch.randn(nidx.shape[0], 40, device=cuda_device,
+                      generator=g).to(dtype)
     grads = []
     before = dict(_build.launches)
-    for fn in (lambda f, ww: sparse_conv(f, nidx, ww, mo, inv),
-               lambda f, ww: sparse_conv_reference(f, nidx, ww, mo)):
-        f, ww = feats.clone().requires_grad_(), w.clone().requires_grad_()
-        grads.append(torch.autograd.grad(fn(f, ww), (f, ww), cot))
+    for fn, cast in ((lambda f, ww: sparse_conv(f, nidx, ww, mo, inv), dtype),
+                     (lambda f, ww: sparse_conv_reference(f, nidx, ww, mo),
+                      torch.float32)):
+        f = feats.to(cast).requires_grad_()
+        ww = w.to(cast).requires_grad_()
+        grads.append(torch.autograd.grad(fn(f, ww), (f, ww), cot.to(cast)))
     torch.cuda.synchronize()
     assert _build.launches["sparse_conv"] == before.get("sparse_conv", 0) + 2
     assert _build.launches["sparse_conv_wgrad"] == before.get(
         "sparse_conv_wgrad", 0) + 1
     for a, b in zip(*grads):
-        _close(a, b, 1e-4)
+        assert a.dtype == dtype
+        _close(a, b, rel)

@@ -28,7 +28,8 @@ from unibev_tpu.ops.msda_pallas import ms_deform_attn_smallv
 
 from torch_port_utils import t
 from unibev_tpu_torch.ops.msda import (ms_deform_attn_backward,
-                                       ms_deform_attn_reference)
+                                       ms_deform_attn_reference,
+                                       msda_fwd_route)
 
 ATOL = 1e-5
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -125,3 +126,36 @@ def test_backward_matches_pallas_kernel():
             np.asarray(da).reshape(B, heads, Q, 1, P).transpose(0, 2, 1, 3, 4))
     got = ms_deform_attn_backward(t(value), ((H, W),), t(loc), t(attn), t(g))
     _check_grads(got, want)
+
+
+# (D, bytes per element, bytes per access) of an aligned value
+K1_WIDTHS = {
+    # every MSDA site of the flagship: TSA, camera SCA, decoder, LiDAR TSA
+    # and SCA
+    "flagship_bf16": (32, 2, 16),
+    "flagship_f32": (32, 4, 16),
+    # the tiny models: 32 dims over 8 heads, float32
+    "tiny_f32": (4, 4, 16),
+    "d4_bf16": (4, 2, 8),
+    "d6_bf16": (6, 2, 4),
+    "d2_bf16": (2, 2, 4),
+    "d1_bf16": (1, 2, 2),
+    "d3_f32": (3, 4, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_WIDTHS))
+def test_k1_route(case):
+    """The CUDA kernel K1's access width: 16 bytes wherever a head's row
+    allows, else the widest of 8 and 4 bytes that divides it, else one
+    element."""
+    D, size, width = K1_WIDTHS[case]
+    assert msda_fwd_route(D, size) == width
+    assert (D * size) % width == 0
+
+
+@pytest.mark.parametrize("address,vec", [(0, 16), (8, 8), (4, 4), (2, 2),
+                                         (6, 2)])
+def test_k1_route_narrows_for_unaligned_value(address, vec):
+    """value's data pointer narrows the access width too."""
+    assert msda_fwd_route(32, 2, address) == vec

@@ -33,20 +33,31 @@
 // 29x50x256 camera maps 4.5 MB), so the rate is set by L2 gather throughput
 // and by how many warps are in flight.
 //
-// The design is the simple one: one warp per (b, q, head), lanes over D
-// (D = 32 at every flagship site), a loop over levels x points, f32
-// accumulation.  K3 reduces the four corner dot products <v_c, g> over D
-// with warp shuffles.  Left for later: staging one (camera, head) 1450 x 32
-// map in shared memory for the camera cross-attention, 16-byte vector loads
-// of two or more channels per lane, and fusing K5 into K3 (atomics straight
-// into d_value instead of the contribution rows).
+// K1: one thread per (b, q, head, group of VEC channels), VEC channels per
+// 16-byte access where D and value's alignment allow (8 in bf16, 4 in f32:
+// 4 threads per (query, head) at D = 32), else 8, 4 or 2 bytes; the
+// wrapper (ops/msda.py::msda_fwd_route) chooses the width.  Each thread
+// reads its points' loc and attn once, computes their geometry once, issues
+// one vector load per live corner, four points at a time (16 loads in
+// flight), and sums VEC float32 channels.  Every site gathers from global
+// memory (L2 at the flagship's sizes).  A variant that first copied one
+// head's small camera map (29x50, 92.8 KB in bf16) into shared memory, the
+// Pallas kernel's idea, gained the camera SCA about 7% on the H100 (PERF.md
+// section 6): too little to keep a second kernel for.
+// K3 keeps one warp per (b, q, head) and reduces the four corner dot
+// products <v_c, g> over D with warp shuffles.  Left for later: fusing K5
+// into K3 (atomics straight into d_value instead of the contribution rows).
+
+#include <cstdint>
 
 #include "bilinear.cuh"
 
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;  // K3
+constexpr int kFwdThreads = 256;   // K1
+constexpr int kBatch = 4;          // points whose corner loads K1 issues together
 
 struct Levels {
   int h[kMaxLevels];
@@ -54,46 +65,140 @@ struct Levels {
   int start[kMaxLevels];
 };
 
-template <typename T>
-__global__ void msda_fwd_kernel(const T* __restrict__ value,
-                                const float* __restrict__ loc,
-                                const T* __restrict__ attn,
-                                T* __restrict__ out, int V, int Q, int heads,
-                                int D, int L, int P, long long n_warps,
-                                Levels lv) {
-  const long long warp =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp >= n_warps) return;
-  const int lane = threadIdx.x & 31;
-  // warp = (b * Q + q) * heads + h
-  const int h = (int)(warp % heads);
-  const long long b = warp / heads / Q;
-  const long long row = (long long)heads * D;  // elements between value rows
-  const T* vb = value + b * V * row + (long long)h * D;
-  const float* lw = loc + warp * L * P * 2;
-  const T* aw = attn + warp * L * P;
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned;
+};
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
+};
 
-  for (int d = lane; d < D; d += 32) {
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const int H = lv.h[l];
-      const int W = lv.w[l];
-      const T* vl = vb + (long long)lv.start[l] * row + d;
-      for (int p = 0; p < P; ++p) {
-        const int i = l * P + p;
-        Bilinear g;
-        if (!bilinear_at(lw[2 * i] * W - 0.5f, lw[2 * i + 1] * H - 0.5f, W, H,
-                         g))
-          continue;
-        float s = 0.f;
+// VEC consecutive channels of T, moved as one 16-, 8-, 4- or 2-byte access.
+template <typename T, int VEC>
+struct Chunk {
+  using Raw = typename RawOf<VEC * (int)sizeof(T)>::type;
+  Raw raw;
+  __device__ __forceinline__ void load(const T* p) {
+    raw = *reinterpret_cast<const Raw*>(p);
+  }
+  __device__ __forceinline__ void clear() { raw = Raw{}; }
+  __device__ __forceinline__ float get(int i) const {
+    if constexpr (sizeof(T) == 4) {
+      return reinterpret_cast<const float*>(&raw)[i];
+    } else {  // bf16 -> float is the 16 bits shifted up, exactly
+      return __uint_as_float(
+          (unsigned)reinterpret_cast<const unsigned short*>(&raw)[i] << 16);
+    }
+  }
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_chunk(T* p, const float (&acc)[VEC]) {
+  typename Chunk<T, VEC>::Raw raw;
+  T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (g.in[c]) s += g.w[c] * to_float(vl[corner_cell(g, c, W) * row]);
-        acc += to_float(aw[i]) * s;
+  for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(acc[i]);
+  *reinterpret_cast<typename Chunk<T, VEC>::Raw*>(p) = raw;
+}
+
+// acc += sum over the n points of one level of attn * the bilinear sample
+// of the VEC channels at `base` (the thread's channels of the level's cell
+// 0, `row` elements between cells).  Each thread reads its points' loc and
+// attn once and computes their geometry once; the points go in batches of
+// kBatch, whose 4 * kBatch corner loads are all issued before the first is
+// used.  A corner outside the map, or a point
+// that fails the whole-point test, loads nothing and adds zero.
+template <typename T, int VEC>
+__device__ __forceinline__ void sample_level(const T* base, long long row,
+                                             const float* __restrict__ lw,
+                                             const T* __restrict__ aw, int W,
+                                             int H, int n, float (&acc)[VEC]) {
+  for (int p0 = 0; p0 < n; p0 += kBatch) {
+    Chunk<T, VEC> v[kBatch][4];
+    float w[kBatch][4];
+    float a[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int p = p0 + j;
+      Bilinear g;
+      const bool ok = p < n && bilinear_at(lw[2 * p] * W - 0.5f,
+                                           lw[2 * p + 1] * H - 0.5f, W, H, g);
+      a[j] = ok ? to_float(aw[p]) : 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool in = ok && g.in[c];
+        w[j][c] = in ? g.w[c] : 0.f;
+        if (in)
+          v[j][c].load(base + corner_cell(g, c, W) * row);
+        else
+          v[j][c].clear();
       }
     }
-    out[warp * D + d] = from_float<T>(acc);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      float s[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) s[i] += w[j][c] * v[j][c].get(i);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += a[j] * s[i];
+    }
   }
+}
+
+// K1: one thread per (b, q, head, group of VEC channels), the map read
+// from global memory.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kFwdThreads)
+    msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                    const T* __restrict__ attn, T* __restrict__ out, int V,
+                    int Q, int heads, int D, int L, int P, long long n_threads,
+                    Levels lv) {
+  const long long t = (long long)blockIdx.x * kFwdThreads + threadIdx.x;
+  if (t >= n_threads) return;
+  const int groups = D / VEC;
+  const long long item = t / groups;  // (b * Q + q) * heads + h
+  const int g = (int)(t - item * groups);
+  const int h = (int)(item % heads);
+  const long long b = item / heads / Q;
+  const long long row = (long long)heads * D;  // elements between value rows
+  const T* vb = value + b * V * row + (long long)h * D + g * VEC;
+  const float* lw = loc + item * L * P * 2;
+  const T* aw = attn + item * L * P;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int l = 0; l < L; ++l)
+    sample_level<T, VEC>(vb + (long long)lv.start[l] * row, row, lw + 2 * l * P,
+                         aw + l * P, lv.w[l], lv.h[l], P, acc);
+  store_chunk<T, VEC>(out + item * D + g * VEC, acc);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_fwd(const void* value, const void* loc, const void* attn,
+                       void* out, int B, int V, int Q, int heads, int D, int L,
+                       int P, const Levels& lv, cudaStream_t s) {
+  const long long n = (long long)B * Q * heads * (D / VEC);
+  msda_fwd_kernel<T, VEC>
+      <<<(unsigned)((n + kFwdThreads - 1) / kFwdThreads), kFwdThreads, 0, s>>>(
+          static_cast<const T*>(value), static_cast<const float*>(loc),
+          static_cast<const T*>(attn), static_cast<T*>(out), V, Q, heads, D, L,
+          P, n, lv);
+  return cudaGetLastError();
 }
 
 // One warp per (b, q, head) of the rows [r0, r0 + n_rows) of the flattened
@@ -201,31 +306,50 @@ bool read_levels(int L, int P, int D, const int* shapes, Levels& lv) {
 }  // namespace
 
 // shapes: host array of L triples (H_l, W_l, start_l).  dtype: 0 f32, 1 bf16.
-// Returns the cudaError_t of the launch (0 on success).
+// vec: channels per access (D % vec == 0, value and out aligned to vec
+// elements; at most 16 bytes), chosen by the wrapper's msda_fwd_route.
+// Returns the cudaError_t of the launch.
 extern "C" int unibev_msda_fwd(const void* value, const void* loc,
                                const void* attn, void* out, int B, int V,
                                int Q, int heads, int D, int L, int P,
-                               const int* shapes, int dtype, void* stream) {
+                               const int* shapes, int dtype, int vec,
+                               void* stream) {
   Levels lv;
   if (!read_levels(L, P, D, shapes, lv)) return cudaErrorInvalidValue;
-  const long long n_warps = (long long)B * Q * heads;
-  if (n_warps == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    msda_fwd_kernel<float><<<blocks_for(n_warps), kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const float*>(value), static_cast<const float*>(loc),
-        static_cast<const float*>(attn), static_cast<float*>(out), V, Q, heads,
-        D, L, P, n_warps, lv);
-  } else if (dtype == 1) {
-    using T = __nv_bfloat16;
-    msda_fwd_kernel<T><<<blocks_for(n_warps), kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const T*>(value), static_cast<const float*>(loc),
-        static_cast<const T*>(attn), static_cast<T*>(out), V, Q, heads, D, L,
-        P, n_warps, lv);
-  } else {
+  const int size = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  if (size == 0 || vec < 1 || D % vec != 0 || 16 % (vec * size) != 0 ||
+      reinterpret_cast<uintptr_t>(value) % (vec * size) != 0 ||
+      reinterpret_cast<uintptr_t>(out) % (vec * size) != 0)
     return cudaErrorInvalidValue;
+  if ((long long)B * Q * heads == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using BF = __nv_bfloat16;
+  const int key = dtype * 100 + vec;
+  switch (key) {
+    case 4:
+      return launch_fwd<float, 4>(value, loc, attn, out, B, V, Q, heads, D, L,
+                                  P, lv, s);
+    case 2:
+      return launch_fwd<float, 2>(value, loc, attn, out, B, V, Q, heads, D, L,
+                                  P, lv, s);
+    case 1:
+      return launch_fwd<float, 1>(value, loc, attn, out, B, V, Q, heads, D, L,
+                                  P, lv, s);
+    case 108:
+      return launch_fwd<BF, 8>(value, loc, attn, out, B, V, Q, heads, D, L, P,
+                               lv, s);
+    case 104:
+      return launch_fwd<BF, 4>(value, loc, attn, out, B, V, Q, heads, D, L, P,
+                               lv, s);
+    case 102:
+      return launch_fwd<BF, 2>(value, loc, attn, out, B, V, Q, heads, D, L, P,
+                               lv, s);
+    case 101:
+      return launch_fwd<BF, 1>(value, loc, attn, out, B, V, Q, heads, D, L, P,
+                               lv, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // The backward of the (b, q) rows [r0, r0 + n_rows).  grad (B, Q, heads * D)

@@ -25,12 +25,31 @@
 // row index outside [0, V) (the sentinel V) reads zeros.  The JAX op writes
 // the (V, K * Cin) columns (104 MB at full resolution, 276 MB at stage 3 in
 // bf16) and multiplies them; this kernel never writes them.  A block owns 64
-// output rows and up to 128 output channels; for each tap it stages the 64
-// gathered feature rows (32 channels at a time) and the tap's weight slice
-// in shared memory and accumulates on CUDA cores, 4 rows x (TC / 16)
-// channels per thread.  A tap for which none of the block's 64 rows has a
-// neighbour is skipped.  What bounds it: CUDA-core FMAs (the flagship's 21
-// convs are ~250 GFLOP); tensor cores and a sorted rulebook are later work.
+// output rows and BN (16 to 128) output channels and writes each output
+// element once, without atomics, so the result is deterministic:
+//   * it reads its (64 x K) index tile once into shared memory and compacts,
+//     with one ballot per tap, the list of taps that hold a live row in the
+//     tile; only those taps are visited (at res 0-2 the rows are sparse and
+//     many taps of a tile are empty; at res 3, 40,000 of 162,000 cells, most
+//     are live);
+//   * for each (live tap, chunk of up to 128 input channels) it stages the
+//     64 gathered rows A and the tap's (Cin x BN) weight slice B in shared
+//     memory with 16-byte cp.async copies (a sentinel row and the channels
+//     past Cin are zero-filled, not read), two stages deep: the copies of
+//     the next item fly while this one is multiplied, one barrier per item.
+//     Widths that are not a 16-byte multiple (conv_input's Cin = 5) take
+//     plain loads into the same layout;
+//   * bf16 multiplies on the tensor cores with mma.sync m16n8k16 (float32
+//     sums in registers), A by ldmatrix and B, stored k-major, by
+//     ldmatrix.trans; the k depth is Cin padded to 16 with zeros.  mma.sync
+//     and not wgmma: the products are small (the flagship's 21 convs bound
+//     at ~0.18 ms) and come in 64-row tiles whose rows are gathered, so
+//     taking the multiply off the critical path is what counts;
+//   * float32 keeps exact float32 FMAs on CUDA cores (TF32 would break the
+//     1e-4 f32 tolerance; no main path runs K7 in f32) with the same
+//     live-tap loop and staged copies, 32 channels per stage.
+// What bounds it: the gathers (each live (row, tap) reads a Cin-wide row,
+// from L2 at the flagship's sizes) and, at res 3, the product.
 //
 // K8 unibev_sparse_inv_nbr: for input row i and tap d, the output row o of
 // a strided conv that reads i through d: o = (i + p - d) / s on every axis
@@ -58,9 +77,54 @@
 // bounds it: CUDA-core FMAs, the same contraction as K7's forward;
 // tensor cores are later work.
 
+#include <atomic>
+#include <cstdint>
+
 #include "bilinear.cuh"
 
 namespace {
+
+// Asynchronous 16-byte copy from global to shared memory (sm_80 and up),
+// cached in L1 too.  src_bytes 0 reads nothing and fills the 16 bytes with
+// zeros; src must still be a valid address.  Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed copy groups are still in
+// flight; a barrier must follow before other threads read the copies.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The most dynamic shared memory one block may use on the H100 (227 KB).
+constexpr int kMaxSmemBytes = 232448;
+
+// Let `kernel` take up to kMaxSmemBytes of dynamic shared memory on the
+// current device (above 48 KB a launch fails without it).  Set once per
+// kernel and device, `done` holding one bit per device: made at every
+// launch, the call stalled the host's run-ahead (measured end to end).
+template <typename Kernel>
+cudaError_t allow_max_smem(Kernel kernel,
+                           std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit != 0 && (done.load() & bit) != 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
 
 __global__ void sparse_nbr_kernel(const int* __restrict__ table,
                                   const int* __restrict__ coords,
@@ -90,115 +154,379 @@ __global__ void sparse_nbr_kernel(const int* __restrict__ table,
   out[i] = row;
 }
 
-constexpr int kRows = 64;     // output rows per block
-constexpr int kChunk = 32;    // input channels staged at a time
-constexpr int kThreads = 256;
+constexpr int kRows = 64;      // output rows per block
+constexpr int kThreads = 256;  // 8 warps
 
-template <typename T, int TC>
+// K7's shared memory, byte offsets from the start of the block's dynamic
+// shared memory: the (kRows x K) index tile; the live-tap area (K flags, the
+// list of live taps, their count); then two stages, each the gathered rows A
+// (kRows x kc, row pitch a_pitch) followed by the tap's weight rows B (kc x
+// BN, row pitch b_pitch).  Both pitches carry 16 bytes of padding, so that
+// the eight 16-byte rows one ldmatrix reads fall on distinct banks.
+struct ConvLayout {
+  int kc;        // input channels per stage (bf16: a multiple of 16)
+  int chunks;    // stages per tap, ceil(Cin / kc)
+  int a_pitch;   // elements
+  int b_pitch;   // elements
+  int b_offset;  // elements from a stage's start to its B
+  int stage;     // bytes per stage, a multiple of 16
+  int taps;      // byte offset of the live-tap area
+  int stages;    // byte offset of stage 0, 128-aligned
+  int bytes;     // in all
+};
+
+template <typename T, int BN>
+ConvLayout conv_layout(int K, int Cin) {
+  constexpr int kE = 16 / sizeof(T);                // elements per 16 bytes
+  constexpr int kStep = sizeof(T) == 2 ? 16 : kE;   // bf16: the mma's depth
+  constexpr int kMaxChunk = sizeof(T) == 2 ? 128 : 32;
+  ConvLayout c;
+  const int padded = (Cin + kStep - 1) / kStep * kStep;
+  c.kc = padded < kMaxChunk ? padded : kMaxChunk;
+  c.chunks = (Cin + c.kc - 1) / c.kc;
+  c.a_pitch = c.kc + kE;
+  c.b_pitch = BN + kE;
+  c.b_offset = kRows * c.a_pitch;
+  c.stage = (c.b_offset + c.kc * c.b_pitch) * (int)sizeof(T);
+  c.taps = kRows * K * 4;
+  c.stages = (c.taps + 4 * (2 * K + 1) + 127) / 128 * 128;
+  c.bytes = c.stages + 2 * c.stage;
+  return c;
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16, row-major) * B (16 x 8, bf16,
+// column-major), one warp, on the tensor cores.
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8 and receives, of each, row l / 4, columns 2 (l % 4) + {0, 1}.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// The same, transposed: lane l receives rows 2 (l % 4) + {0, 1}, column
+// l / 4 of each matrix.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// bf16: one stage's product on the tensor cores.  The 8 warps are 4 (rows)
+// x 2 (columns): warp (wm, wn) owns rows wm * 16 .. + 16 and columns wn *
+// BN / 2 .. + BN / 2, that is BN / 16 n-tiles of 8 with 4 float32 sums
+// each, acc[4 * j + i] (the mma's C fragment of n-tile j).  A is read with
+// ldmatrix, B (k-major rows) with ldmatrix.trans.
+template <int BN>
+__device__ __forceinline__ void stage_product(float (&acc)[BN / 4],
+                                              const __nv_bfloat16* a_s,
+                                              const __nv_bfloat16* b_s,
+                                              const ConvLayout& lay) {
+  constexpr int kNT = BN / 16;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  const __nv_bfloat16* a_row =
+      a_s + (wm * 16 + (lane & 15)) * lay.a_pitch + (lane >> 4) * 8;
+  const __nv_bfloat16* b_row = b_s + (lane & 15) * lay.b_pitch +
+                               wn * (BN / 2) + (kNT > 1 ? (lane >> 4) * 8 : 0);
+  for (int kk = 0; kk < lay.kc; kk += 16) {
+    unsigned a[4];
+    ldmatrix_x4(a, a_row + kk);
+    const __nv_bfloat16* b_k = b_row + kk * lay.b_pitch;
+    if constexpr (kNT == 1) {
+      unsigned b0, b1;
+      ldmatrix_x2_trans(b0, b1, b_k);
+      mma_bf16(acc, a, b0, b1);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNT; j += 2) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, b_k + j * 8);
+        mma_bf16(acc + 4 * j, a, b[0], b[1]);
+        mma_bf16(acc + 4 * (j + 1), a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// float32: exact float32 products on CUDA cores (TF32 would not hold the
+// f32 tolerance); thread (tx, ty) owns rows ty + 16 i, i < 4, and columns
+// tx + 16 j, j < BN / 16, acc[i * BN / 16 + j].
+template <int BN>
+__device__ __forceinline__ void stage_product(float (&acc)[BN / 4],
+                                              const float* a_s,
+                                              const float* b_s,
+                                              const ConvLayout& lay) {
+  constexpr int kCols = BN / 16;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  for (int c = 0; c < lay.kc; ++c) {
+    float a[4], b[kCols];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = a_s[(ty + 16 * i) * lay.a_pitch + c];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) b[j] = b_s[c * lay.b_pitch + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        acc[i * kCols + j] = fmaf(a[i], b[j], acc[i * kCols + j]);
+  }
+}
+
+template <int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 4],
+                                           __nv_bfloat16* __restrict__ out,
+                                           const unsigned char* __restrict__ mask,
+                                           long long v0, int rows, int n0,
+                                           int Cout) {
+  constexpr int kNT = BN / 16;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int n = n0 + wn * (BN / 2) + j * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wm * 16 + (lane >> 2) + 8 * half;
+      if (r >= rows || n >= Cout) continue;
+      const long long v = v0 + r;
+      const bool keep = mask[v] != 0;
+      const float x = keep ? acc[4 * j + 2 * half] : 0.f;
+      const float y = keep ? acc[4 * j + 2 * half + 1] : 0.f;
+      __nv_bfloat16* o = out + v * Cout + n;
+      if ((Cout & 1) == 0) {  // n is even: n + 1 < Cout, 4-byte aligned
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x, y);
+      } else {
+        o[0] = __float2bfloat16(x);
+        if (n + 1 < Cout) o[1] = __float2bfloat16(y);
+      }
+    }
+  }
+}
+
+template <int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 4],
+                                           float* __restrict__ out,
+                                           const unsigned char* __restrict__ mask,
+                                           long long v0, int rows, int n0,
+                                           int Cout) {
+  constexpr int kCols = BN / 16;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= rows) continue;
+    const long long v = v0 + r;
+    const bool keep = mask[v] != 0;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < Cout) out[v * Cout + n] = keep ? acc[i * kCols + j] : 0.f;
+    }
+  }
+}
+
+template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
     sparse_conv_kernel(const T* __restrict__ feats,
                        const int* __restrict__ nidx,
                        const T* __restrict__ weight,
                        const unsigned char* __restrict__ mask,
                        T* __restrict__ out, long long Vout, int K, int Cin,
-                       int Cout, int V) {
-  constexpr int kCols = TC / 16;  // output channels per thread
-  __shared__ float a_s[kRows][kChunk + 1];
-  __shared__ float b_s[kChunk][TC];
-  __shared__ int rows[kRows];
-
+                       int Cout, int V, ConvLayout lay, bool vec_a,
+                       bool vec_b) {
+  constexpr int kE = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* idx_s = reinterpret_cast<int*>(smem);
+  int* flags = reinterpret_cast<int*>(smem + lay.taps);
+  int* list = flags + K;  // the live taps in order, then their count
+  T* const stage0 = reinterpret_cast<T*>(smem + lay.stages);
+  const int stage_elems = lay.stage / (int)sizeof(T);
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const long long v0 = (long long)blockIdx.x * kRows;
-  const int n0 = blockIdx.y * TC;
+  const int n0 = blockIdx.y * BN;
+  const int rows = (int)min((long long)kRows, Vout - v0);
 
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-
-  for (int k = 0; k < K; ++k) {
-    int r = -1;
-    if (tid < kRows && v0 + tid < Vout) {
-      r = nidx[(v0 + tid) * K + k];
-      if (r < 0 || r >= V) r = -1;
+  // The index tile, read once, its loads independent of each other: -1
+  // for a sentinel or a row past Vout.  A masked output row is not looked
+  // at here (its rulebook row holds sentinels); the epilogue writes it as
+  // zeros whatever it gathered.
+#pragma unroll 4
+  for (int e = tid; e < kRows * K; e += kThreads) {
+    int src = -1;
+    if (e < rows * K) {
+      src = nidx[v0 * K + e];
+      if (src < 0 || src >= V) src = -1;
     }
-    if (tid < kRows) rows[tid] = r;
-    // a barrier for rows[], and the block skips the tap if no row reads
-    if (!__syncthreads_or(r >= 0)) continue;
-
-    for (int c0 = 0; c0 < Cin; c0 += kChunk) {
-      const int kc = min(kChunk, Cin - c0);
-      for (int e = tid; e < kRows * kChunk; e += kThreads) {
-        const int rr = e / kChunk;
-        const int c = e - rr * kChunk;
-        const int src = rows[rr];
-        float v = 0.f;
-        if (c < kc && src >= 0) v = to_float(feats[(long long)src * Cin + c0 + c]);
-        a_s[rr][c] = v;
-      }
-      for (int e = tid; e < kChunk * TC; e += kThreads) {
-        const int c = e / TC;
-        const int n = e - c * TC;
-        float v = 0.f;
-        if (c < kc && n0 + n < Cout)
-          v = to_float(weight[((long long)k * Cin + c0 + c) * Cout + n0 + n]);
-        b_s[c][n] = v;
-      }
-      __syncthreads();
-      for (int c = 0; c < kc; ++c) {
-        float a[4], b[kCols];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = a_s[ty + 16 * i][c];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) b[j] = b_s[c][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    idx_s[e] = src;
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long v = v0 + ty + 16 * i;
-    if (v >= Vout) continue;
-    const bool keep = mask[v] != 0;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < Cout) out[v * Cout + n] = from_float<T>(keep ? acc[i][j] : 0.f);
-    }
+  __syncthreads();
+  // The taps with at least one live row: a ballot over the 64 rows per tap,
+  // then one warp compacts them in order.
+  for (int k = warp; k < K; k += kThreads / 32) {
+    const bool any = __any_sync(0xffffffffu, idx_s[lane * K + k] >= 0 ||
+                                                 idx_s[(lane + 32) * K + k] >= 0);
+    if (lane == 0) flags[k] = any;
   }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const bool live = k0 + lane < K && flags[k0 + lane];
+      const unsigned bits = __ballot_sync(0xffffffffu, live);
+      if (live) list[n + __popc(bits & ((1u << lane) - 1u))] = k0 + lane;
+      n += __popc(bits);
+    }
+    if (lane == 0) list[K] = n;
+  }
+  __syncthreads();
+  const int items = list[K] * lay.chunks;  // (live tap, channel chunk)
+
+  // Stage item `it` into buffer it & 1: the tile's gathered rows of the
+  // tap's channel chunk (zeros for -1 rows and past Cin) and the tap's
+  // weight rows of the block's columns (zeros past Cin and Cout), by 16-byte
+  // cp.async where the widths and pointers allow, else by plain loads.
+  auto issue = [&](int it) {
+    T* a_s = stage0 + (it & 1) * stage_elems;
+    T* b_s = a_s + lay.b_offset;
+    const int k = list[it / lay.chunks];
+    const int c0 = (it % lay.chunks) * lay.kc;
+    const int kc = lay.kc;
+    if (vec_a) {
+      const int segs = kc / kE;
+      for (int e = tid; e < kRows * segs; e += kThreads) {
+        const int r = e / segs;
+        const int c = (e - r * segs) * kE;
+        const int src = idx_s[r * K + k];
+        const bool ok = src >= 0 && c0 + c < Cin;
+        cp_async16(a_s + r * lay.a_pitch + c,
+                   ok ? feats + (long long)src * Cin + c0 + c : feats,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kRows * kc; e += kThreads) {
+        const int r = e / kc;
+        const int c = e - r * kc;
+        const int src = idx_s[r * K + k];
+        a_s[r * lay.a_pitch + c] = (src >= 0 && c0 + c < Cin)
+                                       ? feats[(long long)src * Cin + c0 + c]
+                                       : from_float<T>(0.f);
+      }
+    }
+    const T* wk = weight + ((long long)k * Cin + c0) * Cout + n0;
+    if (vec_b) {
+      constexpr int segs = BN / kE;
+      for (int e = tid; e < kc * segs; e += kThreads) {
+        const int c = e / segs;
+        const int n = (e - c * segs) * kE;
+        const bool ok = c0 + c < Cin && n0 + n < Cout;
+        cp_async16(b_s + c * lay.b_pitch + n,
+                   ok ? wk + (long long)c * Cout + n : weight, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kc * BN; e += kThreads) {
+        const int c = e / BN;
+        const int n = e - c * BN;
+        b_s[c * lay.b_pitch + n] = (c0 + c < Cin && n0 + n < Cout)
+                                       ? wk[(long long)c * Cout + n]
+                                       : from_float<T>(0.f);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[BN / 4];
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) acc[i] = 0.f;
+  // Two stages, one barrier per item: the barrier publishes item `it` and
+  // frees the other buffer, whose copies for `it + 1` then fly while `it`
+  // is multiplied.
+  if (items > 0) issue(0);
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < items) issue(it + 1);
+    const T* a_s = stage0 + (it & 1) * stage_elems;
+    stage_product<BN>(acc, a_s, a_s + lay.b_offset, lay);
+  }
+  store_tile<BN>(acc, out, mask, v0, rows, n0, Cout);
 }
 
-template <typename T, int TC>
-void launch_conv(const void* feats, const int* nidx, const void* weight,
-                 const unsigned char* mask, void* out, long long Vout, int K,
-                 int Cin, int Cout, int V, cudaStream_t s) {
+template <typename T, int BN>
+cudaError_t launch_conv(const void* feats, const int* nidx,
+                        const void* weight, const unsigned char* mask,
+                        void* out, long long Vout, int K, int Cin, int Cout,
+                        int V, cudaStream_t s) {
+  constexpr int kE = 16 / sizeof(T);
+  const ConvLayout lay = conv_layout<T, BN>(K, Cin);
+  if (lay.bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = allow_max_smem(sparse_conv_kernel<T, BN>, smem_set);
+  if (err != cudaSuccess) return err;
+  const bool vec_a =
+      Cin % kE == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+  const bool vec_b =
+      Cout % kE == 0 && reinterpret_cast<uintptr_t>(weight) % 16 == 0;
   const dim3 grid((unsigned)((Vout + kRows - 1) / kRows),
-                  (unsigned)((Cout + TC - 1) / TC));
-  sparse_conv_kernel<T, TC><<<grid, kThreads, 0, s>>>(
+                  (unsigned)((Cout + BN - 1) / BN));
+  sparse_conv_kernel<T, BN><<<grid, kThreads, lay.bytes, s>>>(
       static_cast<const T*>(feats), nidx, static_cast<const T*>(weight), mask,
-      static_cast<T*>(out), Vout, K, Cin, Cout, V);
+      static_cast<T*>(out), Vout, K, Cin, Cout, V, lay, vec_a, vec_b);
+  return cudaGetLastError();
 }
 
 template <typename T>
-void dispatch_conv(const void* feats, const int* nidx, const void* weight,
-                   const unsigned char* mask, void* out, long long Vout, int K,
-                   int Cin, int Cout, int V, cudaStream_t s) {
+cudaError_t dispatch_conv(const void* feats, const int* nidx,
+                          const void* weight, const unsigned char* mask,
+                          void* out, long long Vout, int K, int Cin, int Cout,
+                          int V, cudaStream_t s) {
   if (Cout <= 16)
-    launch_conv<T, 16>(feats, nidx, weight, mask, out, Vout, K, Cin, Cout, V, s);
-  else if (Cout <= 32)
-    launch_conv<T, 32>(feats, nidx, weight, mask, out, Vout, K, Cin, Cout, V, s);
-  else if (Cout <= 64)
-    launch_conv<T, 64>(feats, nidx, weight, mask, out, Vout, K, Cin, Cout, V, s);
-  else
-    launch_conv<T, 128>(feats, nidx, weight, mask, out, Vout, K, Cin, Cout, V, s);
+    return launch_conv<T, 16>(feats, nidx, weight, mask, out, Vout, K, Cin,
+                              Cout, V, s);
+  if (Cout <= 32)
+    return launch_conv<T, 32>(feats, nidx, weight, mask, out, Vout, K, Cin,
+                              Cout, V, s);
+  if (Cout <= 64)
+    return launch_conv<T, 64>(feats, nidx, weight, mask, out, Vout, K, Cin,
+                              Cout, V, s);
+  return launch_conv<T, 128>(feats, nidx, weight, mask, out, Vout, K, Cin,
+                             Cout, V, s);
 }
 
 __global__ void sparse_inv_nbr_kernel(const int* __restrict__ table,
@@ -399,13 +727,12 @@ extern "C" int unibev_sparse_conv(const void* feats, const void* nidx,
   const int* idx = static_cast<const int*>(nidx);
   const unsigned char* m = static_cast<const unsigned char*>(mask);
   if (dtype == 0)
-    dispatch_conv<float>(feats, idx, weight, m, out, Vout, K, Cin, Cout, V, s);
-  else if (dtype == 1)
-    dispatch_conv<__nv_bfloat16>(feats, idx, weight, m, out, Vout, K, Cin,
-                                 Cout, V, s);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return dispatch_conv<float>(feats, idx, weight, m, out, Vout, K, Cin,
+                                Cout, V, s);
+  if (dtype == 1)
+    return dispatch_conv<__nv_bfloat16>(feats, idx, weight, m, out, Vout, K,
+                                        Cin, Cout, V, s);
+  return cudaErrorInvalidValue;
 }
 
 // coords_in (Vin, 4) int32 (b, z, y, x); mask_in (Vin,) bool; table (the

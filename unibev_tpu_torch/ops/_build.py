@@ -45,8 +45,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argument types of the C entry point
 _SIGNATURES = {
-    # value, loc, attn, out, B, V, Q, heads, D, L, P, shapes, dtype, stream
-    "unibev_msda_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+    # value, loc, attn, out, B, V, Q, heads, D, L, P, shapes, dtype, vec,
+    # stream
+    "unibev_msda_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
+                        _P),
     # x, offset, mask, cols, B, H, W, Cin, Ho, Wo, Kh, Kw, stride, pad, dil,
     # dtype, stream
     "unibev_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -7,6 +7,9 @@ routes compute one function, which the CUDA kernel K1
 temporal self-attention and decoder cross-attention over the 200x200 BEV map,
 and the camera cross-attention over the small per-camera maps.
 
+K1 reads 16 bytes per corner where D and value's alignment allow;
+:func:`msda_fwd_route` picks the access width per call.
+
 The gradient is a ``torch.autograd.Function`` whose backward is kernel K3
 (``csrc/msda.cu::unibev_msda_bwd``: d_attn, d_loc and the d_value
 contribution rows) followed by the row scatter-add K5 (``ops/scatter.py``),
@@ -30,6 +33,14 @@ from unibev_tpu_torch.ops import _build
 from unibev_tpu_torch.ops.scatter import bwd_chunks, scatter_add_rows
 
 MAX_LEVELS = 8   # csrc/msda.cu kMaxLevels
+
+
+def msda_fwd_route(D: int, itemsize: int, address: int = 0) -> int:
+    """K1's access width in bytes for one call: the widest of 16, 8 and 4
+    bytes that divides a head's D-wide row and ``address`` (value's data
+    pointer), else one element."""
+    return next(n for n in (16, 8, 4, itemsize)
+                if (D * itemsize) % n == 0 and address % n == 0)
 
 
 def ms_deform_attn_reference(value: torch.Tensor,
@@ -184,10 +195,12 @@ def _check(value, spatial_shapes, loc, attn):
 def _msda_cuda(value, spatial_shapes, loc, attn):
     (B, V, Q, heads, D, L, P), shapes, code = _check(value, spatial_shapes,
                                                      loc, attn)
+    size = value.element_size()
+    vec = msda_fwd_route(D, size, value.data_ptr())
     out = torch.empty((B, Q, heads * D), dtype=value.dtype, device=value.device)
     err = _build.lib().unibev_msda_fwd(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        B, V, Q, heads, D, L, P, ctypes.addressof(shapes), code,
+        B, V, Q, heads, D, L, P, ctypes.addressof(shapes), code, vec // size,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "msda_fwd")
     _build.launches["msda_fwd"] += 1
