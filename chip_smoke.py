@@ -8,16 +8,24 @@ Builds the hand-written CUDA kernels from unibev_tpu_torch/csrc with nvcc,
 then, each phase printing one line (or a few) and raising on any failure:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
-     kernel build time, and what ``nvcc -Xptxas -v`` reports for K1 and K7
-     (registers, static shared memory, stack, spills);
+     kernel build time, and what ``nvcc -Xptxas -v`` reports for K1, K2
+     (dcn_fwd) and K7 (registers, static shared memory, stack, spills);
   2. kernel K1 (MSDA) against its plain PyTorch version at the five
      flagship call shapes, in f32 (TF32 off) and bf16, with both times,
      their ratio and the access width each site takes;
-  3. kernel K2 (DCNv2 im2col) the same way at the stage-3 and stage-4 shapes;
+  3. kernel K2 (dcn_fwd, the fused DCNv2 forward) against its plain version
+     at the stage-3 and stage-4 shapes, f32 (TF32 off) and bf16, with its
+     launch plan per site, its time beside the route it replaced (the
+     im2col kernel + torch.matmul) and the plain version's, all three
+     summed over the 26 launches of a forward, the times of its two
+     diagnostic variants (the sampling alone, the product alone) and of
+     dcn_fwd and the route with offsets an eighth the size; and the im2col
+     kernel, which the DCN backward keeps, against its plain version;
   4. the tiny camera-only model: CUDA with the kernels against the CPU with
      the plain versions, same weights and inputs;
   5. full-width flagship camera-only predict in bf16 (6 cameras at
-     928x1600): launch counts of one forward, ms per sample (median of 10
+     928x1600): launch counts of one forward (12 K1, 26 K2), ms per
+     sample (median of 10
      synchronized iterations after 3 warm-ups), peak memory, SCA overflow,
      finite boxes;
   6. a torch.profiler breakdown of one forward by kernel;
@@ -42,7 +50,8 @@ then, each phase printing one line (or a few) and raising on any failure:
  12. the tiny LC model in LC and L mode: CUDA with the kernels against the
      CPU with the plain versions, same weights and inputs;
  13. full-width flagship LC predict in bf16 (6 cameras at 928x1600 and 300k
-     points): launch counts of one forward (18 K1, 26 K2, 8 K6, 21 K7), ms
+     points): launch counts of one forward (18 K1, 26 K2, 8 K6, 21 K7, no
+     im2col), ms
      per sample (median of 10 after 3 warm-ups), peak memory, SCA overflow,
      finite boxes, and, printed, the voxels before the cap and each strided
      conv's overflow;
@@ -73,8 +82,8 @@ then, each phase printing one line (or a few) and raising on any failure:
  19. a torch.profiler breakdown of one LC train step by kernel.
 
 Each kernel's entry in the line before the last gives its launches on the
-path it serves (K1, K2, K6, K7: one LC predict; K3-K5, K8, K9: one LC train
-step), its time summed over that path's call sites (CUDA events), its plain
+path it serves (K1, K2, K6, K7: one LC predict; the im2col, K3-K5, K8, K9:
+one LC train step), its time summed over that path's call sites (CUDA events), its plain
 version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes each call must move over 3.35 TB/s
 and its operations over 989 TFLOP/s, the H100 SXM's HBM3 and dense bf16
@@ -108,8 +117,8 @@ from unibev_tpu_torch.flagship import (PC_RANGE,  # noqa: E402
                                        tiny_batch, tiny_model_cfg)
 from unibev_tpu_torch.ops import _build  # noqa: E402
 from unibev_tpu_torch.ops.deform_conv import (  # noqa: E402
-    deform_im2col, deform_im2col_backward, deform_im2col_reference,
-    modulated_deform_conv2d, modulated_deform_conv2d_reference, tap_interior)
+    dcn_fwd, dcn_fwd_part, dcn_fwd_plan, deform_im2col, deform_im2col_backward,
+    deform_im2col_reference, modulated_deform_conv2d_reference, tap_interior)
 from unibev_tpu_torch.ops.msda import (cell_interior,  # noqa: E402
                                        ms_deform_attn, ms_deform_attn_backward,
                                        ms_deform_attn_reference)
@@ -223,7 +232,7 @@ def ratio_line(label, rec):
           f"{rec['bound_ms']:.4f} ms", flush=True)
 
 
-def ptxas_report(kernels=("msda_fwd", "sparse_conv_kernel")):
+def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "sparse_conv_kernel")):
     """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
     entry functions whose names hold one of ``kernels``: one dict each."""
     log = _build.BUILD_DIR / "nvcc.log"
@@ -317,29 +326,83 @@ def phase_msda(gen):
 
 
 def phase_dcn(gen):
-    print("phase 3: K2 dcn_im2col vs deform_im2col_reference", flush=True)
-    rec = new_rec()
+    print("phase 3: K2 dcn_fwd (the fused DCN forward) vs "
+          "modulated_deform_conv2d_reference and the route it replaced "
+          "(im2col + torch.matmul); the im2col (the backward's columns) vs "
+          "deform_im2col_reference", flush=True)
+    fwd, cols_rec = new_rec(), new_rec()
+    for k in ("route_ms", "sample_ms", "multiply_ms", "small_ms",
+              "small_route_ms"):
+        fwd[k] = 0.0
     for name, calls, B, H, W, Cin, Cout in DCN_SITES:
+        plan = dcn_fwd_plan(Cin, Cout)
+        print(f"  {name}: dcn_fwd plan {plan._asdict()}", flush=True)
         for dtype in (torch.float32, torch.bfloat16):
             x, off, mask = _dcn_inputs(gen, B, H, W, Cin, dtype)
             w = (torch.randn(9 * Cin, Cout, device="cuda", generator=gen)
                  * (9 * Cin) ** -0.5).to(dtype)
             tag = f"{name} {str(dtype)[6:]}"
-            err = check(tag + " cols", deform_im2col(x, off, mask),
-                        deform_im2col_reference(x, off, mask), REL_TOL[dtype])
-            check(tag + " conv", modulated_deform_conv2d(x, off, mask, w),
-                  modulated_deform_conv2d_reference(x, off, mask, w), REL_TOL[dtype])
-            if dtype is torch.bfloat16:
-                ms = cuda_ms(lambda: deform_im2col(x, off, mask), 20)
-                plain = cuda_ms(lambda: deform_im2col_reference(x, off, mask), 5)
-                # x, offsets, mask, columns; 4 corners x Cin FMAs per tap
-                pix = B * H * W
-                bound = add_site(rec, name, calls, ms, plain, err,
-                                 2 * pix * (Cin + 27 + 9 * Cin),
-                                 8 * pix * 9 * Cin)
-                print(f"  {name} bf16 im2col: kernel {ms:.4f} ms, plain {plain:.4f} "
-                      f"ms, bound {bound:.4f} ms (x{calls} per forward)", flush=True)
-    return rec
+            err = check(tag + " dcn_fwd", dcn_fwd(x, off, mask, w),
+                        modulated_deform_conv2d_reference(x, off, mask, w),
+                        REL_TOL[dtype])
+            err_cols = check(tag + " im2col", deform_im2col(x, off, mask),
+                             deform_im2col_reference(x, off, mask),
+                             REL_TOL[dtype])
+            if dtype is not torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: dcn_fwd(x, off, mask, w), 20)
+            route = cuda_ms(lambda: torch.matmul(deform_im2col(x, off, mask), w),
+                            20)
+            plain = cuda_ms(lambda: modulated_deform_conv2d_reference(
+                x, off, mask, w), 5)
+            sample = cuda_ms(lambda: dcn_fwd_part(x, off, mask, w, "sample"), 20)
+            multiply = cuda_ms(lambda: dcn_fwd_part(x, off, mask, w, "multiply"),
+                               20)
+            cols_ms = cuda_ms(lambda: deform_im2col(x, off, mask), 20)
+            plain_cols = cuda_ms(lambda: deform_im2col_reference(x, off, mask), 5)
+            # the same call with offsets of 1/8 the size (std 0.25 pixel):
+            # neighbouring sample points then share their corners, and the
+            # time shows what reuse of the loaded corners is worth
+            small = (off.float() / 8).to(dtype)
+            check(tag + " dcn_fwd, small offsets", dcn_fwd(x, small, mask, w),
+                  modulated_deform_conv2d_reference(x, small, mask, w),
+                  REL_TOL[dtype])
+            small_ms = cuda_ms(lambda: dcn_fwd(x, small, mask, w), 20)
+            small_route = cuda_ms(lambda: torch.matmul(
+                deform_im2col(x, small, mask), w), 20)
+            pix = B * H * W
+            # x, offsets, mask, weight, out; the product and the blend (4
+            # corners x Cin FMAs per tap)
+            bound = add_site(fwd, name, calls, ms, plain, err,
+                             2 * (pix * (Cin + 27 + Cout) + 9 * Cin * Cout),
+                             2 * pix * 9 * Cin * Cout + 8 * pix * 9 * Cin,
+                             route_ms=route, sample_ms=sample,
+                             multiply_ms=multiply, small_ms=small_ms,
+                             small_route_ms=small_route, plan=plan._asdict())
+            for k, v in (("route_ms", route), ("sample_ms", sample),
+                         ("multiply_ms", multiply), ("small_ms", small_ms),
+                         ("small_route_ms", small_route)):
+                fwd[k] += calls * v
+            # x, offsets, mask, columns; 4 corners x Cin FMAs per tap
+            add_site(cols_rec, name, calls, cols_ms, plain_cols, err_cols,
+                     2 * pix * (Cin + 27 + 9 * Cin), 8 * pix * 9 * Cin)
+            print(f"  {name} bf16: dcn_fwd {ms:.4f} ms, route (im2col + "
+                  f"matmul) {route:.4f} ms, plain {plain:.4f} ms; dcn_fwd/route "
+                  f"{ms / route:.4f}, dcn_fwd/plain {ms / plain:.4f}; bound "
+                  f"{bound:.4f} ms ({bound / ms:.3f} of dcn_fwd); sampling "
+                  f"alone {sample:.4f} ms, product alone {multiply:.4f} ms; "
+                  f"im2col {cols_ms:.4f} ms, plain {plain_cols:.4f} ms; "
+                  f"offsets / 8: dcn_fwd {small_ms:.4f} ms, route "
+                  f"{small_route:.4f} ms (x{calls} per forward)", flush=True)
+    print(f"  dcn_fwd over the 26 launches of one forward: {fwd['ms']:.4f} ms, "
+          f"route {fwd['route_ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms; "
+          f"dcn_fwd/route {fwd['ms'] / fwd['route_ms']:.4f}, dcn_fwd/plain "
+          f"{fwd['ms'] / fwd['plain_ms']:.4f}; bound {fwd['bound_ms']:.4f} ms "
+          f"({fwd['bound_ms'] / fwd['ms']:.3f} of dcn_fwd); sampling alone "
+          f"{fwd['sample_ms']:.4f} ms, product alone {fwd['multiply_ms']:.4f} "
+          f"ms; offsets / 8: dcn_fwd {fwd['small_ms']:.4f} ms, route "
+          f"{fwd['small_route_ms']:.4f} ms", flush=True)
+    return fwd, cols_rec
 
 
 def phase_tiny():
@@ -379,7 +442,7 @@ def phase_flagship(iters=10):
     torch.cuda.reset_peak_memory_stats()
     out = model.predict(batch)
     torch.cuda.synchronize()
-    launches = dict(_build.launches)
+    launches = {k: v for k, v in _build.launches.items() if v}
     peak = torch.cuda.max_memory_allocated()
 
     times = []
@@ -402,8 +465,9 @@ def phase_flagship(iters=10):
           f"{peak / 2 ** 30:.2f} GiB; launches per forward {launches}; "
           f"sca_overflow {overflow}; boxes finite {finite} {tuple(boxes.shape)}",
           flush=True)
-    if launches != {"msda_fwd": 12, "dcn_im2col": 26}:
-        raise AssertionError(f"expected 12 MSDA and 26 DCN launches, got {launches}")
+    expected = expected_predict_launches(lidar=False)
+    if launches != expected:
+        raise AssertionError(f"expected launches {expected}, got {launches}")
     if overflow != 0 or not finite or tuple(boxes.shape) != (1, 300, 9):
         raise AssertionError(f"bad flagship output: {rec}")
     return model, batch, rec
@@ -501,10 +565,39 @@ def phase_backward(gen):
     return recs
 
 
+def _sparse_launches():
+    """The sparse encoder per forward: (K6 rulebooks, one per resolution and
+    per strided conv; K7 convs; strided convs)."""
+    last = len(ENCODER_CHANNELS) - 1
+    subm = sum(2 * (len(c) - 1 if i < last else len(c))
+               for i, c in enumerate(ENCODER_CHANNELS))
+    strided = len(DOWN_PADDINGS) + 1                    # and conv_out
+    convs = 1 + subm + strided                          # and conv_input
+    return len(ENCODER_CHANNELS) + strided, convs, strided
+
+
+def expected_predict_launches(camera=True, lidar=True):
+    """Kernel launches of one flagship predict, LC, C (``lidar`` False) or
+    L (``camera`` False), from the call sites: K1 once per MSDA call (the
+    decoder's, the camera encoder's and the LiDAR encoder's), K2
+    (dcn_fwd) once per DCN call, and the sparse encoder's K6 and K7.  No
+    im2col: only the DCN backward builds columns."""
+    sites = [s for s in MSDA_SITES if camera or s[0] == "decoder_ca"]
+    sites += LIDAR_MSDA_SITES if lidar else []
+    out = dict(msda_fwd=sum(s[1] for s in sites))
+    if camera:
+        out["dcn_fwd"] = sum(s[1] for s in DCN_SITES)
+    if lidar:
+        nbr, convs, _ = _sparse_launches()
+        out.update(sparse_nbr=nbr, sparse_conv=convs)
+    return out
+
+
 def expected_train_launches(lidar=False):
     """Kernel launches of one flagship train step, C or (``lidar``) LC, from
-    the call sites: K1 once per MSDA call; K2 once per DCN call and once
-    more in the backbone's checkpoint recompute; K3 and K4 once per chunk of
+    the call sites: K1 once per MSDA call; K2 (dcn_fwd) once per DCN call
+    and once more in the backbone's checkpoint recompute; the im2col once
+    per DCN backward (the columns for d_weight); K3 and K4 once per chunk of
     their call's contribution rows (bf16, ops/scatter.py::bwd_chunks); K5
     once after each K3 or K4 launch.  LC adds the LiDAR encoder's MSDA
     sites and the sparse encoder: one K6 rulebook per resolution and per
@@ -516,18 +609,14 @@ def expected_train_launches(lidar=False):
                    for _, calls, B, _, Q, heads, D, lv, P in sites)
     dcn_bwd = sum(calls * len(bwd_chunks(B * H * W, 9 * 4 * Cin * 2))
                   for _, calls, B, H, W, Cin, _ in DCN_SITES)
+    dcn = sum(s[1] for s in DCN_SITES)
     out = dict(msda_fwd=sum(s[1] for s in sites), msda_bwd=msda_bwd,
-               dcn_im2col=2 * sum(s[1] for s in DCN_SITES), dcn_bwd=dcn_bwd,
+               dcn_fwd=2 * dcn, dcn_im2col=dcn, dcn_bwd=dcn_bwd,
                scatter_add_rows=msda_bwd + dcn_bwd)
     if lidar:
-        last = len(ENCODER_CHANNELS) - 1
-        subm = sum(2 * (len(c) - 1 if i < last else len(c))
-                   for i, c in enumerate(ENCODER_CHANNELS))
-        strided = len(DOWN_PADDINGS) + 1                    # and conv_out
-        convs = 1 + subm + strided                          # and conv_input
-        out.update(sparse_nbr=len(ENCODER_CHANNELS) + strided,
-                   sparse_conv=2 * convs - 1, sparse_inv_nbr=strided,
-                   sparse_conv_wgrad=convs)
+        nbr, convs, strided = _sparse_launches()
+        out.update(sparse_nbr=nbr, sparse_conv=2 * convs - 1,
+                   sparse_inv_nbr=strided, sparse_conv_wgrad=convs)
     return out
 
 
@@ -1035,16 +1124,15 @@ def phase_flagship_lc(iters=10):
     print("phase 13: full-width flagship LC predict, bf16", flush=True)
     model = build_flagship(device="cuda", dtype=torch.bfloat16, seed=0)
     batch = synthetic_batch(np.random.RandomState(0), device="cuda")
-    rec = _predict_run(model, batch, iters, dict(
-        msda_fwd=18, dcn_im2col=26, sparse_nbr=8, sparse_conv=21), "LC")
+    rec = _predict_run(model, batch, iters, expected_predict_launches(), "LC")
     return model, batch, rec
 
 
 def phase_flagship_l(model, batch, iters=10):
     print("phase 14: L predict on the same model (no images), bf16", flush=True)
     batch = {k: v for k, v in batch.items() if k != "img"}
-    return batch, _predict_run(model, batch, iters, dict(
-        msda_fwd=12, sparse_nbr=8, sparse_conv=21), "L")
+    return batch, _predict_run(model, batch, iters,
+                               expected_predict_launches(camera=False), "L")
 
 
 
@@ -1052,8 +1140,10 @@ def _category(kernel_name):
     n = kernel_name.lower()
     if "msda_fwd" in n:
         return "K1 msda_fwd"
+    if "dcn_fwd" in n:
+        return "K2 dcn_fwd"
     if "dcn_im2col" in n:
-        return "K2 dcn_im2col"
+        return "dcn_im2col (the DCN backward's columns)"
     if "msda_bwd" in n:
         return "K3 msda_bwd"
     if "dcn_bwd" in n:
@@ -1194,7 +1284,7 @@ def main(argv):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     msda = phase_msda(gen)
-    dcn = phase_dcn(gen)
+    dcn, dcn_cols = phase_dcn(gen)
     tiny = phase_tiny()
     model, batch, flagship = phase_flagship()
     prof = phase_profile(model, batch, flagship["ms_per_sample"])
@@ -1230,9 +1320,12 @@ def main(argv):
         kernel_entry("msda_fwd", "unibev_tpu_torch/csrc/msda.cu",
                      "unibev_tpu/ops/msda_pallas.py:213",
                      lc["launches"]["msda_fwd"], msda),
-        kernel_entry("dcn_im2col", "unibev_tpu_torch/csrc/deform_conv.cu",
+        kernel_entry("dcn_fwd", "unibev_tpu_torch/csrc/deform_conv.cu",
                      "unibev_tpu/ops/deform_conv.py:442",
-                     lc["launches"]["dcn_im2col"], dcn),
+                     lc["launches"]["dcn_fwd"], dcn),
+        kernel_entry("dcn_im2col", "unibev_tpu_torch/csrc/deform_conv.cu",
+                     "unibev_tpu/ops/deform_conv.py:323",
+                     lc_steps["dcn_im2col"], dcn_cols),
         kernel_entry("msda_bwd", "unibev_tpu_torch/csrc/msda.cu",
                      "unibev_tpu/ops/msda_pallas.py:106",
                      lc_steps["msda_bwd"], bwd["msda_bwd"]),
@@ -1259,7 +1352,8 @@ def main(argv):
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
-                       build_s=build_s, ptxas=ptxas, msda=msda, dcn=dcn,
+                       build_s=build_s, ptxas=ptxas, msda=msda, dcn_fwd=dcn,
+                       dcn_im2col=dcn_cols,
                        tiny=tiny,
                        flagship=flagship, profile=prof, backward=bwd,
                        tiny_train=tiny_train, train=train,

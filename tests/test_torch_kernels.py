@@ -7,7 +7,7 @@ installed::
     python -m pytest tests/test_torch_kernels.py -m cuda -q
 
 Tolerances are relative to max |plain| (at least 1): f32 1e-4 for the
-DCN columns and product, 1e-5 for MSDA (the same terms summed in another
+DCN columns and the fused DCN forward ``dcn_fwd``, 1e-5 for MSDA (the same terms summed in another
 order, TF32 off); bf16 2^-6 (outputs rounded to bf16, relative 2^-8, with
 margin).  The backwards (K3, K4, each followed by the scatter-add K5) sum
 their contributions with float32 atomics in no fixed order: f32 1e-4, bf16
@@ -29,9 +29,9 @@ import torch
 from torch_port_utils import cuda_device  # noqa: F401
 from unibev_tpu_torch.ops import _build, scatter
 from unibev_tpu_torch.ops.deform_conv import (
-    deform_im2col, deform_im2col_backward, deform_im2col_backward_reference,
-    deform_im2col_reference, modulated_deform_conv2d,
-    modulated_deform_conv2d_reference, tap_interior)
+    dcn_fwd, deform_im2col, deform_im2col_backward,
+    deform_im2col_backward_reference, deform_im2col_reference,
+    modulated_deform_conv2d, modulated_deform_conv2d_reference, tap_interior)
 from unibev_tpu_torch.ops.msda import (cell_interior, ms_deform_attn,
                                        ms_deform_attn_backward,
                                        ms_deform_attn_backward_reference,
@@ -138,15 +138,90 @@ def test_msda_kernel_takes_unaligned_value(cuda_device, dtype, offset, vec):
                                        (torch.bfloat16, 2 ** -6)],
                          ids=["f32", "bf16"])
 def test_dcn_kernel_matches_plain(cuda_device, stride, dtype, rel):
+    """The im2col kernel (the backward's columns) and the fused forward
+    behind ``modulated_deform_conv2d``, one launch each."""
     x, off, mask, w = _dcn_inputs(cuda_device, dtype, stride=stride)
-    before = _build.launches["dcn_im2col"]
+    before = dict(_build.launches)
     cols = deform_im2col(x, off, mask, stride=stride)
     out = modulated_deform_conv2d(x, off, mask, w, stride=stride)
     torch.cuda.synchronize()
-    assert _build.launches["dcn_im2col"] == before + 2
+    assert _build.launches["dcn_im2col"] == before.get("dcn_im2col", 0) + 1
+    assert _build.launches["dcn_fwd"] == before.get("dcn_fwd", 0) + 1
     _close(cols, deform_im2col_reference(x, off, mask, stride=stride), rel)
     _close(out, modulated_deform_conv2d_reference(x, off, mask, w, stride=stride),
            rel)
+
+
+# name: (B, H, W, Cin, Cout, stride, dilation): ragged pixel counts (not a
+# multiple of the 64-pixel tile), Cin 5 (plain loads of x), Cout 20 (plain
+# weight loads and output stores), and the flagship's two sites at B = 1
+DCN_FWD_CASES = {
+    "s1": (2, 11, 13, 40, 24, 1, 1),
+    "s2": (2, 11, 13, 40, 24, 2, 1),
+    "dil2": (2, 11, 13, 40, 24, 1, 2),
+    "cin5": (2, 11, 13, 5, 24, 1, 1),
+    "cout20": (2, 11, 13, 40, 20, 1, 1),
+    "cin5_cout20_s2": (2, 11, 13, 5, 20, 2, 1),
+    "stage3": (1, 58, 100, 256, 256, 1, 1),
+    "stage4": (1, 29, 50, 512, 512, 1, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(DCN_FWD_CASES))
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2 ** -6)],
+                         ids=["f32", "bf16"])
+def test_dcn_fwd_kernel_matches_plain(cuda_device, case, dtype, rel):
+    """``dcn_fwd`` against the plain forward; some taps land wholly outside
+    the map (large offsets) and one offset is NaN, which samples nothing."""
+    B, H, W, Cin, Cout, stride, dil = DCN_FWD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    Ho = (H + 2 * dil - 2 * dil - 1) // stride + 1
+    Wo = (W + 2 * dil - 2 * dil - 1) // stride + 1
+    x = torch.randn(B, H, W, Cin, device=cuda_device, generator=g).to(dtype)
+    off = (torch.randn(B, Ho, Wo, 18, device=cuda_device, generator=g)
+           * 2.5).to(dtype)
+    off[0, 0, 1, 6:10] = 1000.0               # taps 3 and 4: off the map
+    off[-1, -1, -1, 0:2] = -1000.0
+    mask = torch.rand(B, Ho, Wo, 9, device=cuda_device, generator=g).to(dtype)
+    w = (torch.randn(9 * Cin, Cout, device=cuda_device, generator=g)
+         * (9 * Cin) ** -0.5).to(dtype)
+    off[0, 1, 1, 4] = float("nan")            # tap 2 samples nothing
+    kw = dict(stride=stride, padding=dil, dilation=dil)
+    before = _build.launches["dcn_fwd"]
+    got = dcn_fwd(x, off, mask, w, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["dcn_fwd"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, Ho, Wo, Cout)
+    off[0, 1, 1, 4] = 1000.0                  # as far out: the plain version's
+    _close(got, modulated_deform_conv2d_reference(x, off, mask, w, **kw), rel)
+
+
+def test_dcn_fwd_mma_fragments(cuda_device):
+    """``dcn_fwd``'s bf16 wgmma tile on exact products: offsets 0 and
+    a mask on the centre tap alone make the columns x itself.  Identity
+    weights pass x through, a permutation of the columns moves each channel
+    to its own output, one-hot pixels pass the weight rows through; 144
+    pixels, Cout 256 (the flagship's tile).  A wrong swizzle, descriptor
+    or accumulator layout misplaces values."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    B, H, W, C, Cout = 1, 12, 12, 64, 256
+    x = torch.randn(B, H, W, C, device=cuda_device, generator=g).bfloat16()
+    off = torch.zeros(B, H, W, 18, device=cuda_device, dtype=torch.bfloat16)
+    mask = torch.zeros(B, H, W, 9, device=cuda_device, dtype=torch.bfloat16)
+    mask[..., 4] = 1
+    perm = torch.randperm(Cout, generator=torch.Generator().manual_seed(0))
+    perm = perm[:C].to(cuda_device)
+    w = torch.zeros(9 * C, Cout, device=cuda_device, dtype=torch.bfloat16)
+    w[4 * C + torch.arange(C, device=cuda_device), perm] = 1
+    want = torch.zeros(B, H, W, Cout, device=cuda_device, dtype=torch.bfloat16)
+    want[..., perm] = x
+    assert torch.equal(dcn_fwd(x, off, mask, w), want)
+    w = torch.randn(9 * C, Cout, device=cuda_device, generator=g).bfloat16()
+    hot = torch.arange(H * W, device=cuda_device) % C
+    onehot = torch.nn.functional.one_hot(hot, C).bfloat16().view(B, H, W, C)
+    assert torch.equal(dcn_fwd(onehot, off, mask, w),
+                       w[4 * C + hot].view(B, H, W, Cout))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -212,8 +287,9 @@ def test_dcn_backward_kernel_matches_plain(cuda_device, monkeypatch, stride,
 
 
 def test_autograd_goes_through_the_kernels(cuda_device):
-    """Gradients of the ops on CUDA tensors (K1/K3/K5 and K2/K4/K5) against
-    autograd through the plain versions, f32."""
+    """Gradients of the ops on CUDA tensors (K1/K3/K5, and dcn_fwd with the
+    im2col/K4/K5 backward) against autograd through the plain versions,
+    f32."""
     value, loc, attn = _msda_inputs(cuda_device, torch.float32, ((29, 50),), 8)
     x, off, mask, w = _dcn_inputs(cuda_device, torch.float32, stride=1)
     cases = [(ms_deform_attn, ms_deform_attn_reference, (value, loc, attn),
@@ -236,9 +312,44 @@ def test_autograd_goes_through_the_kernels(cuda_device):
             _close(a * m, b * m, 1e-4)
     torch.cuda.synchronize()
     after = dict(_build.launches)
-    for k in ("msda_fwd", "msda_bwd", "dcn_im2col", "dcn_bwd",
+    for k in ("msda_fwd", "msda_bwd", "dcn_fwd", "dcn_im2col", "dcn_bwd",
               "scatter_add_rows"):
         assert after.get(k, 0) > before.get(k, 0), k
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2 ** -6)],
+                         ids=["f32", "bf16"])
+def test_dcn_autograd_launches_fwd_then_im2col(cuda_device, monkeypatch, dtype,
+                                               rel):
+    """``modulated_deform_conv2d`` on CUDA: one ``dcn_fwd`` launch in the
+    forward and no im2col; one ``dcn_im2col`` launch in the backward, which
+    rebuilds the columns for d_weight.  d_x, d_offset (on interior taps),
+    d_mask and d_weight against autograd through the plain version in
+    float32 on the same values."""
+    monkeypatch.setattr(scatter, "BWD_CHUNK_BYTES", 2e5)
+    x, off, mask, w = _dcn_inputs(cuda_device, dtype, stride=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, off, mask, w)]
+    g = torch.randn(2, 11, 13, 24, device=cuda_device).to(dtype)
+    before = dict(_build.launches)
+    out = modulated_deform_conv2d(*leaves)
+    torch.cuda.synchronize()
+    mid = dict(_build.launches)
+    assert mid.get("dcn_fwd", 0) == before.get("dcn_fwd", 0) + 1
+    assert mid.get("dcn_im2col", 0) == before.get("dcn_im2col", 0)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    after = dict(_build.launches)
+    assert after.get("dcn_im2col", 0) == mid.get("dcn_im2col", 0) + 1
+    assert after.get("dcn_fwd", 0) == mid.get("dcn_fwd", 0)
+    assert after.get("dcn_bwd", 0) > mid.get("dcn_bwd", 0)
+    plain = [t.detach().float().requires_grad_() for t in (x, off, mask, w)]
+    want = torch.autograd.grad(modulated_deform_conv2d_reference(*plain), plain,
+                               g.float())
+    masks = (1, tap_interior(off), 1, 1)
+    for a, b, m in zip(got, want, masks):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a * m, b * m, rel)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -257,6 +368,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         deform_im2col(x, off, mask, stride=1)
     with pytest.raises(ValueError):
         deform_im2col(x.transpose(1, 2), off, mask, stride=2)
+    w = torch.zeros(9 * 40, 24, device=cuda_device)
+    with pytest.raises(ValueError):
+        dcn_fwd(x, off, mask, w[:-1], stride=2)
+    with pytest.raises(TypeError):
+        dcn_fwd(x, off, mask, w.bfloat16(), stride=2)
     idx = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     with pytest.raises(TypeError):
         scatter_add_rows(idx, torch.zeros(4, 8, device=cuda_device), 3)

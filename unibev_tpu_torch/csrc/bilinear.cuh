@@ -39,6 +39,7 @@ struct Bilinear {
   float lx, ly;
   float w[4];
   bool in[4];
+  int x0, y0;
   int ya, yb, xa, xb;
 };
 
@@ -51,6 +52,8 @@ __device__ __forceinline__ bool bilinear_at(float x, float y, int W, int H,
   const float yf = floorf(y);
   const int x0 = (int)xf;
   const int y0 = (int)yf;
+  b.x0 = x0;
+  b.y0 = y0;
   b.lx = x - xf;
   b.ly = y - yf;
   const bool xin0 = x0 >= 0;

@@ -1,45 +1,94 @@
-// Modulated deformable convolution (DCNv2): the im2col (kernel K2) and its
-// backward (K4).
+// Modulated deformable convolution (DCNv2): the fused forward (dcn_fwd,
+// kernel K2), the im2col its backward multiplies (dcn_im2col) and the
+// backward's sampling half (K4).
 //
-// K2 replaces the sampling half of unibev_tpu/ops/deform_conv.py::
-// modulated_deform_conv2d: the f32 path _mdcn_clean (which defines the
-// semantics) and the bf16 path _mdcn_fast (s32 pair-packed corner gathers for
-// the TPU gather engine).  The (K*Cin) x Cout product after it stays a plain
-// matrix product (torch.matmul), as the JAX package left it to XLA.
-// K4 replaces the sampling half of its hand-written backward _mdcn_fast_bwd:
-// from d_cols (the product's adjoint, again a torch.matmul) it computes
-// d_offset, d_mask and the d_x contribution rows; the row scatter-add K5
+// dcn_fwd replaces unibev_tpu/ops/deform_conv.py::modulated_deform_conv2d
+// (:442): the f32 path _mdcn_clean (which defines the semantics) and the
+// bf16 path _mdcn_fast (s32 pair-packed corner gathers for the TPU gather
+// engine, then one (K*Cin) x Cout product).  It computes
+//   out[n, :] = sum_k sum_c cols[n, k * Cin + c] * W[k * Cin + c, :]
+// straight into the (B, Ho, Wo, Cout) output; the column matrix never
+// reaches device memory (160 MB per flagship stage-3 call in bf16, written
+// and read back by the product when the im2col and torch.matmul were two
+// passes).  The bias stays outside, as in the JAX op.
+// The backward follows _mdcn_fast_bwd (:323), which recomputes the gather
+// rather than saving it: dcn_im2col writes the columns for d_weight = cols^T
+// g (a torch.matmul); from d_cols = g W^T (again a torch.matmul) K4 computes
+// d_offset, d_mask and the d_x contribution rows, and the row scatter-add K5
 // (csrc/scatter.cu) sums the rows into d_x.
 //
-// Semantics, per output pixel (b, ho, wo) and tap k = ky * Kw + kx:
+// Semantics, per output pixel n = (b, ho, wo) and tap k = ky * Kw + kx:
 //   sy = ho * stride - pad + ky * dil + offset[b, ho, wo, 2k]      (dy)
 //   sx = wo * stride - pad + kx * dil + offset[b, ho, wo, 2k + 1]  (dx)
-//   cols[(b, ho, wo), k * Cin + c] = mask[b, ho, wo, k] * bilinear(x[b, :, :, c], sy, sx)
+//   cols[n, k * Cin + c] = mask[b, ho, wo, k] * bilinear(x[b, :, :, c], sy, sx)
 // The geometry (whole-point test, per-corner zero padding) is bilinear_at in
-// bilinear.cuh, shared with the MSDA kernels.  The offset layout is mmcv's:
-// (dy, dx) interleaved per tap; the mask is already sigmoid-ed.
+// bilinear.cuh, shared with the MSDA kernels: the forward and K4 agree on it
+// exactly.  The offset layout is mmcv's: (dy, dx) interleaved per tap; the
+// mask is already sigmoid-ed.
 //
 // Layouts: x (B, H, W, Cin) NHWC; offset (B, Ho, Wo, 2K); mask (B, Ho, Wo, K);
-// cols and d_cols (B * Ho * Wo, K * Cin), tap-major; all in one dtype, bf16
-// or f32; bilinear weights and sums in f32.
+// weight (K * Cin, Cout), tap-major; out (B, Ho, Wo, Cout); cols and d_cols
+// (B * Ho * Wo, K * Cin); all in one dtype, bf16 or f32; bilinear weights
+// and sums in f32.
 //
-// What bounds them on the H100: bytes.  Each column element reads four input
-// values and writes one; at the flagship stage-3 shape (6 x 58 x 100 x 256,
-// K = 9) cols alone is 160 MB in bf16 written and read back by the product,
-// against 37 GFLOP for the product itself.  K4 reads d_cols (160 MB) and the
-// four corners, and writes four Cin-wide contribution rows per tap (640 MB
-// in bf16 at stage 3, in chunks).  The input map (18 MB per stage-3 call in
-// bf16) stays in L2, so the corner reads are L2 traffic.
-//
-// The design is the simple one: one warp per (output pixel, tap), the
-// geometry computed once per warp, lanes over Cin so that the corner reads,
-// the column and contribution writes are contiguous; K4 reduces its five
-// per-tap dot products over Cin with warp shuffles.  Left for later: two or
-// more channels per lane (16-byte loads), fusing the sampling into the
-// product (build the column tile in shared memory and feed it to wgmma),
-// and fusing K5 into K4.
+// dcn_fwd, what bounds it on the H100.  The product is the work: 2 * pix *
+// 9 * Cin * Cout operations, 41 GFLOP per flagship stage-3 or stage-4 call,
+// 0.042 ms at the bf16 tensor-core peak, against 0.012 ms for the bytes it
+// must move.  What sets its time is the sampling: each column element
+// blends four corners, 8 bytes in bf16 read from the input map (18 MB at
+// stage 3, in L2), ~640 MB per stage-3 call, and each block streams the
+// whole weight (1.2 MB at stage 3) for its 128 pixels, ~320 MB more.  Its
+// two diagnostic variants (the sampling alone, the product alone;
+// chip_smoke.py phase 3, PERF.md) show the sampling, not the tensor cores,
+// to set the time.  The design keeps the columns in shared memory and
+// overlaps the gathers with the tensor cores:
+//   * a block owns 128 output pixels and 256 output channels, so every
+//     column element is sampled once up to Cout 256 (stage 3); stage 4
+//     (Cout 512) takes two channel tiles and samples its columns twice;
+//   * 16 warps, 4 warpgroups 2 (rows) x 2 (columns) over the 128 x 256 tile,
+//     each a wgmma m64n128k16 into 64 f32 registers a thread, so that a
+//     thread samples two 16-byte vectors an item and 16 warps hide the
+//     gathers' latency;
+//   * at its start the block computes the geometry of its 128 x K sample
+//     points once (bilinear_at, the geometry K4 shares), folds the mask into
+//     the four corner weights and keeps them, with the row of the first
+//     corner, in shared memory;
+//   * it walks (Cin chunk of 64, tap) items.  For each it samples the A tile
+//     (128 pixels x 128 bytes of channels) into shared memory: each thread
+//     loads the corners that weigh something as 16-byte vectors (8 bf16
+//     channels), blends them in f32 and stores 16 bytes of bf16 into a
+//     128-byte-swizzled row; points and corners outside the map give zeros;
+//   * the weight slice (256 output channels x 128 bytes, K-major: the
+//     wrapper hands over the weight transposed) comes by TMA with the same
+//     swizzle and completes the stage's mbarrier; the threads issue no copy;
+//   * a ring of three stages, one block barrier per item: the weights are
+//     copied two items ahead; while the tensor cores run item it
+//     (asynchronous wgmma, A and B read from shared memory through
+//     descriptors) the threads blend item it + 1's corners, loaded one
+//     iteration earlier, and issue item it + 2's loads;
+//   * the epilogue stages the tile in shared memory and writes rows of Cout
+//     with 16-byte stores;
+//   * float32 serves the tests: the same tile, staging and loop with exact
+//     CUDA-core FMAs (TF32 would break the 1e-4 tolerance), 32 channels a
+//     stage.  A Cin that is not a multiple of 8 (conv_input-like Cin 5)
+//     takes plain loads of x into the same layout; the wrapper pads each
+//     tap's weights to whole stages.
+// Two reduced variants of the bf16 kernel (the sampling alone, the product
+// alone) exist to measure which half sets the time (chip_smoke.py phase 3).
+
+// dcn_im2col and K4: one warp per (output pixel, tap), the geometry
+// computed once per warp, lanes over Cin, so that the corner reads and the
+// column and contribution writes are contiguous; K4 reduces its five
+// per-tap dot products over Cin with warp shuffles.  Bytes bound both: the
+// columns (160 MB at stage 3 in bf16) and, for K4, four Cin-wide
+// contribution rows per tap (640 MB at stage 3, in chunks).
+
+#include <atomic>
+#include <climits>
+#include <cstdint>
 
 #include "bilinear.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -185,7 +234,502 @@ unsigned blocks_for(long long n_warps) {
   return (unsigned)((n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+// ---- dcn_fwd ---------------------------------------------------------------
+
+constexpr int kFwdRows = 128;     // output pixels per block
+constexpr int kFwdBN = 256;       // output channels per block
+constexpr int kFwdThreads = 512;  // 16 warps, 4 warpgroups
+constexpr int kFwdStages = 3;     // items in the shared-memory ring
+constexpr int kFwdVecs = 2;       // A-tile vectors a thread samples per item
+constexpr int kRowBytes = 128;    // a staged row: 64 bf16 or 32 f32 channels
+constexpr int kAcc = kFwdRows * kFwdBN / kFwdThreads;  // f32 sums a thread
+
+// dcn_fwd's shared memory, byte offsets from its first 1024-byte boundary
+// (the swizzle pattern follows address bits; 1024 bytes of slack are
+// allocated for the alignment): a ring of kFwdStages stages, each the
+// sampled columns A (kFwdRows rows) followed by the item's weight rows B
+// (kFwdBN rows, one per output channel), every row 128 bytes of input
+// channels, 128-byte swizzled (sw128); after the loop the ring holds the
+// output tile (kFwdRows x kFwdBN, row pitch o_pitch).  Then one mbarrier
+// per stage (64 bytes reserved), which the stage's TMA weight copy
+// completes, and the geometry: K x 4 x kFwdRows mask-folded corner
+// weights, f32, 0 for a corner that reads nothing, and K x kFwdRows rows of
+// corner 0 in x viewed as (B * H * W, Cin), int32 (corner c adds (c / 2) *
+// W + c % 2).  ops/deform_conv.py::dcn_fwd_plan computes the same layout;
+// the launch checks that the two agree.
+struct FwdLayout {
+  int kc;       // input channels per stage: 128 bytes of them
+  int chunks;   // stages per tap, ceil(Cin / kc)
+  int a_bytes;  // from a stage's start to its B
+  int stage;    // bytes per stage, a multiple of 1024
+  int o_pitch;  // elements
+  int bars;     // byte offset of the stages' mbarriers
+  int geo;      // byte offset of the geometry
+  int bytes;    // in all, with the alignment slack
+};
+
+template <typename T>
+FwdLayout fwd_layout(int K, int Cin) {
+  FwdLayout l;
+  l.kc = kRowBytes / (int)sizeof(T);
+  l.chunks = (Cin + l.kc - 1) / l.kc;
+  l.a_bytes = kFwdRows * kRowBytes;
+  l.stage = l.a_bytes + kFwdBN * kRowBytes;
+  l.o_pitch = kFwdBN + 16 / (int)sizeof(T);
+  const int ring = kFwdStages * l.stage;
+  const int out_bytes = kFwdRows * l.o_pitch * (int)sizeof(T);
+  l.bars = ring > out_bytes ? ring : out_bytes;
+  l.geo = l.bars + 64;
+  l.bytes = 1024 + l.geo + K * kFwdRows * 20;
+  return l;
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows,
+// 128-byte swizzled: the layout wgmma's sw128 descriptors read and TMA's
+// 128-byte swizzle writes, in which the eight chunks a row's eight threads
+// store fall on distinct banks.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * kRowBytes + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ unsigned word(const uint4& u, int j) {
+  return j == 0 ? u.x : j == 1 ? u.y : j == 2 ? u.z : u.w;
+}
+
+// 16 bytes of one input row from channel p on, zeros past n channels: one
+// 16-byte load where the row width and the address allow (vec), else
+// element by element.
+__device__ __forceinline__ uint4 load_vec(const float* p, int n, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  unsigned w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = j < n ? __float_as_uint(p[j]) : 0u;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ uint4 load_vec(const __nv_bfloat16* p, int n,
+                                          bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  unsigned w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned lo = 2 * j < n ? __bfloat16_as_ushort(p[2 * j]) : 0u;
+    const unsigned hi =
+        2 * j + 1 < n ? __bfloat16_as_ushort(p[2 * j + 1]) : 0u;
+    w[j] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One 16-byte vector of the A tile: the four corner vectors weighed by the
+// mask-folded bilinear weights, summed in f32 (in K2's order), rounded to T.
+template <typename T>
+__device__ __forceinline__ uint4 blend(const uint4 (&v)[4],
+                                       const float (&w)[4]);
+
+template <>
+__device__ __forceinline__ uint4 blend<float>(const uint4 (&v)[4],
+                                              const float (&w)[4]) {
+  unsigned o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float s = w[0] * __uint_as_float(word(v[0], j)) +
+                    w[1] * __uint_as_float(word(v[1], j)) +
+                    w[2] * __uint_as_float(word(v[2], j)) +
+                    w[3] * __uint_as_float(word(v[3], j));
+    o[j] = __float_as_uint(s);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+template <>
+__device__ __forceinline__ uint4 blend<__nv_bfloat16>(const uint4 (&v)[4],
+                                                      const float (&w)[4]) {
+  unsigned o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float s[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // a bf16 is the high half of its float
+      float c[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned u = word(v[q], j);
+        c[q] = __uint_as_float(h == 0 ? u << 16 : u & 0xffff0000u);
+      }
+      s[h] = w[0] * c[0] + w[1] * c[1] + w[2] * c[2] + w[3] * c[3];
+    }
+    o[j] = (unsigned)__bfloat16_as_ushort(__float2bfloat16(s[0])) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16(s[1])) << 16);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// bf16: issue the item's product on the tensor cores, asynchronously.  The
+// 4 warpgroups are 2 (rows) x 2 (columns): warpgroup g multiplies rows (g %
+// 2) * 64 .. + 64 of A by weight rows (output channels) (g / 2) * 128 .. +
+// 128, four wgmma m64n128k16 along the item's 64 channels; acc holds the
+// warpgroup's (64 x 128) f32 sums (the layout of wgmma_m64n128k16).
+__device__ __forceinline__ void fwd_product(float (&acc)[kAcc],
+                                            const unsigned char* a_s,
+                                            const FwdLayout& lay,
+                                            __nv_bfloat16) {
+  const int g = threadIdx.x >> 7;
+  const unsigned long long da = sw128_desc(a_s + (g & 1) * 64 * kRowBytes);
+  const unsigned long long db =
+      sw128_desc(a_s + lay.a_bytes + (g >> 1) * 128 * kRowBytes);
+  fence_registers(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s)  // 16 channels, 32 bytes, a step
+    wgmma_m64n128k16(acc, da + 2 * s, db + 2 * s);
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void fwd_product_wait(float (&acc)[kAcc],
+                                                 __nv_bfloat16) {
+  wgmma_wait<0>();
+  fence_registers(acc);
+}
+
+// float32: exact float32 products on CUDA cores (TF32 would not hold the
+// f32 tolerance); thread (tx, ty) owns rows ty + 32 i, i < 4, and columns
+// tx + 16 j, j < 16, acc[16 i + j].
+__device__ __forceinline__ float sw_load(const unsigned char* tile, int r,
+                                         int c) {
+  return *reinterpret_cast<const float*>(tile + sw128(r, c >> 2) +
+                                         (c & 3) * 4);
+}
+
+__device__ __forceinline__ void fwd_product(float (&acc)[kAcc],
+                                            const unsigned char* a_s,
+                                            const FwdLayout& lay, float) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const unsigned char* b_s = a_s + lay.a_bytes;
+  for (int c = 0; c < lay.kc; ++c) {
+    float a[4], b[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = sw_load(a_s, ty + 32 * i, c);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) b[j] = sw_load(b_s, tx + 16 * j, c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        acc[16 * i + j] = fmaf(a[i], b[j], acc[16 * i + j]);
+  }
+}
+
+__device__ __forceinline__ void fwd_product_wait(float (&)[kAcc], float) {}
+
+// The sums into the output tile in shared memory, as T.
+__device__ __forceinline__ void stage_out(const float (&acc)[kAcc],
+                                          __nv_bfloat16* o_s, int o_pitch) {
+  const int g = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int r = (g & 1) * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = (g >> 1) * 128 + j * 8 + 2 * (lane & 3);
+    *reinterpret_cast<__nv_bfloat162*>(o_s + r * o_pitch + n) =
+        __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(o_s + (r + 8) * o_pitch + n) =
+        __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+__device__ __forceinline__ void stage_out(const float (&acc)[kAcc],
+                                          float* o_s, int o_pitch) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      o_s[(ty + 32 * i) * o_pitch + tx + 16 * j] = acc[16 * i + j];
+}
+
+// kSample / kMultiply: both true for the convolution.  The diagnostic
+// variants drop one half: without kSample the corner loads (the A tile is
+// written as zeros), without kMultiply the product.
+template <typename T, bool kSample, bool kMultiply>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    dcn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                   const T* __restrict__ mask,
+                   const __grid_constant__ CUtensorMap wt_map,
+                   T* __restrict__ out, int H, int W, int Cin, int cin_pad,
+                   int Ho, int Wo, int Cout, int Kw, int K, int stride,
+                   int pad, int dil, long long n_pix, FwdLayout lay,
+                   bool vec_a, bool vec_o) {
+  constexpr int kE = 16 / sizeof(T);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + lay.bars);
+  float* geo_w = reinterpret_cast<float*>(ring + lay.geo);  // [K][4][rows]
+  int* geo_row = reinterpret_cast<int*>(ring + lay.geo + K * 4 * kFwdRows * 4);
+  const int corner_step[4] = {0, 1, W, W + 1};
+  const int tid = threadIdx.x;
+  const long long n0 = (long long)blockIdx.x * kFwdRows;
+  const int o0 = blockIdx.y * kFwdBN;
+  const int rows = (int)min((long long)kFwdRows, n_pix - n0);
+
+  if (tid == 0) {
+    for (int st = 0; st < kFwdStages; ++st) mbar_init(&full[st], 1);
+    fence_barrier_init();
+  }
+  // The geometry of the block's kFwdRows x K sample points, once.
+  for (int e = tid; e < kFwdRows * K; e += kFwdThreads) {
+    const int r = e / K;
+    const int k = e - r * K;
+    float w[4] = {0.f, 0.f, 0.f, 0.f};
+    int row = 0;
+    if (r < rows) {
+      const Tap t = tap_at((n0 + r) * K + k, offset, mask, Ho, Wo, Kw, K,
+                           stride, pad, dil);
+      Bilinear g;
+      if (bilinear_at(t.sx, t.sy, W, H, g)) {
+        // corner 0's cell, outside the map when it is; a corner outside
+        // weighs 0 and is not read
+        row = (int)(t.b * H * W + (long long)g.y0 * W + g.x0);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (g.in[c]) w[c] = g.w[c] * t.m;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) geo_w[(k * 4 + c) * kFwdRows + r] = w[c];
+    geo_row[k * kFwdRows + r] = row;
+  }
+  __syncthreads();
+
+  // Items are (Cin chunk, tap), chunk-major.  Thread tid samples the A-tile
+  // vectors e = tid + i * kFwdThreads, i < kFwdVecs: row e / 8, channels
+  // (e % 8) * kE .. + kE of the chunk (8 threads a row).
+  const int items = lay.chunks * K;
+  uint4 corner[kFwdVecs][4];
+
+  // The corner loads of item `it`, into registers: the corners that weigh
+  // something (inside the map, of a point inside it, mask not 0).
+  auto gather = [&](int it) {
+    const int chunk = it / K;
+    const int k = it - chunk * K;
+    const int c0 = chunk * lay.kc;
+#pragma unroll
+    for (int i = 0; i < kFwdVecs; ++i) {
+      const int e = tid + i * kFwdThreads;
+      const int r = e >> 3;
+      const int ch = c0 + (e & 7) * kE;
+      const int row = geo_row[k * kFwdRows + r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        corner[i][c] = make_uint4(0u, 0u, 0u, 0u);
+        if (kSample && geo_w[(k * 4 + c) * kFwdRows + r] != 0.f && ch < Cin)
+          corner[i][c] = load_vec(
+              x + (long long)(row + corner_step[c]) * Cin + ch, Cin - ch, vec_a);
+      }
+    }
+  };
+  // Blend item `it`'s corners into its A tile.
+  auto blend_store = [&](int it) {
+    const int k = it % K;
+    unsigned char* a_s = ring + (it % kFwdStages) * lay.stage;
+#pragma unroll
+    for (int i = 0; i < kFwdVecs; ++i) {
+      const int e = tid + i * kFwdThreads;
+      const int r = e >> 3;
+      float w[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[c] = geo_w[(k * 4 + c) * kFwdRows + r];
+      *reinterpret_cast<uint4*>(a_s + sw128(r, e & 7)) = blend<T>(corner[i], w);
+    }
+  };
+  // Stage item `it`'s weight rows: for each of the block's output channels,
+  // the tap's chunk of input channels, one TMA copy of kFwdBN rows of 128
+  // bytes (rows past Cout read as zeros), issued by one thread.
+  auto issue_b = [&](int it) {
+    if (it < items && tid == 0) {
+      const int st = it % kFwdStages;
+      const int chunk = it / K;
+      const int k = it - chunk * K;
+      mbar_expect_tx(&full[st], kFwdBN * kRowBytes);
+      tma_load_2d(ring + st * lay.stage + lay.a_bytes, &wt_map,
+                  k * cin_pad + chunk * lay.kc, o0, &full[st]);
+    }
+  };
+
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  // A ring of kFwdStages items, one barrier per item: the barrier publishes
+  // item `it` (its weights copied by TMA two items ahead, their arrival
+  // awaited on the stage's mbarrier; its columns sampled one item ahead)
+  // and frees the buffer item it + 2 then takes.  While the tensor cores
+  // run item `it`, the threads blend item it + 1's corners, loaded one
+  // iteration earlier, then issue all of item it + 2's corner loads, which
+  // fly across the rest of the product, the barrier and the next product's
+  // issue.
+  issue_b(0);
+  issue_b(1);
+  gather(0);
+  blend_store(0);
+  if (items > 1) gather(1);
+  for (int it = 0; it < items; ++it) {
+    mbar_wait(&full[it % kFwdStages], (it / kFwdStages) & 1);
+    fence_proxy_async();
+    __syncthreads();
+    issue_b(it + 2);
+    if (kMultiply)
+      fwd_product(acc, ring + (it % kFwdStages) * lay.stage, lay, T());
+    if (it + 1 < items) blend_store(it + 1);
+    if (it + 2 < items) gather(it + 2);
+    if (kMultiply) fwd_product_wait(acc, T());
+  }
+  __syncthreads();  // the ring becomes the output tile
+
+  T* const o_s = reinterpret_cast<T*>(ring);
+  stage_out(acc, o_s, lay.o_pitch);
+  __syncthreads();
+  if (vec_o) {
+    constexpr int segs = kFwdBN / kE;
+    for (int e = tid; e < rows * segs; e += kFwdThreads) {
+      const int r = e / segs;
+      const int n = (e - r * segs) * kE;
+      if (o0 + n < Cout)
+        *reinterpret_cast<uint4*>(out + (n0 + r) * Cout + o0 + n) =
+            *reinterpret_cast<const uint4*>(o_s + r * lay.o_pitch + n);
+    }
+  } else {
+    for (int e = tid; e < rows * kFwdBN; e += kFwdThreads) {
+      const int r = e / kFwdBN;
+      const int n = e - r * kFwdBN;
+      if (o0 + n < Cout) out[(n0 + r) * Cout + o0 + n] = o_s[r * lay.o_pitch + n];
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled of the CUDA runtime's lower API, looked up at run
+// time through cudaGetDriverEntryPoint (the library does not link against
+// libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <typename T, bool kSample, bool kMultiply>
+cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
+                       const void* wt, void* out, int H, int W, int Cin,
+                       int cin_pad, int Ho, int Wo, int Cout, int Kw, int K,
+                       int stride, int pad, int dil, long long n_pix,
+                       int smem_bytes, cudaStream_t s) {
+  constexpr int kE = 16 / sizeof(T);
+  const FwdLayout lay = fwd_layout<T>(K, Cin);
+  if (lay.bytes != smem_bytes || lay.bytes > kMaxSmemBytes)
+    return cudaErrorInvalidValue;
+  if (cin_pad != lay.chunks * lay.kc) return cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || !aligned(wt)) return cudaErrorInvalidValue;
+  // wt (Cout, K * cin_pad): boxes of kc channels (128 bytes) by kFwdBN rows
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)K * cin_pad, (cuuint64_t)Cout};
+  const cuuint64_t pitch[1] = {(cuuint64_t)K * cin_pad * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)lay.kc, (cuuint32_t)kFwdBN};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&map,
+             sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             2, const_cast<void*>(wt), dims, pitch, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err =
+      allow_max_smem(dcn_fwd_kernel<T, kSample, kMultiply>, smem_set);
+  if (err != cudaSuccess) return err;
+  // the smallest shared-memory carveout that holds the block, so that the
+  // rest of the SM's 256 KB serves as L1 for the corner loads
+  err = cudaFuncSetAttribute(dcn_fwd_kernel<T, kSample, kMultiply>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (lay.bytes * 100 + kMaxSmemBytes - 1) / kMaxSmemBytes + 1);
+  if (err != cudaSuccess) return err;
+  const bool vec_a = Cin % kE == 0 && aligned(x);
+  const bool vec_o = Cout % kE == 0 && aligned(out);
+  const dim3 grid((unsigned)((n_pix + kFwdRows - 1) / kFwdRows),
+                  (unsigned)((Cout + kFwdBN - 1) / kFwdBN));
+  dcn_fwd_kernel<T, kSample, kMultiply><<<grid, kFwdThreads, lay.bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset),
+      static_cast<const T*>(mask), map, static_cast<T*>(out), H, W, Cin,
+      cin_pad, Ho, Wo, Cout, Kw, K, stride, pad, dil, n_pix, lay, vec_a,
+      vec_o);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The fused forward.  x (B, H, W, Cin); offset (B, Ho, Wo, 2K); mask (B,
+// Ho, Wo, K); wt (Cout, K, cin_pad), the tap-major weight transposed, one
+// row of K * cin_pad per output channel, its input channels zero-padded to
+// cin_pad, a whole number of stages of input channels; out (B, Ho, Wo,
+// Cout); all in one dtype (0 f32, 1 bf16).  smem_bytes is the plan of
+// ops/deform_conv.py::dcn_fwd_plan; a plan that disagrees with this file's
+// layout is refused.  parts: 3 computes the convolution; 1 (the
+// sampling alone) and 2 (the product alone) are the diagnostic variants,
+// bf16 only, and their out is not the convolution.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int unibev_dcn_fwd(const void* x, const void* offset,
+                              const void* mask, const void* wt, void* out,
+                              int B, int H, int W, int Cin, int cin_pad,
+                              int Ho, int Wo, int Cout, int Kh, int Kw,
+                              int stride, int pad, int dil, int smem_bytes,
+                              int parts, int dtype, void* stream) {
+  if (B < 0 || Ho < 0 || Wo < 0 || Kh < 1 || Kw < 1 || Cin < 1 || Cout < 1 ||
+      stride < 1 || dil < 1)
+    return cudaErrorInvalidValue;
+  if ((long long)B * H * W > INT_MAX) return cudaErrorInvalidValue;  // int32 rows
+  const int K = Kh * Kw;
+  const long long n_pix = (long long)B * Ho * Wo;
+  if (n_pix == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using BF = __nv_bfloat16;
+  if (parts == 3 && dtype == 0)
+    return launch_fwd<float, true, true>(x, offset, mask, wt, out, H, W, Cin,
+                                         cin_pad, Ho, Wo, Cout, Kw, K, stride,
+                                         pad, dil, n_pix, smem_bytes, s);
+  if (parts == 3 && dtype == 1)
+    return launch_fwd<BF, true, true>(x, offset, mask, wt, out, H, W, Cin,
+                                      cin_pad, Ho, Wo, Cout, Kw, K, stride,
+                                      pad, dil, n_pix, smem_bytes, s);
+  if (parts == 1 && dtype == 1)
+    return launch_fwd<BF, true, false>(x, offset, mask, wt, out, H, W, Cin,
+                                       cin_pad, Ho, Wo, Cout, Kw, K, stride,
+                                       pad, dil, n_pix, smem_bytes, s);
+  if (parts == 2 && dtype == 1)
+    return launch_fwd<BF, false, true>(x, offset, mask, wt, out, H, W, Cin,
+                                       cin_pad, Ho, Wo, Cout, Kw, K, stride,
+                                       pad, dil, n_pix, smem_bytes, s);
+  return cudaErrorInvalidValue;
+}
 
 // dtype: 0 f32, 1 bf16.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int unibev_dcn_im2col(const void* x, const void* offset,

@@ -81,50 +81,9 @@
 #include <cstdint>
 
 #include "bilinear.cuh"
+#include "tensor_core.cuh"
 
 namespace {
-
-// Asynchronous 16-byte copy from global to shared memory (sm_80 and up),
-// cached in L1 too.  src_bytes 0 reads nothing and fills the 16 bytes with
-// zeros; src must still be a valid address.  Both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed copy groups are still in
-// flight; a barrier must follow before other threads read the copies.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The most dynamic shared memory one block may use on the H100 (227 KB).
-constexpr int kMaxSmemBytes = 232448;
-
-// Let `kernel` take up to kMaxSmemBytes of dynamic shared memory on the
-// current device (above 48 KB a launch fails without it).  Set once per
-// kernel and device, `done` holding one bit per device: made at every
-// launch, the call stalled the host's run-ahead (measured end to end).
-template <typename Kernel>
-cudaError_t allow_max_smem(Kernel kernel,
-                           std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (bit != 0 && (done.load() & bit) != 0) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
 
 __global__ void sparse_nbr_kernel(const int* __restrict__ table,
                                   const int* __restrict__ coords,
@@ -192,52 +151,6 @@ ConvLayout conv_layout(int K, int Cin) {
   c.stages = (c.taps + 4 * (2 * K + 1) + 127) / 128 * 128;
   c.bytes = c.stages + 2 * c.stage;
   return c;
-}
-
-// D (16 x 8, f32) += A (16 x 16, bf16, row-major) * B (16 x 8, bf16,
-// column-major), one warp, on the tensor cores.
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 and receives, of each, row l / 4, columns 2 (l % 4) + {0, 1}.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// The same, transposed: lane l receives rows 2 (l % 4) + {0, 1}, column
-// l / 4 of each matrix.
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(smem_u32(p))
-      : "memory");
 }
 
 // bf16: one stage's product on the tensor cores.  The 8 warps are 4 (rows)

@@ -77,8 +77,9 @@ class DeformConv2d(nn.Module):
         offset = om[..., :18].contiguous()
         mask = torch.sigmoid(om[..., 18:])
         x_nhwc = x.permute(0, 2, 3, 1).contiguous()          # no copy in channels_last
-        # (3, 3, Cin, Cout) -> (9*Cin, Cout), tap-major like the im2col
-        w = self.weight.permute(2, 3, 1, 0).reshape(-1, self.weight.shape[0])
+        # (Cout, 3, 3, Cin) -> (9*Cin, Cout), tap-major like the im2col; a
+        # view of the K-major rows (Cout, 9*Cin) that the CUDA forward reads
+        w = self.weight.permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1).t()
         out = modulated_deform_conv2d(x_nhwc, offset, mask, w, stride=self.stride)
         return out.permute(0, 3, 1, 2)                       # NCHW, channels_last
 

@@ -1,11 +1,14 @@
 """Modulated deformable convolution (DCNv2): kernel wrappers and plain versions.
 
 Counterpart of ``unibev_tpu/ops/deform_conv.py::modulated_deform_conv2d``
-(semantics from its ``_mdcn_clean``).  The deformable im2col runs in the CUDA
-kernel K2 (``csrc/deform_conv.cu::unibev_dcn_im2col``); the (K*Cin) x Cout
-product after it is a plain ``torch.matmul``, as the JAX package left it to
-XLA.  The gradient follows ``_mdcn_fast_bwd``: d_cols = g W^T and d_weight =
-cols^T g are ``torch.matmul``; kernel K4 (``csrc/deform_conv.cu::
+(semantics from its ``_mdcn_clean``).  The forward is one fused CUDA kernel,
+``dcn_fwd`` (``csrc/deform_conv.cu::unibev_dcn_fwd``): it samples the
+deformable columns into shared memory and multiplies them there, so the
+(B*Ho*Wo, K*Cin) column matrix never reaches device memory;
+:func:`dcn_fwd_plan` is its launch plan.  The gradient follows
+``_mdcn_fast_bwd``, which recomputes the gather: the im2col kernel
+(``unibev_dcn_im2col``) writes the columns for d_weight = cols^T g; d_cols
+= g W^T and d_weight are ``torch.matmul``; kernel K4 (``csrc/deform_conv.cu::
 unibev_dcn_bwd``) turns d_cols into d_offset, d_mask and the d_x
 contribution rows, which the row scatter-add K5 (``ops/scatter.py``) sums,
 in chunks of output pixels.
@@ -18,7 +21,7 @@ is mmcv's: ``offset[..., 2k] = dy_k``, ``offset[..., 2k+1] = dx_k``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +32,58 @@ from unibev_tpu_torch.ops.scatter import bwd_chunks, scatter_add_rows
 
 def _out_size(size, k, stride, padding, dilation):
     return (size + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+
+
+# dcn_fwd's block: output pixels, output channels, threads (16 warps), the
+# items in its shared-memory ring and the bytes of a staged row; the most
+# dynamic shared memory a block may use on the H100 (227 KB)
+DCN_FWD_ROWS = 128
+DCN_FWD_BN = 256
+DCN_FWD_WARPS = 16
+DCN_FWD_STAGES = 3
+DCN_FWD_ROW_BYTES = 128
+MAX_SMEM_BYTES = 232448
+
+
+class DcnFwdPlan(NamedTuple):
+    """How ``dcn_fwd`` covers one layer: blocks of ``rows`` output pixels by
+    ``bn`` output channels (``channel_tiles`` of them across Cout, each
+    sampling the columns anew), ``warps`` warps, ``kc`` input channels per
+    stage (``chunks`` per tap), ``smem_bytes`` of dynamic shared memory."""
+    rows: int
+    bn: int
+    channel_tiles: int
+    warps: int
+    kc: int
+    chunks: int
+    smem_bytes: int
+
+
+def dcn_fwd_plan(cin: int, cout: int, taps: int = 9,
+                 itemsize: int = 2) -> DcnFwdPlan:
+    """The launch plan of ``dcn_fwd`` for a layer of ``taps`` taps, ``cin``
+    -> ``cout`` channels, in a dtype of ``itemsize`` bytes (2 bf16, 4 f32).
+
+    A block is 128 pixels by 256 output channels (16 warps; in bf16 four
+    warpgroups of wgmma m64n128), so each column element is sampled once up
+    to Cout 256; a wider Cout takes more channel tiles.  A stage holds 128 bytes of
+    input channels per row (64 bf16, 32 f32).  The shared memory is the
+    layout of ``FwdLayout`` in ``csrc/deform_conv.cu`` (the launch refuses a
+    plan that disagrees): 1024 bytes of alignment slack, a ring of three
+    stages of the sampled columns (rows x 128 bytes) and the weight slice
+    (bn x 128 bytes), which the output tile (rows x bn, rows padded by 16
+    bytes) reuses, 64 bytes of mbarriers, then the geometry (4 f32 corner
+    weights and the int32 row of the first corner per pixel and tap).
+    """
+    kc = DCN_FWD_ROW_BYTES // itemsize
+    stage = (DCN_FWD_ROWS + DCN_FWD_BN) * DCN_FWD_ROW_BYTES
+    out = DCN_FWD_ROWS * (DCN_FWD_BN + 16 // itemsize) * itemsize
+    smem = (1024 + max(DCN_FWD_STAGES * stage, out) + 64
+            + taps * DCN_FWD_ROWS * 20)
+    return DcnFwdPlan(rows=DCN_FWD_ROWS, bn=DCN_FWD_BN,
+                      channel_tiles=-(-cout // DCN_FWD_BN),
+                      warps=DCN_FWD_WARPS, kc=kc, chunks=-(-cin // kc),
+                      smem_bytes=smem)
 
 
 def _im2col_f32(x, offset, mask, kernel_size, stride, padding, dilation):
@@ -67,8 +122,9 @@ def deform_im2col_reference(x, offset, mask, kernel_size=(3, 3), stride=1,
 
 def deform_im2col(x, offset, mask, kernel_size=(3, 3), stride=1, padding=1,
                   dilation=1) -> torch.Tensor:
-    """Deformable im2col; CPU tensors take the plain version, CUDA tensors
-    kernel K2.  Same layouts as :func:`deform_im2col_reference`."""
+    """Deformable im2col (the columns the backward multiplies for d_weight);
+    CPU tensors take the plain version, CUDA tensors the ``dcn_im2col``
+    kernel.  Same layouts as :func:`deform_im2col_reference`."""
     if x.device.type == "cpu":
         return deform_im2col_reference(x, offset, mask, kernel_size, stride,
                                        padding, dilation)
@@ -167,6 +223,65 @@ def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
     return cols
 
 
+# dcn_fwd's C argument `parts`: the convolution, and the two diagnostic
+# variants of the bf16 kernel (the sampling alone, the product alone)
+_PARTS = {"all": 3, "sample": 1, "multiply": 2}
+
+
+def _dcn_fwd_cuda(x, offset, mask, weight, kernel_size, stride, padding,
+                  dilation, parts="all"):
+    (B, H, W, Cin, Ho, Wo), code = _check(x, offset, mask, kernel_size,
+                                          stride, padding, dilation)
+    Kh, Kw = kernel_size
+    K = Kh * Kw
+    if weight.dim() != 2 or weight.shape[0] != K * Cin:
+        raise ValueError(f"weight must be ({K * Cin}, Cout), got {tuple(weight.shape)}")
+    if weight.dtype != x.dtype or weight.device != x.device:
+        raise TypeError("dcn_fwd: weight must have x's dtype and device")
+    Cout = weight.shape[1]
+    plan = dcn_fwd_plan(Cin, Cout, K, x.element_size())
+    # the kernel reads the weight K-major by TMA, one row per output channel
+    # with each tap's input channels padded to whole stages: no copy when
+    # the caller holds it that way (DeformConv2d) and Cin needs no padding
+    cin_pad = plan.chunks * plan.kc
+    wt = weight.t()
+    if cin_pad != Cin:
+        wt = F.pad(wt.reshape(Cout, K, Cin), (0, cin_pad - Cin))
+    wt = wt.contiguous()
+    out = torch.empty((B, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
+    err = _build.lib().unibev_dcn_fwd(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+        out.data_ptr(), B, H, W, Cin, cin_pad, Ho, Wo, Cout, Kh, Kw, stride,
+        padding, dilation, plan.smem_bytes, _PARTS[parts], code,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "dcn_fwd")
+    _build.launches["dcn_fwd" if parts == "all" else "dcn_fwd_" + parts] += 1
+    return out
+
+
+def dcn_fwd(x, offset, mask, weight, kernel_size=(3, 3), stride=1, padding=1,
+            dilation=1) -> torch.Tensor:
+    """The DCNv2 forward without bias and autograd: CPU tensors take the
+    plain version (:func:`modulated_deform_conv2d_reference`), CUDA tensors
+    the fused kernel ``dcn_fwd``.  weight (K*Cin, Cout) tap-major, in x's
+    dtype; returns (B, Ho, Wo, Cout) in x's dtype."""
+    if x.device.type == "cpu":
+        return modulated_deform_conv2d_reference(x, offset, mask, weight, None,
+                                                 kernel_size, stride, padding,
+                                                 dilation)
+    return _dcn_fwd_cuda(x, offset, mask, weight, tuple(kernel_size), stride,
+                         padding, dilation)
+
+
+def dcn_fwd_part(x, offset, mask, weight, part) -> torch.Tensor:
+    """A diagnostic: the bf16 ``dcn_fwd`` kernel with one half dropped,
+    ``part`` "sample" (the sampling alone, no product) or "multiply" (the
+    product alone, no corner loads), 3x3 taps, stride 1, padding 1.  Its output is not the convolution; it exists to time which
+    half bounds the kernel (``chip_smoke.py`` phase 3).  Counted under
+    ``dcn_fwd_<part>``, never under ``dcn_fwd``."""
+    return _dcn_fwd_cuda(x, offset, mask, weight, (3, 3), 1, 1, 1, parts=part)
+
+
 def _dcn_bwd_cuda(x, offset, mask, d_cols, kernel_size, stride, padding,
                   dilation):
     (B, H, W, Cin, Ho, Wo), code = _check(x, offset, mask, kernel_size,
@@ -202,29 +317,30 @@ def _dcn_bwd_cuda(x, offset, mask, d_cols, kernel_size, stride, padding,
 
 
 class _DCNFunction(torch.autograd.Function):
-    """K2 + matmul forward; matmuls + K4 + K5 backward (``_mdcn_fast_bwd``).
-    The columns are saved for d_weight; under the backbone's checkpointing
-    they are dropped after the forward and rebuilt (K2 again) by the
-    recompute, as the JAX package recomputes them with its remat."""
+    """``dcn_fwd`` forward; im2col + matmuls + K4 + K5 backward
+    (``_mdcn_fast_bwd``).  Nothing sampled is saved: the backward rebuilds
+    the columns for d_weight, as the JAX package's backward recomputes its
+    gather.  Under the backbone's checkpointing the recompute runs
+    ``dcn_fwd`` once more."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, x, offset, mask, weight, kernel_size, stride, padding,
                 dilation):
-        cols = _im2col_cuda(x, offset, mask, kernel_size, stride, padding,
-                            dilation)
         ctx.geometry = (kernel_size, stride, padding, dilation)
-        ctx.save_for_backward(x, offset, mask, weight, cols)
-        B, Ho, Wo = offset.shape[:3]
-        return torch.matmul(cols, weight).view(B, Ho, Wo, -1)
+        ctx.save_for_backward(x, offset, mask, weight)
+        return _dcn_fwd_cuda(x, offset, mask, weight, kernel_size, stride,
+                             padding, dilation)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, grad_out):
-        x, offset, mask, weight, cols = ctx.saved_tensors
+        x, offset, mask, weight = ctx.saved_tensors
+        cols = _im2col_cuda(x, offset, mask, *ctx.geometry)
         g = grad_out.reshape(cols.shape[0], -1).to(cols.dtype)
         d_cols = torch.matmul(g, weight.t())
         d_weight = torch.matmul(cols.t(), g)
+        del cols
         d_x, d_offset, d_mask = _dcn_bwd_cuda(x, offset, mask, d_cols,
                                               *ctx.geometry)
         return d_x, d_offset, d_mask, d_weight, None, None, None, None
@@ -250,7 +366,7 @@ def modulated_deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
     mask (B, Ho, Wo, Kh*Kw), already sigmoid-ed; weight (Kh*Kw*Cin, Cout)
     tap-major; bias (Cout,) or None.  Returns (B, Ho, Wo, Cout).  On CPU
     tensors the plain versions run (and autograd goes through them); on CUDA
-    kernel K2, with the K4 + K5 backward.
+    the fused kernel ``dcn_fwd``, with the im2col + K4 + K5 backward.
     """
     if x.device.type == "cpu":
         cols = deform_im2col_reference(x, offset, mask, kernel_size, stride,
