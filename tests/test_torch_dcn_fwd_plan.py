@@ -17,6 +17,7 @@ and the im2col once (the backward's columns).
 import glob
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -91,9 +92,99 @@ def test_plan_of_ragged_shapes(cin, cout, dtype):
 def test_plan_of_the_flagship_stage3():
     """The numbers ``fwd_layout`` gives for stage 3 in bf16: 64 channels per
     stage, 1,024 bytes of alignment slack, three 49,152-byte stages, 64
-    bytes of mbarriers, 23,040 bytes of geometry."""
+    bytes of mbarriers and a flag, 23,040 bytes of geometry."""
     assert dcn_fwd_plan(256, 256, 9, 2) == (128, 256, 1, 16, 64, 4, 171584)
     assert dcn_fwd_plan(512, 512, 9, 2).channel_tiles == 2
+
+
+# The kernel's schedule (csrc/deform_conv.cu, dcn_fwd_kernel and launch_fwd),
+# restated: U = tiles x items units, G blocks, block b runs units [b U / G,
+# (b + 1) U / G) tile-major; a shared tile's sums go to slot 2 b of block
+# b's first segment or 2 b + 1 of its last, and the last block to arrive
+# adds the slots of blocks owner(first unit) .. owner(last unit) of the
+# tile.
+MIN_ITEMS = 4
+
+
+def _blocks(units, cap):
+    return max(1, min(cap, units // MIN_ITEMS))
+
+
+def _start(g, units, G):
+    return g * units // G
+
+
+def _owner(u, units, G):
+    return ((u + 1) * G - 1) // units
+
+
+def _segments(tiles, items, G):
+    """(block, tile, first item, items, slot or None) of every segment."""
+    units = tiles * items
+    out = []
+    for g in range(G):
+        u, end = _start(g, units, G), _start(g + 1, units, G)
+        begin = u
+        while u < end:
+            t, i0 = divmod(u, items)
+            n = min(items - i0, end - u)
+            slot = None if n == items else 2 * g + (0 if u == begin else 1)
+            out.append((g, t, i0, n, slot))
+            u += n
+    return out
+
+
+def _reader_slots(t, tiles, items, G):
+    units = tiles * items
+    lo, hi = _owner(t * items, units, G), _owner(t * items + items - 1, units, G)
+    return [2 * g + (0 if _start(g, units, G) // items == t else 1)
+            for g in range(lo, hi + 1)]
+
+
+# (tiles, items per tile, the most blocks): flagship stage 3 (272 tiles, 4
+# chunks x 9 taps, 132 SMs) and stage 4 (68 pixel tiles x 2 channel tiles,
+# 8 x 9), the card tests' shapes and a mma-fragment tile, odd counts
+SCHEDULES = [(272, 36, 132), (136, 72, 132), (3, 9, 132), (2, 9, 132),
+             (6, 18, 132), (1, 9, 132), (7, 5, 3), (5, 72, 66), (40, 36, 7)]
+
+
+@pytest.mark.parametrize("tiles,items,cap", SCHEDULES,
+                         ids=[f"{t}x{i}/{c}" for t, i, c in SCHEDULES])
+def test_schedule_covers_each_item_once(tiles, items, cap):
+    """Every (tile, item) runs exactly once; a block runs at least
+    MIN_ITEMS items (where there are so many) and at most two segments of
+    it share a tile with another block; the slots the last block adds are
+    the slots the sharing blocks wrote, each once."""
+    G = _blocks(tiles * items, cap)
+    segs = _segments(tiles, items, G)
+    seen = np.zeros((tiles, items), dtype=int)
+    for g, t, i0, n, _ in segs:
+        seen[t, i0:i0 + n] += 1
+    assert (seen == 1).all()
+    per_block = np.bincount([s[0] for s in segs], [s[3] for s in segs], G)
+    assert per_block.min() >= min(MIN_ITEMS, tiles * items)
+    written = {}
+    for g, t, _, _, slot in segs:
+        if slot is not None:
+            assert slot // 2 == g
+            written.setdefault(t, []).append(slot)
+    assert all(len([s for s in segs if s[0] == g and s[4] is not None]) <= 2
+               for g in range(G))
+    for t in range(tiles):
+        if t in written:
+            assert _reader_slots(t, tiles, items, G) == sorted(written[t])
+            assert len(set(written[t])) == len(written[t])
+
+
+def test_schedule_is_one_wave_at_the_flagship_sites():
+    """Stage 3 and stage 4 each run 132 blocks of 74-75 items (a grid of
+    one block per tile took three waves of 36-item blocks at stage 3 and
+    two of 72-item blocks at stage 4)."""
+    for tiles, items, cap in ((272, 36, 132), (136, 72, 132)):
+        G = _blocks(tiles * items, cap)
+        sizes = {_start(g + 1, tiles * items, G) - _start(g, tiles * items, G)
+                 for g in range(G)}
+        assert G == cap and sizes == {74, 75}
 
 
 # path: (the launches chip_smoke.py expects, the counts per path)

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from torch_port_utils import cuda_device  # noqa: F401
-from unibev_tpu_torch.ops import _build, scatter
+from unibev_tpu_torch.ops import _build, deform_conv, scatter
 from unibev_tpu_torch.ops.deform_conv import (
     dcn_fwd, deform_im2col, deform_im2col_backward,
     deform_im2col_backward_reference, deform_im2col_reference,
@@ -164,6 +164,8 @@ DCN_FWD_CASES = {
     "cin5_cout20_s2": (2, 11, 13, 5, 20, 2, 1),
     "stage3": (1, 58, 100, 256, 256, 1, 1),
     "stage4": (1, 29, 50, 512, 512, 1, 1),
+    "cout300": (2, 11, 13, 40, 300, 1, 1),
+    "cout520": (1, 9, 10, 64, 520, 1, 1),
 }
 
 
@@ -195,6 +197,23 @@ def test_dcn_fwd_kernel_matches_plain(cuda_device, case, dtype, rel):
     assert got.dtype == dtype and got.shape == (B, Ho, Wo, Cout)
     off[0, 1, 1, 4] = 1000.0                  # as far out: the plain version's
     _close(got, modulated_deform_conv2d_reference(x, off, mask, w, **kw), rel)
+
+
+@pytest.mark.parametrize("case", ["stage3", "stage4", "cout300"])
+def test_dcn_fwd_is_deterministic(cuda_device, case):
+    """Blocks that share a tile add their sums in a fixed order: two calls
+    give the same bits, and the arrival counts left behind are zeros."""
+    B, H, W, Cin, Cout, _, _ = DCN_FWD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(B, H, W, Cin, device=cuda_device, generator=g).bfloat16()
+    off = (torch.randn(B, H, W, 18, device=cuda_device, generator=g)
+           * 2).bfloat16()
+    mask = torch.rand(B, H, W, 9, device=cuda_device, generator=g).bfloat16()
+    w = (torch.randn(9 * Cin, Cout, device=cuda_device, generator=g)
+         * (9 * Cin) ** -0.5).bfloat16()
+    first = dcn_fwd(x, off, mask, w)
+    assert torch.equal(dcn_fwd(x, off, mask, w), first)
+    assert not deform_conv._ARRIVALS[x.device].any()
 
 
 def test_dcn_fwd_mma_fragments(cuda_device):

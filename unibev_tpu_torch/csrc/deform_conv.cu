@@ -34,25 +34,30 @@
 // dcn_fwd, what bounds it on the H100.  The product is the work: 2 * pix *
 // 9 * Cin * Cout operations, 41 GFLOP per flagship stage-3 or stage-4 call,
 // 0.042 ms at the bf16 tensor-core peak, against 0.012 ms for the bytes it
-// must move.  What sets its time is the sampling: each column element
-// blends four corners, 8 bytes in bf16 read from the input map (18 MB at
-// stage 3, in L2), ~640 MB per stage-3 call, and each block streams the
-// whole weight (1.2 MB at stage 3) for its 128 pixels, ~320 MB more.  Its
-// two diagnostic variants (the sampling alone, the product alone;
-// chip_smoke.py phase 3, PERF.md) show the sampling, not the tensor cores,
-// to set the time.  The design keeps the columns in shared memory and
-// overlaps the gathers with the tensor cores:
-//   * a block owns 128 output pixels and 256 output channels, so every
-//     column element is sampled once up to Cout 256 (stage 3); stage 4
-//     (Cout 512) takes two channel tiles and samples its columns twice;
+// must move.  What sets its time is the sampling and the loop around the
+// product: each column element blends four corners, 8 bytes in bf16 read
+// from the input map (18 MB at stage 3, in L2), ~640 MB per stage-3 call,
+// in f32 on the CUDA cores, and each item ends on a block barrier.  With
+// mask 0 (no corner is read; the blend and the loop remain) a call keeps
+// most of its time (chip_smoke.py phase 3, PERF.md): L2's rate is not the
+// limit.  The design keeps the columns in shared memory and overlaps the
+// gathers with the tensor cores:
+//   * a tile is 128 output pixels by 256 output channels, so every column
+//     element is sampled once up to Cout 256 (stage 3); stage 4 (Cout 512)
+//     takes two channel tiles and samples its columns twice;
+//   * the grid is one wave, at most one block per SM, and the blocks share
+//     the layer's tiles x (Cin chunk, tap) items evenly; a tile that two
+//     blocks share is summed by both in f32 and finished by the last (see
+//     dcn_fwd_kernel).  A grid of one block per tile ran 3 waves where
+//     2.06 would do at stage 3, and 2 where 1.03 would do at stage 4;
 //   * 16 warps, 4 warpgroups 2 (rows) x 2 (columns) over the 128 x 256 tile,
 //     each a wgmma m64n128k16 into 64 f32 registers a thread, so that a
 //     thread samples two 16-byte vectors an item and 16 warps hide the
 //     gathers' latency;
-//   * at its start the block computes the geometry of its 128 x K sample
-//     points once (bilinear_at, the geometry K4 shares), folds the mask into
-//     the four corner weights and keeps them, with the row of the first
-//     corner, in shared memory;
+//   * for each tile it runs, the block computes the geometry of its 128 x K
+//     sample points once (bilinear_at, the geometry K4 shares), folds the
+//     mask into the four corner weights and keeps them, with the row of the
+//     first corner, in shared memory;
 //   * it walks (Cin chunk of 64, tap) items.  For each it samples the A tile
 //     (128 pixels x 128 bytes of channels) into shared memory: each thread
 //     loads the corners that weigh something as 16-byte vectors (8 bf16
@@ -73,8 +78,6 @@
 //     stage.  A Cin that is not a multiple of 8 (conv_input-like Cin 5)
 //     takes plain loads of x into the same layout; the wrapper pads each
 //     tap's weights to whole stages.
-// Two reduced variants of the bf16 kernel (the sampling alone, the product
-// alone) exist to measure which half sets the time (chip_smoke.py phase 3).
 
 // dcn_im2col and K4: one warp per (output pixel, tap), the geometry
 // computed once per warp, lanes over Cin, so that the corner reads and the
@@ -83,6 +86,7 @@
 // columns (160 MB at stage 3 in bf16) and, for K4, four Cin-wide
 // contribution rows per tap (640 MB at stage 3, in chunks).
 
+#include <algorithm>
 #include <atomic>
 #include <climits>
 #include <cstdint>
@@ -242,6 +246,7 @@ constexpr int kFwdThreads = 512;  // 16 warps, 4 warpgroups
 constexpr int kFwdStages = 3;     // items in the shared-memory ring
 constexpr int kFwdVecs = 2;       // A-tile vectors a thread samples per item
 constexpr int kRowBytes = 128;    // a staged row: 64 bf16 or 32 f32 channels
+constexpr int kFwdMinItems = 4;   // items a block runs at the least
 constexpr int kAcc = kFwdRows * kFwdBN / kFwdThreads;  // f32 sums a thread
 
 // dcn_fwd's shared memory, byte offsets from its first 1024-byte boundary
@@ -251,8 +256,9 @@ constexpr int kAcc = kFwdRows * kFwdBN / kFwdThreads;  // f32 sums a thread
 // (kFwdBN rows, one per output channel), every row 128 bytes of input
 // channels, 128-byte swizzled (sw128); after the loop the ring holds the
 // output tile (kFwdRows x kFwdBN, row pitch o_pitch).  Then one mbarrier
-// per stage (64 bytes reserved), which the stage's TMA weight copy
-// completes, and the geometry: K x 4 x kFwdRows mask-folded corner
+// per stage, which the stage's TMA weight copy completes, and at byte 32
+// the flag of the last share of a tile (64 bytes reserved), and the
+// geometry: K x 4 x kFwdRows mask-folded corner
 // weights, f32, 0 for a corner that reads nothing, and K x kFwdRows rows of
 // corner 0 in x viewed as (B * H * W, Cin), int32 (corner c adds (c / 2) *
 // W + c % 2).  ops/deform_conv.py::dcn_fwd_plan computes the same layout;
@@ -450,162 +456,245 @@ __device__ __forceinline__ void stage_out(const float (&acc)[kAcc],
       o_s[(ty + 32 * i) * o_pitch + tx + 16 * j] = acc[16 * i + j];
 }
 
-// kSample / kMultiply: both true for the convolution.  The diagnostic
-// variants drop one half: without kSample the corner loads (the A tile is
-// written as zeros), without kMultiply the product.
-template <typename T, bool kSample, bool kMultiply>
+// Block b of G over `total` units takes units [range_start(b),
+// range_start(b + 1)); range_owner(u) is the block whose range holds unit u.
+__device__ __forceinline__ int range_start(int g, int total, int G) {
+  return (int)((long long)g * total / G);
+}
+
+__device__ __forceinline__ int range_owner(int u, int total, int G) {
+  return (int)(((long long)(u + 1) * G - 1) / total);
+}
+
+// The work of a layer is tiles x items: a tile is kFwdRows output pixels by
+// kFwdBN output channels, an item one (Cin chunk, tap) of it.  The grid is
+// one wave of G blocks, and block b runs the units [b * U / G, (b + 1) * U /
+// G) of the U = tiles x items units in order, tile-major; a stretch of one
+// tile's items is a segment.  A tile whose items more than one block runs
+// is summed by each of them: each writes its f32 sums to its slot of
+// `partial` (slot 2 b for block b's first segment, 2 b + 1 for its last)
+// and counts itself in `arrivals`; the last to arrive adds the slots in
+// block order, writes the tile and sets the count back to 0 for the next
+// launch.  No block waits on another, so the schedule needs no
+// co-residency.
+template <typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     dcn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
                    const T* __restrict__ mask,
                    const __grid_constant__ CUtensorMap wt_map,
-                   T* __restrict__ out, int H, int W, int Cin, int cin_pad,
-                   int Ho, int Wo, int Cout, int Kw, int K, int stride,
-                   int pad, int dil, long long n_pix, FwdLayout lay,
-                   bool vec_a, bool vec_o) {
+                   T* __restrict__ out, float* __restrict__ partial,
+                   int* __restrict__ arrivals, int H, int W, int Cin,
+                   int cin_pad, int Ho, int Wo, int Cout, int Kw, int K,
+                   int stride, int pad, int dil, long long n_pix,
+                   FwdLayout lay, bool vec_a, bool vec_o) {
   constexpr int kE = 16 / sizeof(T);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* const ring =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(ring + lay.bars);
+  int* const last = reinterpret_cast<int*>(ring + lay.bars + 32);
   float* geo_w = reinterpret_cast<float*>(ring + lay.geo);  // [K][4][rows]
   int* geo_row = reinterpret_cast<int*>(ring + lay.geo + K * 4 * kFwdRows * 4);
   const int corner_step[4] = {0, 1, W, W + 1};
   const int tid = threadIdx.x;
-  const long long n0 = (long long)blockIdx.x * kFwdRows;
-  const int o0 = blockIdx.y * kFwdBN;
-  const int rows = (int)min((long long)kFwdRows, n_pix - n0);
+  const int items = lay.chunks * K;
+  const int ctiles = (Cout + kFwdBN - 1) / kFwdBN;
+  // the units (tiles x items; fewer than 2^31, the launch checks)
+  const int total =
+      (int)((n_pix + kFwdRows - 1) / kFwdRows) * ctiles * items;
+  const int G = gridDim.x;
+  const int begin = range_start(blockIdx.x, total, G);
+  const int end = range_start(blockIdx.x + 1, total, G);
 
   if (tid == 0) {
     for (int st = 0; st < kFwdStages; ++st) mbar_init(&full[st], 1);
     fence_barrier_init();
   }
-  // The geometry of the block's kFwdRows x K sample points, once.
-  for (int e = tid; e < kFwdRows * K; e += kFwdThreads) {
-    const int r = e / K;
-    const int k = e - r * K;
-    float w[4] = {0.f, 0.f, 0.f, 0.f};
-    int row = 0;
-    if (r < rows) {
-      const Tap t = tap_at((n0 + r) * K + k, offset, mask, Ho, Wo, Kw, K,
-                           stride, pad, dil);
-      Bilinear g;
-      if (bilinear_at(t.sx, t.sy, W, H, g)) {
-        // corner 0's cell, outside the map when it is; a corner outside
-        // weighs 0 and is not read
-        row = (int)(t.b * H * W + (long long)g.y0 * W + g.x0);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (g.in[c]) w[c] = g.w[c] * t.m;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) geo_w[(k * 4 + c) * kFwdRows + r] = w[c];
-    geo_row[k * kFwdRows + r] = row;
-  }
-  __syncthreads();
 
-  // Items are (Cin chunk, tap), chunk-major.  Thread tid samples the A-tile
-  // vectors e = tid + i * kFwdThreads, i < kFwdVecs: row e / 8, channels
-  // (e % 8) * kE .. + kE of the chunk (8 threads a row).
-  const int items = lay.chunks * K;
   uint4 corner[kFwdVecs][4];
-
-  // The corner loads of item `it`, into registers: the corners that weigh
-  // something (inside the map, of a point inside it, mask not 0).
-  auto gather = [&](int it) {
-    const int chunk = it / K;
-    const int k = it - chunk * K;
-    const int c0 = chunk * lay.kc;
-#pragma unroll
-    for (int i = 0; i < kFwdVecs; ++i) {
-      const int e = tid + i * kFwdThreads;
-      const int r = e >> 3;
-      const int ch = c0 + (e & 7) * kE;
-      const int row = geo_row[k * kFwdRows + r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        corner[i][c] = make_uint4(0u, 0u, 0u, 0u);
-        if (kSample && geo_w[(k * 4 + c) * kFwdRows + r] != 0.f && ch < Cin)
-          corner[i][c] = load_vec(
-              x + (long long)(row + corner_step[c]) * Cin + ch, Cin - ch, vec_a);
-      }
-    }
-  };
-  // Blend item `it`'s corners into its A tile.
-  auto blend_store = [&](int it) {
-    const int k = it % K;
-    unsigned char* a_s = ring + (it % kFwdStages) * lay.stage;
-#pragma unroll
-    for (int i = 0; i < kFwdVecs; ++i) {
-      const int e = tid + i * kFwdThreads;
-      const int r = e >> 3;
-      float w[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w[c] = geo_w[(k * 4 + c) * kFwdRows + r];
-      *reinterpret_cast<uint4*>(a_s + sw128(r, e & 7)) = blend<T>(corner[i], w);
-    }
-  };
-  // Stage item `it`'s weight rows: for each of the block's output channels,
-  // the tap's chunk of input channels, one TMA copy of kFwdBN rows of 128
-  // bytes (rows past Cout read as zeros), issued by one thread.
-  auto issue_b = [&](int it) {
-    if (it < items && tid == 0) {
-      const int st = it % kFwdStages;
-      const int chunk = it / K;
-      const int k = it - chunk * K;
-      mbar_expect_tx(&full[st], kFwdBN * kRowBytes);
-      tma_load_2d(ring + st * lay.stage + lay.a_bytes, &wt_map,
-                  k * cin_pad + chunk * lay.kc, o0, &full[st]);
-    }
-  };
-
   float acc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  // A ring of kFwdStages items, one barrier per item: the barrier publishes
-  // item `it` (its weights copied by TMA two items ahead, their arrival
-  // awaited on the stage's mbarrier; its columns sampled one item ahead)
-  // and frees the buffer item it + 2 then takes.  While the tensor cores
-  // run item `it`, the threads blend item it + 1's corners, loaded one
-  // iteration earlier, then issue all of item it + 2's corner loads, which
-  // fly across the rest of the product, the barrier and the next product's
-  // issue.
-  issue_b(0);
-  issue_b(1);
-  gather(0);
-  blend_store(0);
-  if (items > 1) gather(1);
-  for (int it = 0; it < items; ++it) {
-    mbar_wait(&full[it % kFwdStages], (it / kFwdStages) & 1);
+  int q = 0;  // items through the ring before this segment
+  // The segments: unit u starts one, of tile u / items.  Only u, begin,
+  // end, q and o0 live across the item loop (registers are the limit: 16
+  // warps of 128); the rest is derived from them where it is used.
+  for (int u = begin; u < end;) {
+    const int i0 = u % items;
+    const int len = min(items - i0, end - u);
+    const int o0 = (u / items % ctiles) * kFwdBN;
+
+    // the previous segment's output tile and geometry are read no more
     fence_proxy_async();
     __syncthreads();
-    issue_b(it + 2);
-    if (kMultiply)
-      fwd_product(acc, ring + (it % kFwdStages) * lay.stage, lay, T());
-    if (it + 1 < items) blend_store(it + 1);
-    if (it + 2 < items) gather(it + 2);
-    if (kMultiply) fwd_product_wait(acc, T());
-  }
-  __syncthreads();  // the ring becomes the output tile
-
-  T* const o_s = reinterpret_cast<T*>(ring);
-  stage_out(acc, o_s, lay.o_pitch);
-  __syncthreads();
-  if (vec_o) {
-    constexpr int segs = kFwdBN / kE;
-    for (int e = tid; e < rows * segs; e += kFwdThreads) {
-      const int r = e / segs;
-      const int n = (e - r * segs) * kE;
-      if (o0 + n < Cout)
-        *reinterpret_cast<uint4*>(out + (n0 + r) * Cout + o0 + n) =
-            *reinterpret_cast<const uint4*>(o_s + r * lay.o_pitch + n);
+    {
+      // the geometry of the tile's kFwdRows x K sample points
+      const long long n0 = (long long)(u / items / ctiles) * kFwdRows;
+      const int rows = (int)min((long long)kFwdRows, n_pix - n0);
+      for (int e = tid; e < kFwdRows * K; e += kFwdThreads) {
+        const int r = e / K;
+        const int k = e % K;
+        float w[4] = {0.f, 0.f, 0.f, 0.f};
+        int row = 0;
+        if (r < rows) {
+          const Tap t = tap_at((n0 + r) * K + k, offset, mask, Ho, Wo, Kw, K,
+                               stride, pad, dil);
+          Bilinear g;
+          if (bilinear_at(t.sx, t.sy, W, H, g)) {
+            // corner 0's cell, outside the map when it is; a corner
+            // outside weighs 0 and is not read
+            row = (int)(t.b * H * W + (long long)g.y0 * W + g.x0);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (g.in[c]) w[c] = g.w[c] * t.m;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) geo_w[(k * 4 + c) * kFwdRows + r] = w[c];
+        geo_row[k * kFwdRows + r] = row;
+      }
+      __syncthreads();
     }
-  } else {
-    for (int e = tid; e < rows * kFwdBN; e += kFwdThreads) {
-      const int r = e / kFwdBN;
-      const int n = e - r * kFwdBN;
-      if (o0 + n < Cout) out[(n0 + r) * Cout + o0 + n] = o_s[r * lay.o_pitch + n];
+
+    // Items are (Cin chunk, tap), chunk-major; segment item `it` is item
+    // i0 + it of the tile and item q + it of the block's ring.  Thread tid
+    // samples the A-tile vectors e = tid + i * kFwdThreads, i < kFwdVecs:
+    // row e / 8, channels (e % 8) * kE .. + kE of the chunk (8 threads a
+    // row).
+    // The corner loads of item `it`, into registers: the corners that weigh
+    // something (inside the map, of a point inside it, mask not 0).
+    auto gather = [&](int it) {
+      const int chunk = (i0 + it) / K;
+      const int k = (i0 + it) - chunk * K;
+      const int c0 = chunk * lay.kc;
+#pragma unroll
+      for (int i = 0; i < kFwdVecs; ++i) {
+        const int e = tid + i * kFwdThreads;
+        const int r = e >> 3;
+        const int ch = c0 + (e & 7) * kE;
+        const int row = geo_row[k * kFwdRows + r];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          corner[i][c] = make_uint4(0u, 0u, 0u, 0u);
+          if (geo_w[(k * 4 + c) * kFwdRows + r] != 0.f && ch < Cin)
+            corner[i][c] = load_vec(
+                x + (long long)(row + corner_step[c]) * Cin + ch, Cin - ch,
+                vec_a);
+        }
+      }
+    };
+    // Blend item `it`'s corners into its A tile.
+    auto blend_store = [&](int it) {
+      const int k = (i0 + it) % K;
+      unsigned char* a_s = ring + ((q + it) % kFwdStages) * lay.stage;
+#pragma unroll
+      for (int i = 0; i < kFwdVecs; ++i) {
+        const int e = tid + i * kFwdThreads;
+        const int r = e >> 3;
+        float w[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) w[c] = geo_w[(k * 4 + c) * kFwdRows + r];
+        *reinterpret_cast<uint4*>(a_s + sw128(r, e & 7)) =
+            blend<T>(corner[i], w);
+      }
+    };
+    // Stage item `it`'s weight rows: for each of the block's output
+    // channels, the tap's chunk of input channels, one TMA copy of kFwdBN
+    // rows of 128 bytes (rows past Cout read as zeros), issued by one
+    // thread.
+    auto issue_b = [&](int it) {
+      if (it < len && tid == 0) {
+        const int st = (q + it) % kFwdStages;
+        const int chunk = (i0 + it) / K;
+        const int k = (i0 + it) - chunk * K;
+        mbar_expect_tx(&full[st], kFwdBN * kRowBytes);
+        tma_load_2d(ring + st * lay.stage + lay.a_bytes, &wt_map,
+                    k * cin_pad + chunk * lay.kc, o0, &full[st]);
+      }
+    };
+
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    // A ring of kFwdStages items, one barrier per item: the barrier
+    // publishes item `it` (its weights copied by TMA two items ahead, their
+    // arrival awaited on the stage's mbarrier; its columns sampled one item
+    // ahead) and frees the buffer item it + 2 then takes.  While the tensor
+    // cores run item `it`, the threads blend item it + 1's corners, loaded
+    // one iteration earlier, then issue all of item it + 2's corner loads,
+    // which fly across the rest of the product, the barrier and the next
+    // product's issue.
+    issue_b(0);
+    issue_b(1);
+    gather(0);
+    blend_store(0);
+    if (len > 1) gather(1);
+    for (int it = 0; it < len; ++it) {
+      const int g = q + it;
+      mbar_wait(&full[g % kFwdStages], (g / kFwdStages) & 1);
+      fence_proxy_async();
+      __syncthreads();
+      issue_b(it + 2);
+      fwd_product(acc, ring + (g % kFwdStages) * lay.stage, lay, T());
+      if (it + 1 < len) blend_store(it + 1);
+      if (it + 2 < len) gather(it + 2);
+      fwd_product_wait(acc, T());
+    }
+    q += len;
+
+    // the segment's tile
+    const int tile = u / items;
+    const long long n0 = (long long)(tile / ctiles) * kFwdRows;
+    const int rows = (int)min((long long)kFwdRows, n_pix - n0);
+    const bool first = u == begin;
+    u += len;
+    if (len < items) {
+      // a share of the tile: hand in the sums; the last share writes it
+      constexpr int kSlot = kAcc * kFwdThreads;
+      const long long slot = 2ll * blockIdx.x + (first ? 0 : 1);
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i)
+        __stcg(partial + slot * kSlot + i * kFwdThreads + tid, acc[i]);
+      const int g_lo = range_owner(tile * items, total, G);
+      const int g_hi = range_owner(tile * items + items - 1, total, G);
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) *last = atomicAdd(&arrivals[tile], 1) == g_hi - g_lo;
+      __syncthreads();
+      if (!*last) continue;
+      __threadfence();
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+      for (int g = g_lo; g <= g_hi; ++g) {
+        // block g ran the tile as its first segment unless its range began
+        // in an earlier tile
+        const long long s =
+            2ll * g + (range_start(g, total, G) / items == tile ? 0 : 1);
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i)
+          acc[i] += __ldcg(partial + s * kSlot + i * kFwdThreads + tid);
+      }
+      if (tid == 0) arrivals[tile] = 0;
+    }
+
+    __syncthreads();  // the ring becomes the output tile
+    T* const o_s = reinterpret_cast<T*>(ring);
+    stage_out(acc, o_s, lay.o_pitch);
+    __syncthreads();
+    if (vec_o) {
+      constexpr int segs = kFwdBN / kE;
+      for (int e = tid; e < rows * segs; e += kFwdThreads) {
+        const int r = e / segs;
+        const int n = (e - r * segs) * kE;
+        if (o0 + n < Cout)
+          *reinterpret_cast<uint4*>(out + (n0 + r) * Cout + o0 + n) =
+              *reinterpret_cast<const uint4*>(o_s + r * lay.o_pitch + n);
+      }
+    } else {
+      for (int e = tid; e < rows * kFwdBN; e += kFwdThreads) {
+        const int r = e / kFwdBN;
+        const int n = e - r * kFwdBN;
+        if (o0 + n < Cout)
+          out[(n0 + r) * Cout + o0 + n] = o_s[r * lay.o_pitch + n];
+      }
     }
   }
 }
@@ -633,9 +722,10 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <typename T, bool kSample, bool kMultiply>
+template <typename T>
 cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
-                       const void* wt, void* out, int H, int W, int Cin,
+                       const void* wt, void* out, void* partial,
+                       void* arrivals, int max_blocks, int H, int W, int Cin,
                        int cin_pad, int Ho, int Wo, int Cout, int Kw, int K,
                        int stride, int pad, int dil, long long n_pix,
                        int smem_bytes, cudaStream_t s) {
@@ -644,6 +734,11 @@ cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
   if (lay.bytes != smem_bytes || lay.bytes > kMaxSmemBytes)
     return cudaErrorInvalidValue;
   if (cin_pad != lay.chunks * lay.kc) return cudaErrorInvalidValue;
+  if (max_blocks < 1 || partial == nullptr || arrivals == nullptr)
+    return cudaErrorInvalidValue;
+  const long long units = (n_pix + kFwdRows - 1) / kFwdRows *
+                          ((Cout + kFwdBN - 1) / kFwdBN) * lay.chunks * K;
+  if (units > INT_MAX) return cudaErrorInvalidValue;  // the kernel's int32
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -664,22 +759,18 @@ cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err =
-      allow_max_smem(dcn_fwd_kernel<T, kSample, kMultiply>, smem_set);
+  const cudaError_t err = allow_max_smem(dcn_fwd_kernel<T>, smem_set);
   if (err != cudaSuccess) return err;
-  // the smallest shared-memory carveout that holds the block, so that the
-  // rest of the SM's 256 KB serves as L1 for the corner loads
-  err = cudaFuncSetAttribute(dcn_fwd_kernel<T, kSample, kMultiply>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (lay.bytes * 100 + kMaxSmemBytes - 1) / kMaxSmemBytes + 1);
-  if (err != cudaSuccess) return err;
+  // one wave: at most max_blocks blocks (one per SM; the caller's workspace
+  // holds two slots a block), each running at least kFwdMinItems items
+  const unsigned grid = (unsigned)std::max(
+      1ll, std::min((long long)max_blocks, units / kFwdMinItems));
   const bool vec_a = Cin % kE == 0 && aligned(x);
   const bool vec_o = Cout % kE == 0 && aligned(out);
-  const dim3 grid((unsigned)((n_pix + kFwdRows - 1) / kFwdRows),
-                  (unsigned)((Cout + kFwdBN - 1) / kFwdBN));
-  dcn_fwd_kernel<T, kSample, kMultiply><<<grid, kFwdThreads, lay.bytes, s>>>(
+  dcn_fwd_kernel<T><<<grid, kFwdThreads, lay.bytes, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(offset),
-      static_cast<const T*>(mask), map, static_cast<T*>(out), H, W, Cin,
+      static_cast<const T*>(mask), map, static_cast<T*>(out),
+      static_cast<float*>(partial), static_cast<int*>(arrivals), H, W, Cin,
       cin_pad, Ho, Wo, Cout, Kw, K, stride, pad, dil, n_pix, lay, vec_a,
       vec_o);
   return cudaGetLastError();
@@ -693,16 +784,18 @@ cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
 // cin_pad, a whole number of stages of input channels; out (B, Ho, Wo,
 // Cout); all in one dtype (0 f32, 1 bf16).  smem_bytes is the plan of
 // ops/deform_conv.py::dcn_fwd_plan; a plan that disagrees with this file's
-// layout is refused.  parts: 3 computes the convolution; 1 (the
-// sampling alone) and 2 (the product alone) are the diagnostic variants,
-// bf16 only, and their out is not the convolution.  Returns the
-// cudaError_t of the launch (0 on success).
+// layout is refused.  The grid is at most max_blocks blocks; partial (2 *
+// max_blocks * 128 * 256 floats) holds the sums of the tiles that blocks
+// share, and arrivals (one int32 per tile of 128 pixels x 256 channels)
+// must be 0 and is left 0.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int unibev_dcn_fwd(const void* x, const void* offset,
                               const void* mask, const void* wt, void* out,
+                              void* partial, void* arrivals, int max_blocks,
                               int B, int H, int W, int Cin, int cin_pad,
                               int Ho, int Wo, int Cout, int Kh, int Kw,
                               int stride, int pad, int dil, int smem_bytes,
-                              int parts, int dtype, void* stream) {
+                              int dtype, void* stream) {
   if (B < 0 || Ho < 0 || Wo < 0 || Kh < 1 || Kw < 1 || Cin < 1 || Cout < 1 ||
       stride < 1 || dil < 1)
     return cudaErrorInvalidValue;
@@ -711,23 +804,15 @@ extern "C" int unibev_dcn_fwd(const void* x, const void* offset,
   const long long n_pix = (long long)B * Ho * Wo;
   if (n_pix == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using BF = __nv_bfloat16;
-  if (parts == 3 && dtype == 0)
-    return launch_fwd<float, true, true>(x, offset, mask, wt, out, H, W, Cin,
-                                         cin_pad, Ho, Wo, Cout, Kw, K, stride,
-                                         pad, dil, n_pix, smem_bytes, s);
-  if (parts == 3 && dtype == 1)
-    return launch_fwd<BF, true, true>(x, offset, mask, wt, out, H, W, Cin,
-                                      cin_pad, Ho, Wo, Cout, Kw, K, stride,
-                                      pad, dil, n_pix, smem_bytes, s);
-  if (parts == 1 && dtype == 1)
-    return launch_fwd<BF, true, false>(x, offset, mask, wt, out, H, W, Cin,
-                                       cin_pad, Ho, Wo, Cout, Kw, K, stride,
-                                       pad, dil, n_pix, smem_bytes, s);
-  if (parts == 2 && dtype == 1)
-    return launch_fwd<BF, false, true>(x, offset, mask, wt, out, H, W, Cin,
-                                       cin_pad, Ho, Wo, Cout, Kw, K, stride,
-                                       pad, dil, n_pix, smem_bytes, s);
+  if (dtype == 0)
+    return launch_fwd<float>(x, offset, mask, wt, out, partial, arrivals,
+                             max_blocks, H, W, Cin, cin_pad, Ho, Wo, Cout, Kw,
+                             K, stride, pad, dil, n_pix, smem_bytes, s);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16>(x, offset, mask, wt, out, partial,
+                                     arrivals, max_blocks, H, W, Cin, cin_pad,
+                                     Ho, Wo, Cout, Kw, K, stride, pad, dil,
+                                     n_pix, smem_bytes, s);
   return cudaErrorInvalidValue;
 }
 

@@ -19,8 +19,7 @@ caller can show that a run went through the kernels: ``msda_fwd`` (K1),
 ``dcn_fwd`` (K2, the fused DCN forward), ``dcn_im2col`` (the columns of the
 DCN backward), ``msda_bwd`` (K3), ``dcn_bwd`` (K4), ``scatter_add_rows``
 (K5), ``sparse_nbr`` (K6), ``sparse_conv`` (K7), ``sparse_inv_nbr`` (K8),
-``sparse_conv_wgrad`` (K9); the diagnostic variants of ``dcn_fwd`` count
-under ``dcn_fwd_sample`` and ``dcn_fwd_multiply``.
+``sparse_conv_wgrad`` (K9).
 """
 
 from __future__ import annotations
@@ -51,10 +50,11 @@ _SIGNATURES = {
     # stream
     "unibev_msda_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
                         _P),
-    # x, offset, mask, wt, out, B, H, W, Cin, cin_pad, Ho, Wo, Cout, Kh, Kw,
-    # stride, pad, dil, smem_bytes, parts, dtype, stream
-    "unibev_dcn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, offset, mask, wt, out, partial, arrivals, max_blocks, B, H, W, Cin,
+    # cin_pad, Ho, Wo, Cout, Kh, Kw, stride, pad, dil, smem_bytes, dtype,
+    # stream
+    "unibev_dcn_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, offset, mask, cols, B, H, W, Cin, Ho, Wo, Kh, Kw, stride, pad, dil,
     # dtype, stream
     "unibev_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

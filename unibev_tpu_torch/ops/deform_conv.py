@@ -21,6 +21,7 @@ is mmcv's: ``offset[..., 2k] = dy_k``, ``offset[..., 2k+1] = dx_k``.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -46,10 +47,11 @@ MAX_SMEM_BYTES = 232448
 
 
 class DcnFwdPlan(NamedTuple):
-    """How ``dcn_fwd`` covers one layer: blocks of ``rows`` output pixels by
+    """How ``dcn_fwd`` covers one layer: tiles of ``rows`` output pixels by
     ``bn`` output channels (``channel_tiles`` of them across Cout, each
-    sampling the columns anew), ``warps`` warps, ``kc`` input channels per
-    stage (``chunks`` per tap), ``smem_bytes`` of dynamic shared memory."""
+    sampling the columns anew), ``warps`` warps a block, ``kc`` input
+    channels per stage (``chunks`` per tap), ``smem_bytes`` of dynamic
+    shared memory."""
     rows: int
     bn: int
     channel_tiles: int
@@ -64,17 +66,18 @@ def dcn_fwd_plan(cin: int, cout: int, taps: int = 9,
     """The launch plan of ``dcn_fwd`` for a layer of ``taps`` taps, ``cin``
     -> ``cout`` channels, in a dtype of ``itemsize`` bytes (2 bf16, 4 f32).
 
-    A block is 128 pixels by 256 output channels (16 warps; in bf16 four
+    A tile is 128 pixels by 256 output channels (16 warps; in bf16 four
     warpgroups of wgmma m64n128), so each column element is sampled once up
-    to Cout 256; a wider Cout takes more channel tiles.  A stage holds 128 bytes of
-    input channels per row (64 bf16, 32 f32).  The shared memory is the
-    layout of ``FwdLayout`` in ``csrc/deform_conv.cu`` (the launch refuses a
-    plan that disagrees): 1024 bytes of alignment slack, a ring of three
-    stages of the sampled columns (rows x 128 bytes) and the weight slice
-    (bn x 128 bytes), which the output tile (rows x bn, rows padded by 16
-    bytes) reuses, 64 bytes of mbarriers, then the geometry (4 f32 corner
-    weights and the int32 row of the first corner per pixel and tap).
-    """
+    to Cout 256; a wider Cout takes more channel tiles.  A stage holds 128
+    bytes of input channels per row (64 bf16, 32 f32).  The shared memory
+    is the layout of ``FwdLayout`` in ``csrc/deform_conv.cu`` (the launch
+    refuses a plan that disagrees): 1024 bytes of alignment slack, a ring
+    of three stages of the sampled columns (rows x 128 bytes) and the
+    weight slice (bn x 128 bytes), which the output tile (rows x bn, rows
+    padded by 16 bytes) reuses, 64 bytes of mbarriers and a flag, then the
+    geometry (4 f32 corner weights and the int32 row of the first corner
+    per pixel and tap).  The grid is one wave of blocks that share the
+    tiles' items evenly (``csrc/deform_conv.cu``)."""
     kc = DCN_FWD_ROW_BYTES // itemsize
     stage = (DCN_FWD_ROWS + DCN_FWD_BN) * DCN_FWD_ROW_BYTES
     out = DCN_FWD_ROWS * (DCN_FWD_BN + 16 // itemsize) * itemsize
@@ -223,13 +226,28 @@ def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
     return cols
 
 
-# dcn_fwd's C argument `parts`: the convolution, and the two diagnostic
-# variants of the bf16 kernel (the sampling alone, the product alone)
-_PARTS = {"all": 3, "sample": 1, "multiply": 2}
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per device: dcn_fwd's arrival counts, one int32 per tile, zero between
+# launches (the last block to finish a shared tile sets its count back);
+# launches that share them run one after another, as on the port's one
+# stream
+_ARRIVALS: dict = {}
+
+
+def _arrivals(device, tiles):
+    counts = _ARRIVALS.get(device)
+    if counts is None or counts.numel() < tiles:
+        counts = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[device] = counts
+    return counts
 
 
 def _dcn_fwd_cuda(x, offset, mask, weight, kernel_size, stride, padding,
-                  dilation, parts="all"):
+                  dilation):
     (B, H, W, Cin, Ho, Wo), code = _check(x, offset, mask, kernel_size,
                                           stride, padding, dilation)
     Kh, Kw = kernel_size
@@ -249,13 +267,20 @@ def _dcn_fwd_cuda(x, offset, mask, weight, kernel_size, stride, padding,
         wt = F.pad(wt.reshape(Cout, K, Cin), (0, cin_pad - Cin))
     wt = wt.contiguous()
     out = torch.empty((B, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
+    # at most one block per SM; two slots of f32 tile sums per block for the
+    # tiles that blocks share
+    blocks = _sm_count(x.device.index)
+    partial = torch.empty((2 * blocks, plan.rows * plan.bn),
+                          dtype=torch.float32, device=x.device)
+    tiles = -(-(B * Ho * Wo) // plan.rows) * plan.channel_tiles
     err = _build.lib().unibev_dcn_fwd(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wt.data_ptr(),
-        out.data_ptr(), B, H, W, Cin, cin_pad, Ho, Wo, Cout, Kh, Kw, stride,
-        padding, dilation, plan.smem_bytes, _PARTS[parts], code,
-        torch.cuda.current_stream().cuda_stream)
+        out.data_ptr(), partial.data_ptr(),
+        _arrivals(x.device, tiles).data_ptr(), blocks, B, H, W, Cin, cin_pad,
+        Ho, Wo, Cout, Kh, Kw, stride, padding, dilation, plan.smem_bytes,
+        code, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "dcn_fwd")
-    _build.launches["dcn_fwd" if parts == "all" else "dcn_fwd_" + parts] += 1
+    _build.launches["dcn_fwd"] += 1
     return out
 
 
@@ -271,15 +296,6 @@ def dcn_fwd(x, offset, mask, weight, kernel_size=(3, 3), stride=1, padding=1,
                                                  dilation)
     return _dcn_fwd_cuda(x, offset, mask, weight, tuple(kernel_size), stride,
                          padding, dilation)
-
-
-def dcn_fwd_part(x, offset, mask, weight, part) -> torch.Tensor:
-    """A diagnostic: the bf16 ``dcn_fwd`` kernel with one half dropped,
-    ``part`` "sample" (the sampling alone, no product) or "multiply" (the
-    product alone, no corner loads), 3x3 taps, stride 1, padding 1.  Its output is not the convolution; it exists to time which
-    half bounds the kernel (``chip_smoke.py`` phase 3).  Counted under
-    ``dcn_fwd_<part>``, never under ``dcn_fwd``."""
-    return _dcn_fwd_cuda(x, offset, mask, weight, (3, 3), 1, 1, 1, parts=part)
 
 
 def _dcn_bwd_cuda(x, offset, mask, d_cols, kernel_size, stride, padding,
