@@ -258,7 +258,7 @@ constexpr int kAcc = kFwdRows * kFwdBN / kFwdThreads;  // f32 sums a thread
 // output tile (kFwdRows x kFwdBN, row pitch o_pitch).  Then one mbarrier
 // per stage, which the stage's TMA weight copy completes, and at byte 32
 // the flag of the last share of a tile (64 bytes reserved), and the
-// geometry: K x 4 x kFwdRows mask-folded corner
+// geometry: K x kFwdRows x 4 mask-folded corner
 // weights, f32, 0 for a corner that reads nothing, and K x kFwdRows rows of
 // corner 0 in x viewed as (B * H * W, Cin), int32 (corner c adds (c / 2) *
 // W + c % 2).  ops/deform_conv.py::dcn_fwd_plan computes the same layout;
@@ -494,8 +494,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(ring + lay.bars);
   int* const last = reinterpret_cast<int*>(ring + lay.bars + 32);
-  float* geo_w = reinterpret_cast<float*>(ring + lay.geo);  // [K][4][rows]
-  int* geo_row = reinterpret_cast<int*>(ring + lay.geo + K * 4 * kFwdRows * 4);
+  float4* geo_w = reinterpret_cast<float4*>(ring + lay.geo);  // [K][rows]
+  int* geo_row = reinterpret_cast<int*>(ring + lay.geo + K * kFwdRows * 16);
   const int corner_step[4] = {0, 1, W, W + 1};
   const int tid = threadIdx.x;
   const int items = lay.chunks * K;
@@ -506,6 +506,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const int G = gridDim.x;
   const int begin = range_start(blockIdx.x, total, G);
   const int end = range_start(blockIdx.x + 1, total, G);
+  // item i of a tile is (Cin chunk i / K, tap i % K); the quotient without
+  // a division: (i + 1/2) / K lies at least 1/(2K) from an integer, far
+  // more than the float product's error for i < 2^22 (the launch checks)
+  const float inv_k = 1.f / K;
+  const auto chunk_of = [&](int i) { return (int)((i + 0.5f) * inv_k); };
 
   if (tid == 0) {
     for (int st = 0; st < kFwdStages; ++st) mbar_init(&full[st], 1);
@@ -527,29 +532,39 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     fence_proxy_async();
     __syncthreads();
     {
-      // the geometry of the tile's kFwdRows x K sample points
-      const long long n0 = (long long)(u / items / ctiles) * kFwdRows;
+      // the geometry of the tile's kFwdRows x K sample points, tap-major
+      // (as tap_at, in 32 bits: the launch checks B * H * W and n_pix)
+      const int n0 = u / items / ctiles * kFwdRows;
       const int rows = (int)min((long long)kFwdRows, n_pix - n0);
       for (int e = tid; e < kFwdRows * K; e += kFwdThreads) {
-        const int r = e / K;
-        const int k = e % K;
+        const int r = e % kFwdRows;
+        const int k = e / kFwdRows;
         float w[4] = {0.f, 0.f, 0.f, 0.f};
         int row = 0;
         if (r < rows) {
-          const Tap t = tap_at((n0 + r) * K + k, offset, mask, Ho, Wo, Kw, K,
-                               stride, pad, dil);
+          const int n = n0 + r;
+          const int wo = n % Wo;
+          const int ho = n / Wo % Ho;
+          const int b = n / Wo / Ho;
+          const int ky = k / Kw;
+          const int kx = k - ky * Kw;
+          const T* off = offset + ((long long)n * K + k) * 2;
+          const float sy = (float)(ho * stride - pad + ky * dil) +
+                           to_float(off[0]);
+          const float sx = (float)(wo * stride - pad + kx * dil) +
+                           to_float(off[1]);
+          const float m = to_float(mask[(long long)n * K + k]);
           Bilinear g;
-          if (bilinear_at(t.sx, t.sy, W, H, g)) {
+          if (bilinear_at(sx, sy, W, H, g)) {
             // corner 0's cell, outside the map when it is; a corner
             // outside weighs 0 and is not read
-            row = (int)(t.b * H * W + (long long)g.y0 * W + g.x0);
+            row = (b * H + g.y0) * W + g.x0;
 #pragma unroll
             for (int c = 0; c < 4; ++c)
-              if (g.in[c]) w[c] = g.w[c] * t.m;
+              if (g.in[c]) w[c] = g.w[c] * m;
           }
         }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) geo_w[(k * 4 + c) * kFwdRows + r] = w[c];
+        geo_w[k * kFwdRows + r] = make_float4(w[0], w[1], w[2], w[3]);
         geo_row[k * kFwdRows + r] = row;
       }
       __syncthreads();
@@ -563,7 +578,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     // The corner loads of item `it`, into registers: the corners that weigh
     // something (inside the map, of a point inside it, mask not 0).
     auto gather = [&](int it) {
-      const int chunk = (i0 + it) / K;
+      const int chunk = chunk_of(i0 + it);
       const int k = (i0 + it) - chunk * K;
       const int c0 = chunk * lay.kc;
 #pragma unroll
@@ -572,10 +587,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         const int r = e >> 3;
         const int ch = c0 + (e & 7) * kE;
         const int row = geo_row[k * kFwdRows + r];
+        const float4 g4 = geo_w[k * kFwdRows + r];
+        const float w[4] = {g4.x, g4.y, g4.z, g4.w};
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           corner[i][c] = make_uint4(0u, 0u, 0u, 0u);
-          if (geo_w[(k * 4 + c) * kFwdRows + r] != 0.f && ch < Cin)
+          if (w[c] != 0.f && ch < Cin)
             corner[i][c] = load_vec(
                 x + (long long)(row + corner_step[c]) * Cin + ch, Cin - ch,
                 vec_a);
@@ -584,15 +601,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     };
     // Blend item `it`'s corners into its A tile.
     auto blend_store = [&](int it) {
-      const int k = (i0 + it) % K;
+      const int k = (i0 + it) - chunk_of(i0 + it) * K;
       unsigned char* a_s = ring + ((q + it) % kFwdStages) * lay.stage;
 #pragma unroll
       for (int i = 0; i < kFwdVecs; ++i) {
         const int e = tid + i * kFwdThreads;
         const int r = e >> 3;
-        float w[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) w[c] = geo_w[(k * 4 + c) * kFwdRows + r];
+        const float4 g4 = geo_w[k * kFwdRows + r];
+        const float w[4] = {g4.x, g4.y, g4.z, g4.w};
         *reinterpret_cast<uint4*>(a_s + sw128(r, e & 7)) =
             blend<T>(corner[i], w);
       }
@@ -604,7 +620,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     auto issue_b = [&](int it) {
       if (it < len && tid == 0) {
         const int st = (q + it) % kFwdStages;
-        const int chunk = (i0 + it) / K;
+        const int chunk = chunk_of(i0 + it);
         const int k = (i0 + it) - chunk * K;
         mbar_expect_tx(&full[st], kFwdBN * kRowBytes);
         tma_load_2d(ring + st * lay.stage + lay.a_bytes, &wt_map,
@@ -738,7 +754,10 @@ cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
     return cudaErrorInvalidValue;
   const long long units = (n_pix + kFwdRows - 1) / kFwdRows *
                           ((Cout + kFwdBN - 1) / kFwdBN) * lay.chunks * K;
-  if (units > INT_MAX) return cudaErrorInvalidValue;  // the kernel's int32
+  // the kernel's int32 counters and pixel indices, and its division-free
+  // item split
+  if (units > INT_MAX || n_pix > INT_MAX || lay.chunks * K >= (1 << 22))
+    return cudaErrorInvalidValue;
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
