@@ -24,7 +24,7 @@ import torch
 import chip_smoke
 from unibev_tpu.config.config import Config
 from unibev_tpu_torch.models.backbones.resnet import DeformConv2d, ResNet
-from unibev_tpu_torch.ops.deform_conv import (DCN_FWD_ROWS, MAX_SMEM_BYTES,
+from unibev_tpu_torch.ops.deform_conv import (MAX_SMEM_BYTES,
                                               dcn_fwd_plan)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,16 +46,18 @@ def _dcn_layers(path):
 
 def _check_plan(cin, cout, itemsize):
     plan = dcn_fwd_plan(cin, cout, 9, itemsize)
-    assert plan.rows == DCN_FWD_ROWS and plan.warps == 16
-    assert plan.bn == 256
+    # the square tile, or the wide one exactly where it covers Cout alone
+    wide = 256 < cout <= 512
+    assert (plan.rows, plan.bn) == ((64, 512) if wide else (128, 256))
+    assert plan.warps == 16 and plan.rows * plan.bn == 64 * 32 * plan.warps
     assert plan.smem_bytes <= MAX_SMEM_BYTES
     assert plan.channel_tiles * plan.bn >= cout
-    if cout <= plan.bn:
+    if cout <= 512:
         assert plan.channel_tiles == 1        # each column sampled once
     assert plan.chunks * plan.kc >= cin > (plan.chunks - 1) * plan.kc
     assert plan.kc * itemsize == 128           # one swizzled 128-byte row
-    # a thread samples 2 16-byte vectors of an item's column tile
-    assert plan.rows * plan.kc * itemsize // 16 == 2 * 32 * plan.warps
+    # a thread samples whole 16-byte vectors of an item's column tile
+    assert plan.rows * plan.kc * itemsize // 16 % (32 * plan.warps) == 0
     return plan
 
 
@@ -68,21 +70,21 @@ def test_configs_count():
 def test_plan_fits_every_dcn_layer_of_the_configs(path):
     """ResNet-101 stages 3-4: 23 layers 256 -> 256 and 3 layers 512 -> 512,
     stride 1; in bf16 (the card's path) and f32 (its tests) each plan fits
-    the H100's shared memory with one 256-wide channel tile per 256
-    channels of Cout."""
+    the H100's shared memory with one channel tile: 128 x 256 at stage 3,
+    64 x 512 at stage 4."""
     layers = _dcn_layers(path)
     assert sorted(set(layers)) == [(256, 256, 1), (512, 512, 1)]
     assert [layers.count(s) for s in sorted(set(layers))] == [23, 3]
     for cin, cout, _ in set(layers):
         for itemsize in ITEMSIZES.values():
             plan = _check_plan(cin, cout, itemsize)
-            assert plan.bn == 256 and plan.channel_tiles == cout // 256
+            assert plan.bn == cout and plan.channel_tiles == 1
 
 
 # (Cin, Cout): the card tests' ragged widths, and a narrow Cin under the
 # flagship's Cout
 @pytest.mark.parametrize("cin,cout", [(40, 24), (5, 24), (40, 20), (5, 20),
-                                      (64, 256)])
+                                      (64, 256), (40, 300), (64, 512)])
 @pytest.mark.parametrize("dtype", list(ITEMSIZES))
 def test_plan_of_ragged_shapes(cin, cout, dtype):
     plan = _check_plan(cin, cout, ITEMSIZES[dtype])
@@ -90,11 +92,14 @@ def test_plan_of_ragged_shapes(cin, cout, dtype):
 
 
 def test_plan_of_the_flagship_stage3():
-    """The numbers ``fwd_layout`` gives for stage 3 in bf16: 64 channels per
+    """The numbers ``fwd_layout`` gives in bf16: at stage 3, 64 channels per
     stage, 1,024 bytes of alignment slack, three 49,152-byte stages, 64
-    bytes of mbarriers and a flag, 23,040 bytes of geometry."""
+    bytes of mbarriers and a flag, 23,040 bytes of geometry; at stage 4,
+    two 73,728-byte stages and 11,520 bytes of geometry; Cout 520 takes
+    three square tiles."""
     assert dcn_fwd_plan(256, 256, 9, 2) == (128, 256, 1, 16, 64, 4, 171584)
-    assert dcn_fwd_plan(512, 512, 9, 2).channel_tiles == 2
+    assert dcn_fwd_plan(512, 512, 9, 2) == (64, 512, 1, 16, 64, 8, 160064)
+    assert dcn_fwd_plan(64, 520, 9, 2)[:3] == (128, 256, 3)
 
 
 # The kernel's schedule (csrc/deform_conv.cu, dcn_fwd_kernel and launch_fwd),
@@ -142,8 +147,8 @@ def _reader_slots(t, tiles, items, G):
 
 
 # (tiles, items per tile, the most blocks): flagship stage 3 (272 tiles, 4
-# chunks x 9 taps, 132 SMs) and stage 4 (68 pixel tiles x 2 channel tiles,
-# 8 x 9), the card tests' shapes and a mma-fragment tile, odd counts
+# chunks x 9 taps, 132 SMs) and stage 4 (136 tiles of 64 pixels, 8 x 9),
+# the card tests' shapes and a mma-fragment tile, odd counts
 SCHEDULES = [(272, 36, 132), (136, 72, 132), (3, 9, 132), (2, 9, 132),
              (6, 18, 132), (1, 9, 132), (7, 5, 3), (5, 72, 66), (40, 36, 7)]
 
@@ -178,8 +183,8 @@ def test_schedule_covers_each_item_once(tiles, items, cap):
 
 def test_schedule_is_one_wave_at_the_flagship_sites():
     """Stage 3 and stage 4 each run 132 blocks of 74-75 items (a grid of
-    one block per tile took three waves of 36-item blocks at stage 3 and
-    two of 72-item blocks at stage 4)."""
+    one block per tile would take three waves of 36-item blocks at stage 3
+    and two of 72-item blocks at stage 4)."""
     for tiles, items, cap in ((272, 36, 132), (136, 72, 132)):
         G = _blocks(tiles * items, cap)
         sizes = {_start(g + 1, tiles * items, G) - _start(g, tiles * items, G)

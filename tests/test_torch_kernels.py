@@ -216,15 +216,16 @@ def test_dcn_fwd_is_deterministic(cuda_device, case):
     assert not deform_conv._ARRIVALS[x.device].any()
 
 
-def test_dcn_fwd_mma_fragments(cuda_device):
-    """``dcn_fwd``'s bf16 wgmma tile on exact products: offsets 0 and
+@pytest.mark.parametrize("Cout", [256, 512])
+def test_dcn_fwd_mma_fragments(cuda_device, Cout):
+    """``dcn_fwd``'s bf16 wgmma tiles on exact products: offsets 0 and
     a mask on the centre tap alone make the columns x itself.  Identity
     weights pass x through, a permutation of the columns moves each channel
     to its own output, one-hot pixels pass the weight rows through; 144
-    pixels, Cout 256 (the flagship's tile).  A wrong swizzle, descriptor
-    or accumulator layout misplaces values."""
+    pixels, Cout 256 (the square tile) and 512 (the wide one).  A wrong
+    swizzle, descriptor or accumulator layout misplaces values."""
     g = torch.Generator(device=cuda_device).manual_seed(6)
-    B, H, W, C, Cout = 1, 12, 12, 64, 256
+    B, H, W, C = 1, 12, 12, 64
     x = torch.randn(B, H, W, C, device=cuda_device, generator=g).bfloat16()
     off = torch.zeros(B, H, W, 18, device=cuda_device, dtype=torch.bfloat16)
     mask = torch.zeros(B, H, W, 9, device=cuda_device, dtype=torch.bfloat16)

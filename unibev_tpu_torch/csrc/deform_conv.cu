@@ -42,32 +42,35 @@
 // most of its time (chip_smoke.py phase 3, PERF.md): L2's rate is not the
 // limit.  The design keeps the columns in shared memory and overlaps the
 // gathers with the tensor cores:
-//   * a tile is 128 output pixels by 256 output channels, so every column
-//     element is sampled once up to Cout 256 (stage 3); stage 4 (Cout 512)
-//     takes two channel tiles and samples its columns twice;
+//   * a tile is 128 output pixels by 256 output channels (stage 3), or for
+//     256 < Cout <= 512 (stage 4) 64 pixels by 512 channels, so that every
+//     column element is sampled once up to Cout 512 (two 256-wide tiles
+//     sampled stage 4's columns twice, and took ~30% longer);
 //   * the grid is one wave, at most one block per SM, and the blocks share
 //     the layer's tiles x (Cin chunk, tap) items evenly; a tile that two
 //     blocks share is summed by both in f32 and finished by the last (see
 //     dcn_fwd_kernel).  A grid of one block per tile ran 3 waves where
 //     2.06 would do at stage 3, and 2 where 1.03 would do at stage 4;
-//   * 16 warps, 4 warpgroups 2 (rows) x 2 (columns) over the 128 x 256 tile,
-//     each a wgmma m64n128k16 into 64 f32 registers a thread, so that a
-//     thread samples two 16-byte vectors an item and 16 warps hide the
-//     gathers' latency;
-//   * for each tile it runs, the block computes the geometry of its 128 x K
-//     sample points once (bilinear_at, the geometry K4 shares), folds the
+//   * 16 warps, 4 warpgroups, 2 (rows) x 2 (columns) over the 128 x 256
+//     tile or 1 x 4 over the 64 x 512 one, each a wgmma m64n128k16 into 64
+//     f32 registers a thread; a thread samples two 16-byte vectors an item
+//     (one in the wide tile) and 16 warps hide the gathers' latency;
+//   * for each tile it runs, the block computes the geometry of its pixels'
+//     K sample points once (bilinear_at, the geometry K4 shares), folds the
 //     mask into the four corner weights and keeps them, with the row of the
 //     first corner, in shared memory;
 //   * it walks (Cin chunk of 64, tap) items.  For each it samples the A tile
-//     (128 pixels x 128 bytes of channels) into shared memory: each thread
+//     (the pixels x 128 bytes of channels) into shared memory: each thread
 //     loads the corners that weigh something as 16-byte vectors (8 bf16
 //     channels), blends them in f32 and stores 16 bytes of bf16 into a
 //     128-byte-swizzled row; points and corners outside the map give zeros;
-//   * the weight slice (256 output channels x 128 bytes, K-major: the
-//     wrapper hands over the weight transposed) comes by TMA with the same
-//     swizzle and completes the stage's mbarrier; the threads issue no copy;
-//   * a ring of three stages, one block barrier per item: the weights are
-//     copied two items ahead; while the tensor cores run item it
+//   * the weight slice (the tile's output channels x 128 bytes, K-major:
+//     the wrapper hands over the weight transposed) comes by TMA, 256 rows
+//     a copy, with the same swizzle and completes the stage's mbarrier; the
+//     threads issue no copy;
+//   * a ring of three stages (two in the wide tile, whose weight slice is
+//     twice the size), one block barrier per item: the weights are copied
+//     two items (one) ahead; while the tensor cores run item it
 //     (asynchronous wgmma, A and B read from shared memory through
 //     descriptors) the threads blend item it + 1's corners, loaded one
 //     iteration earlier, and issue item it + 2's loads;
@@ -240,26 +243,38 @@ unsigned blocks_for(long long n_warps) {
 
 // ---- dcn_fwd ---------------------------------------------------------------
 
-constexpr int kFwdRows = 128;     // output pixels per block
-constexpr int kFwdBN = 256;       // output channels per block
 constexpr int kFwdThreads = 512;  // 16 warps, 4 warpgroups
-constexpr int kFwdStages = 3;     // items in the shared-memory ring
-constexpr int kFwdVecs = 2;       // A-tile vectors a thread samples per item
 constexpr int kRowBytes = 128;    // a staged row: 64 bf16 or 32 f32 channels
 constexpr int kFwdMinItems = 4;   // items a block runs at the least
-constexpr int kAcc = kFwdRows * kFwdBN / kFwdThreads;  // f32 sums a thread
+constexpr int kBoxRows = 256;     // weight rows a TMA copy moves (its most)
+constexpr int kAcc = 64;          // f32 sums a thread: a tile's / threads
+
+// dcn_fwd's two tiles.  The square one, 128 output pixels by 256 output
+// channels in a ring of three items, covers Cout <= 256 with one channel
+// tile (wider Couts take several, each sampling the columns anew); the
+// wide one, 64 pixels by 512 channels in a ring of two (its weight slice is
+// twice the size), covers 256 < Cout <= 512 sampling each column once.
+template <bool kWide>
+struct FwdTile {
+  static constexpr int kRows = kWide ? 64 : 128;   // output pixels
+  static constexpr int kBN = kWide ? 512 : 256;    // output channels
+  static constexpr int kStages = kWide ? 2 : 3;    // items in the ring
+  static constexpr int kVecs = kRows * 8 / kFwdThreads;  // A vectors a
+                                                         // thread samples
+  static_assert(kRows * kBN == kAcc * kFwdThreads, "64 sums a thread");
+};
 
 // dcn_fwd's shared memory, byte offsets from its first 1024-byte boundary
 // (the swizzle pattern follows address bits; 1024 bytes of slack are
-// allocated for the alignment): a ring of kFwdStages stages, each the
-// sampled columns A (kFwdRows rows) followed by the item's weight rows B
-// (kFwdBN rows, one per output channel), every row 128 bytes of input
-// channels, 128-byte swizzled (sw128); after the loop the ring holds the
-// output tile (kFwdRows x kFwdBN, row pitch o_pitch).  Then one mbarrier
+// allocated for the alignment): a ring of kStages stages, each the sampled
+// columns A (kRows rows) followed by the item's weight rows B (kBN rows, one
+// per output channel), every row 128 bytes of input channels, 128-byte
+// swizzled (sw128); after the loop the ring holds the output tile (kRows x
+// kBN, row pitch o_pitch).  Then one mbarrier
 // per stage, which the stage's TMA weight copy completes, and at byte 32
 // the flag of the last share of a tile (64 bytes reserved), and the
-// geometry: K x kFwdRows x 4 mask-folded corner
-// weights, f32, 0 for a corner that reads nothing, and K x kFwdRows rows of
+// geometry: K x kRows x 4 mask-folded corner
+// weights, f32, 0 for a corner that reads nothing, and K x kRows rows of
 // corner 0 in x viewed as (B * H * W, Cin), int32 (corner c adds (c / 2) *
 // W + c % 2).  ops/deform_conv.py::dcn_fwd_plan computes the same layout;
 // the launch checks that the two agree.
@@ -274,19 +289,20 @@ struct FwdLayout {
   int bytes;    // in all, with the alignment slack
 };
 
-template <typename T>
+template <typename T, bool kWide>
 FwdLayout fwd_layout(int K, int Cin) {
+  using Tl = FwdTile<kWide>;
   FwdLayout l;
   l.kc = kRowBytes / (int)sizeof(T);
   l.chunks = (Cin + l.kc - 1) / l.kc;
-  l.a_bytes = kFwdRows * kRowBytes;
-  l.stage = l.a_bytes + kFwdBN * kRowBytes;
-  l.o_pitch = kFwdBN + 16 / (int)sizeof(T);
-  const int ring = kFwdStages * l.stage;
-  const int out_bytes = kFwdRows * l.o_pitch * (int)sizeof(T);
+  l.a_bytes = Tl::kRows * kRowBytes;
+  l.stage = l.a_bytes + Tl::kBN * kRowBytes;
+  l.o_pitch = Tl::kBN + 16 / (int)sizeof(T);
+  const int ring = Tl::kStages * l.stage;
+  const int out_bytes = Tl::kRows * l.o_pitch * (int)sizeof(T);
   l.bars = ring > out_bytes ? ring : out_bytes;
   l.geo = l.bars + 64;
-  l.bytes = 1024 + l.geo + K * kFwdRows * 20;
+  l.bytes = 1024 + l.geo + K * Tl::kRows * 20;
   return l;
 }
 
@@ -371,19 +387,30 @@ __device__ __forceinline__ uint4 blend<__nv_bfloat16>(const uint4 (&v)[4],
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-// bf16: issue the item's product on the tensor cores, asynchronously.  The
-// 4 warpgroups are 2 (rows) x 2 (columns): warpgroup g multiplies rows (g %
-// 2) * 64 .. + 64 of A by weight rows (output channels) (g / 2) * 128 .. +
-// 128, four wgmma m64n128k16 along the item's 64 channels; acc holds the
-// warpgroup's (64 x 128) f32 sums (the layout of wgmma_m64n128k16).
+// The warpgroup's rows of A and first output channel: the 4 warpgroups are
+// 2 (rows) x 2 (columns) over the square tile, 1 x 4 over the wide one.
+template <bool kWide>
+__device__ __forceinline__ int wg_row() {
+  return kWide ? 0 : (threadIdx.x >> 7 & 1) * 64;
+}
+
+template <bool kWide>
+__device__ __forceinline__ int wg_col() {
+  return (kWide ? threadIdx.x >> 7 : threadIdx.x >> 8) * 128;
+}
+
+// bf16: issue the item's product on the tensor cores, asynchronously: the
+// warpgroup multiplies its 64 rows of A by its 128 weight rows (output
+// channels), four wgmma m64n128k16 along the item's 64 channels; acc holds
+// the warpgroup's (64 x 128) f32 sums (the layout of wgmma_m64n128k16).
+template <bool kWide>
 __device__ __forceinline__ void fwd_product(float (&acc)[kAcc],
                                             const unsigned char* a_s,
                                             const FwdLayout& lay,
                                             __nv_bfloat16) {
-  const int g = threadIdx.x >> 7;
-  const unsigned long long da = sw128_desc(a_s + (g & 1) * 64 * kRowBytes);
+  const unsigned long long da = sw128_desc(a_s + wg_row<kWide>() * kRowBytes);
   const unsigned long long db =
-      sw128_desc(a_s + lay.a_bytes + (g >> 1) * 128 * kRowBytes);
+      sw128_desc(a_s + lay.a_bytes + wg_col<kWide>() * kRowBytes);
   fence_registers(acc);
   wgmma_fence();
 #pragma unroll
@@ -399,26 +426,35 @@ __device__ __forceinline__ void fwd_product_wait(float (&acc)[kAcc],
 }
 
 // float32: exact float32 products on CUDA cores (TF32 would not hold the
-// f32 tolerance); thread (tx, ty) owns rows ty + 32 i, i < 4, and columns
-// tx + 16 j, j < 16, acc[16 i + j].
+// f32 tolerance); thread (tx, ty) owns rows ty + kTY i, i < 4, and columns
+// tx + kTX j, j < 16, acc[16 i + j].
+template <bool kWide>
+struct FwdF32 {
+  static constexpr int kTY = FwdTile<kWide>::kRows / 4;
+  static constexpr int kTX = kFwdThreads / kTY;
+};
+
 __device__ __forceinline__ float sw_load(const unsigned char* tile, int r,
                                          int c) {
   return *reinterpret_cast<const float*>(tile + sw128(r, c >> 2) +
                                          (c & 3) * 4);
 }
 
+template <bool kWide>
 __device__ __forceinline__ void fwd_product(float (&acc)[kAcc],
                                             const unsigned char* a_s,
                                             const FwdLayout& lay, float) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  constexpr int kTY = FwdF32<kWide>::kTY;
+  constexpr int kTX = FwdF32<kWide>::kTX;
+  const int tx = threadIdx.x % kTX;
+  const int ty = threadIdx.x / kTX;
   const unsigned char* b_s = a_s + lay.a_bytes;
   for (int c = 0; c < lay.kc; ++c) {
     float a[4], b[16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = sw_load(a_s, ty + 32 * i, c);
+    for (int i = 0; i < 4; ++i) a[i] = sw_load(a_s, ty + kTY * i, c);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) b[j] = sw_load(b_s, tx + 16 * j, c);
+    for (int j = 0; j < 16; ++j) b[j] = sw_load(b_s, tx + kTX * j, c);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -430,14 +466,15 @@ __device__ __forceinline__ void fwd_product(float (&acc)[kAcc],
 __device__ __forceinline__ void fwd_product_wait(float (&)[kAcc], float) {}
 
 // The sums into the output tile in shared memory, as T.
+template <bool kWide>
 __device__ __forceinline__ void stage_out(const float (&acc)[kAcc],
                                           __nv_bfloat16* o_s, int o_pitch) {
-  const int g = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31;
-  const int r = (g & 1) * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int r =
+      wg_row<kWide>() + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const int n = (g >> 1) * 128 + j * 8 + 2 * (lane & 3);
+    const int n = wg_col<kWide>() + j * 8 + 2 * (lane & 3);
     *reinterpret_cast<__nv_bfloat162*>(o_s + r * o_pitch + n) =
         __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
     *reinterpret_cast<__nv_bfloat162*>(o_s + (r + 8) * o_pitch + n) =
@@ -445,15 +482,18 @@ __device__ __forceinline__ void stage_out(const float (&acc)[kAcc],
   }
 }
 
+template <bool kWide>
 __device__ __forceinline__ void stage_out(const float (&acc)[kAcc],
                                           float* o_s, int o_pitch) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  constexpr int kTY = FwdF32<kWide>::kTY;
+  constexpr int kTX = FwdF32<kWide>::kTX;
+  const int tx = threadIdx.x % kTX;
+  const int ty = threadIdx.x / kTX;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 16; ++j)
-      o_s[(ty + 32 * i) * o_pitch + tx + 16 * j] = acc[16 * i + j];
+      o_s[(ty + kTY * i) * o_pitch + tx + kTX * j] = acc[16 * i + j];
 }
 
 // Block b of G over `total` units takes units [range_start(b),
@@ -466,8 +506,8 @@ __device__ __forceinline__ int range_owner(int u, int total, int G) {
   return (int)(((long long)(u + 1) * G - 1) / total);
 }
 
-// The work of a layer is tiles x items: a tile is kFwdRows output pixels by
-// kFwdBN output channels, an item one (Cin chunk, tap) of it.  The grid is
+// The work of a layer is tiles x items: a tile is kRows output pixels by
+// kBN output channels, an item one (Cin chunk, tap) of it.  The grid is
 // one wave of G blocks, and block b runs the units [b * U / G, (b + 1) * U /
 // G) of the U = tiles x items units in order, tile-major; a stretch of one
 // tile's items is a segment.  A tile whose items more than one block runs
@@ -477,7 +517,7 @@ __device__ __forceinline__ int range_owner(int u, int total, int G) {
 // block order, writes the tile and sets the count back to 0 for the next
 // launch.  No block waits on another, so the schedule needs no
 // co-residency.
-template <typename T>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     dcn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
                    const T* __restrict__ mask,
@@ -487,6 +527,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                    int cin_pad, int Ho, int Wo, int Cout, int Kw, int K,
                    int stride, int pad, int dil, long long n_pix,
                    FwdLayout lay, bool vec_a, bool vec_o) {
+  using Tl = FwdTile<kWide>;
   constexpr int kE = 16 / sizeof(T);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* const ring =
@@ -495,14 +536,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       reinterpret_cast<unsigned long long*>(ring + lay.bars);
   int* const last = reinterpret_cast<int*>(ring + lay.bars + 32);
   float4* geo_w = reinterpret_cast<float4*>(ring + lay.geo);  // [K][rows]
-  int* geo_row = reinterpret_cast<int*>(ring + lay.geo + K * kFwdRows * 16);
+  int* geo_row = reinterpret_cast<int*>(ring + lay.geo + K * Tl::kRows * 16);
   const int corner_step[4] = {0, 1, W, W + 1};
   const int tid = threadIdx.x;
   const int items = lay.chunks * K;
-  const int ctiles = (Cout + kFwdBN - 1) / kFwdBN;
+  const int ctiles = (Cout + Tl::kBN - 1) / Tl::kBN;
   // the units (tiles x items; fewer than 2^31, the launch checks)
   const int total =
-      (int)((n_pix + kFwdRows - 1) / kFwdRows) * ctiles * items;
+      (int)((n_pix + Tl::kRows - 1) / Tl::kRows) * ctiles * items;
   const int G = gridDim.x;
   const int begin = range_start(blockIdx.x, total, G);
   const int end = range_start(blockIdx.x + 1, total, G);
@@ -513,11 +554,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const auto chunk_of = [&](int i) { return (int)((i + 0.5f) * inv_k); };
 
   if (tid == 0) {
-    for (int st = 0; st < kFwdStages; ++st) mbar_init(&full[st], 1);
+    for (int st = 0; st < Tl::kStages; ++st) mbar_init(&full[st], 1);
     fence_barrier_init();
   }
 
-  uint4 corner[kFwdVecs][4];
+  uint4 corner[Tl::kVecs][4];
   float acc[kAcc];
   int q = 0;  // items through the ring before this segment
   // The segments: unit u starts one, of tile u / items.  Only u, begin,
@@ -526,19 +567,19 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   for (int u = begin; u < end;) {
     const int i0 = u % items;
     const int len = min(items - i0, end - u);
-    const int o0 = (u / items % ctiles) * kFwdBN;
+    const int o0 = (u / items % ctiles) * Tl::kBN;
 
     // the previous segment's output tile and geometry are read no more
     fence_proxy_async();
     __syncthreads();
     {
-      // the geometry of the tile's kFwdRows x K sample points, tap-major
+      // the geometry of the tile's kRows x K sample points, tap-major
       // (as tap_at, in 32 bits: the launch checks B * H * W and n_pix)
-      const int n0 = u / items / ctiles * kFwdRows;
-      const int rows = (int)min((long long)kFwdRows, n_pix - n0);
-      for (int e = tid; e < kFwdRows * K; e += kFwdThreads) {
-        const int r = e % kFwdRows;
-        const int k = e / kFwdRows;
+      const int n0 = u / items / ctiles * Tl::kRows;
+      const int rows = (int)min((long long)Tl::kRows, n_pix - n0);
+      for (int e = tid; e < Tl::kRows * K; e += kFwdThreads) {
+        const int r = e % Tl::kRows;
+        const int k = e / Tl::kRows;
         float w[4] = {0.f, 0.f, 0.f, 0.f};
         int row = 0;
         if (r < rows) {
@@ -564,15 +605,15 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
               if (g.in[c]) w[c] = g.w[c] * m;
           }
         }
-        geo_w[k * kFwdRows + r] = make_float4(w[0], w[1], w[2], w[3]);
-        geo_row[k * kFwdRows + r] = row;
+        geo_w[k * Tl::kRows + r] = make_float4(w[0], w[1], w[2], w[3]);
+        geo_row[k * Tl::kRows + r] = row;
       }
       __syncthreads();
     }
 
     // Items are (Cin chunk, tap), chunk-major; segment item `it` is item
     // i0 + it of the tile and item q + it of the block's ring.  Thread tid
-    // samples the A-tile vectors e = tid + i * kFwdThreads, i < kFwdVecs:
+    // samples the A-tile vectors e = tid + i * kFwdThreads, i < kVecs:
     // row e / 8, channels (e % 8) * kE .. + kE of the chunk (8 threads a
     // row).
     // The corner loads of item `it`, into registers: the corners that weigh
@@ -582,12 +623,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       const int k = (i0 + it) - chunk * K;
       const int c0 = chunk * lay.kc;
 #pragma unroll
-      for (int i = 0; i < kFwdVecs; ++i) {
+      for (int i = 0; i < Tl::kVecs; ++i) {
         const int e = tid + i * kFwdThreads;
         const int r = e >> 3;
         const int ch = c0 + (e & 7) * kE;
-        const int row = geo_row[k * kFwdRows + r];
-        const float4 g4 = geo_w[k * kFwdRows + r];
+        const int row = geo_row[k * Tl::kRows + r];
+        const float4 g4 = geo_w[k * Tl::kRows + r];
         const float w[4] = {g4.x, g4.y, g4.z, g4.w};
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -602,54 +643,59 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     // Blend item `it`'s corners into its A tile.
     auto blend_store = [&](int it) {
       const int k = (i0 + it) - chunk_of(i0 + it) * K;
-      unsigned char* a_s = ring + ((q + it) % kFwdStages) * lay.stage;
+      unsigned char* a_s = ring + ((q + it) % Tl::kStages) * lay.stage;
 #pragma unroll
-      for (int i = 0; i < kFwdVecs; ++i) {
+      for (int i = 0; i < Tl::kVecs; ++i) {
         const int e = tid + i * kFwdThreads;
         const int r = e >> 3;
-        const float4 g4 = geo_w[k * kFwdRows + r];
+        const float4 g4 = geo_w[k * Tl::kRows + r];
         const float w[4] = {g4.x, g4.y, g4.z, g4.w};
         *reinterpret_cast<uint4*>(a_s + sw128(r, e & 7)) =
             blend<T>(corner[i], w);
       }
     };
     // Stage item `it`'s weight rows: for each of the block's output
-    // channels, the tap's chunk of input channels, one TMA copy of kFwdBN
+    // channels, the tap's chunk of input channels, TMA copies of kBoxRows
     // rows of 128 bytes (rows past Cout read as zeros), issued by one
     // thread.
     auto issue_b = [&](int it) {
       if (it < len && tid == 0) {
-        const int st = (q + it) % kFwdStages;
+        const int st = (q + it) % Tl::kStages;
         const int chunk = chunk_of(i0 + it);
         const int k = (i0 + it) - chunk * K;
-        mbar_expect_tx(&full[st], kFwdBN * kRowBytes);
-        tma_load_2d(ring + st * lay.stage + lay.a_bytes, &wt_map,
-                    k * cin_pad + chunk * lay.kc, o0, &full[st]);
+        mbar_expect_tx(&full[st], Tl::kBN * kRowBytes);
+#pragma unroll
+        for (int h = 0; h < Tl::kBN / kBoxRows; ++h)
+          tma_load_2d(ring + st * lay.stage + lay.a_bytes +
+                          h * kBoxRows * kRowBytes,
+                      &wt_map, k * cin_pad + chunk * lay.kc,
+                      o0 + h * kBoxRows, &full[st]);
       }
     };
 
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-    // A ring of kFwdStages items, one barrier per item: the barrier
-    // publishes item `it` (its weights copied by TMA two items ahead, their
+    // A ring of kStages items, one barrier per item: the barrier publishes
+    // item `it` (its weights copied by TMA kStages - 1 items ahead, their
     // arrival awaited on the stage's mbarrier; its columns sampled one item
-    // ahead) and frees the buffer item it + 2 then takes.  While the tensor
-    // cores run item `it`, the threads blend item it + 1's corners, loaded
-    // one iteration earlier, then issue all of item it + 2's corner loads,
-    // which fly across the rest of the product, the barrier and the next
-    // product's issue.
-    issue_b(0);
-    issue_b(1);
+    // ahead) and frees the buffer item it + kStages - 1 then takes.  While
+    // the tensor cores run item `it`, the threads blend item it + 1's
+    // corners, loaded one iteration earlier, then issue all of item it +
+    // 2's corner loads, which fly across the rest of the product, the
+    // barrier and the next product's issue.
+#pragma unroll
+    for (int it = 0; it < Tl::kStages - 1; ++it) issue_b(it);
     gather(0);
     blend_store(0);
     if (len > 1) gather(1);
     for (int it = 0; it < len; ++it) {
       const int g = q + it;
-      mbar_wait(&full[g % kFwdStages], (g / kFwdStages) & 1);
+      mbar_wait(&full[g % Tl::kStages], (g / Tl::kStages) & 1);
       fence_proxy_async();
       __syncthreads();
-      issue_b(it + 2);
-      fwd_product(acc, ring + (g % kFwdStages) * lay.stage, lay, T());
+      issue_b(it + Tl::kStages - 1);
+      fwd_product<kWide>(acc, ring + (g % Tl::kStages) * lay.stage, lay,
+                         T());
       if (it + 1 < len) blend_store(it + 1);
       if (it + 2 < len) gather(it + 2);
       fwd_product_wait(acc, T());
@@ -658,8 +704,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
     // the segment's tile
     const int tile = u / items;
-    const long long n0 = (long long)(tile / ctiles) * kFwdRows;
-    const int rows = (int)min((long long)kFwdRows, n_pix - n0);
+    const long long n0 = (long long)(tile / ctiles) * Tl::kRows;
+    const int rows = (int)min((long long)Tl::kRows, n_pix - n0);
     const bool first = u == begin;
     u += len;
     if (len < items) {
@@ -693,10 +739,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
     __syncthreads();  // the ring becomes the output tile
     T* const o_s = reinterpret_cast<T*>(ring);
-    stage_out(acc, o_s, lay.o_pitch);
+    stage_out<kWide>(acc, o_s, lay.o_pitch);
     __syncthreads();
     if (vec_o) {
-      constexpr int segs = kFwdBN / kE;
+      constexpr int segs = Tl::kBN / kE;
       for (int e = tid; e < rows * segs; e += kFwdThreads) {
         const int r = e / segs;
         const int n = (e - r * segs) * kE;
@@ -705,9 +751,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
               *reinterpret_cast<const uint4*>(o_s + r * lay.o_pitch + n);
       }
     } else {
-      for (int e = tid; e < rows * kFwdBN; e += kFwdThreads) {
-        const int r = e / kFwdBN;
-        const int n = e - r * kFwdBN;
+      for (int e = tid; e < rows * Tl::kBN; e += kFwdThreads) {
+        const int r = e / Tl::kBN;
+        const int n = e - r * Tl::kBN;
         if (o0 + n < Cout)
           out[(n0 + r) * Cout + o0 + n] = o_s[r * lay.o_pitch + n];
       }
@@ -738,22 +784,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <typename T>
+template <typename T, bool kWide>
 cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
                        const void* wt, void* out, void* partial,
                        void* arrivals, int max_blocks, int H, int W, int Cin,
                        int cin_pad, int Ho, int Wo, int Cout, int Kw, int K,
                        int stride, int pad, int dil, long long n_pix,
                        int smem_bytes, cudaStream_t s) {
+  using Tl = FwdTile<kWide>;
   constexpr int kE = 16 / sizeof(T);
-  const FwdLayout lay = fwd_layout<T>(K, Cin);
+  const FwdLayout lay = fwd_layout<T, kWide>(K, Cin);
   if (lay.bytes != smem_bytes || lay.bytes > kMaxSmemBytes)
     return cudaErrorInvalidValue;
   if (cin_pad != lay.chunks * lay.kc) return cudaErrorInvalidValue;
   if (max_blocks < 1 || partial == nullptr || arrivals == nullptr)
     return cudaErrorInvalidValue;
-  const long long units = (n_pix + kFwdRows - 1) / kFwdRows *
-                          ((Cout + kFwdBN - 1) / kFwdBN) * lay.chunks * K;
+  const long long units = (n_pix + Tl::kRows - 1) / Tl::kRows *
+                          ((Cout + Tl::kBN - 1) / Tl::kBN) * lay.chunks * K;
   // the kernel's int32 counters and pixel indices, and its division-free
   // item split
   if (units > INT_MAX || n_pix > INT_MAX || lay.chunks * K >= (1 << 22))
@@ -763,11 +810,11 @@ cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
   };
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr || !aligned(wt)) return cudaErrorInvalidValue;
-  // wt (Cout, K * cin_pad): boxes of kc channels (128 bytes) by kFwdBN rows
+  // wt (Cout, K * cin_pad): boxes of kc channels (128 bytes) by kBoxRows
   CUtensorMap map;
   const cuuint64_t dims[2] = {(cuuint64_t)K * cin_pad, (cuuint64_t)Cout};
   const cuuint64_t pitch[1] = {(cuuint64_t)K * cin_pad * sizeof(T)};
-  const cuuint32_t box[2] = {(cuuint32_t)lay.kc, (cuuint32_t)kFwdBN};
+  const cuuint32_t box[2] = {(cuuint32_t)lay.kc, (cuuint32_t)kBoxRows};
   const cuuint32_t unit[2] = {1, 1};
   if (encode(&map,
              sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
@@ -778,7 +825,7 @@ cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> smem_set{0};
-  const cudaError_t err = allow_max_smem(dcn_fwd_kernel<T>, smem_set);
+  const cudaError_t err = allow_max_smem(dcn_fwd_kernel<T, kWide>, smem_set);
   if (err != cudaSuccess) return err;
   // one wave: at most max_blocks blocks (one per SM; the caller's workspace
   // holds two slots a block), each running at least kFwdMinItems items
@@ -786,7 +833,7 @@ cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
       1ll, std::min((long long)max_blocks, units / kFwdMinItems));
   const bool vec_a = Cin % kE == 0 && aligned(x);
   const bool vec_o = Cout % kE == 0 && aligned(out);
-  dcn_fwd_kernel<T><<<grid, kFwdThreads, lay.bytes, s>>>(
+  dcn_fwd_kernel<T, kWide><<<grid, kFwdThreads, lay.bytes, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(offset),
       static_cast<const T*>(mask), map, static_cast<T*>(out),
       static_cast<float*>(partial), static_cast<int*>(arrivals), H, W, Cin,
@@ -823,15 +870,17 @@ extern "C" int unibev_dcn_fwd(const void* x, const void* offset,
   const long long n_pix = (long long)B * Ho * Wo;
   if (n_pix == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fwd<float>(x, offset, mask, wt, out, partial, arrivals,
-                             max_blocks, H, W, Cin, cin_pad, Ho, Wo, Cout, Kw,
-                             K, stride, pad, dil, n_pix, smem_bytes, s);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(x, offset, mask, wt, out, partial,
-                                     arrivals, max_blocks, H, W, Cin, cin_pad,
-                                     Ho, Wo, Cout, Kw, K, stride, pad, dil,
-                                     n_pix, smem_bytes, s);
+  // the wide tile where it covers Cout in one channel tile
+  const bool wide = Cout > FwdTile<false>::kBN && Cout <= FwdTile<true>::kBN;
+#define UNIBEV_DCN_FWD(T, WIDE)                                              \
+  return launch_fwd<T, WIDE>(x, offset, mask, wt, out, partial, arrivals,    \
+                             max_blocks, H, W, Cin, cin_pad, Ho, Wo, Cout,   \
+                             Kw, K, stride, pad, dil, n_pix, smem_bytes, s)
+  if (dtype == 0 && !wide) UNIBEV_DCN_FWD(float, false);
+  if (dtype == 0 && wide) UNIBEV_DCN_FWD(float, true);
+  if (dtype == 1 && !wide) UNIBEV_DCN_FWD(__nv_bfloat16, false);
+  if (dtype == 1 && wide) UNIBEV_DCN_FWD(__nv_bfloat16, true);
+#undef UNIBEV_DCN_FWD
   return cudaErrorInvalidValue;
 }
 

@@ -35,13 +35,13 @@ def _out_size(size, k, stride, padding, dilation):
     return (size + 2 * padding - dilation * (k - 1) - 1) // stride + 1
 
 
-# dcn_fwd's block: output pixels, output channels, threads (16 warps), the
-# items in its shared-memory ring and the bytes of a staged row; the most
-# dynamic shared memory a block may use on the H100 (227 KB)
-DCN_FWD_ROWS = 128
-DCN_FWD_BN = 256
+# dcn_fwd's square tile (output pixels, output channels, items in its
+# shared-memory ring) and its wide tile for 256 < Cout <= 512; threads (16
+# warps), the bytes of a staged row; the most dynamic shared memory a block
+# may use on the H100 (227 KB)
+DCN_FWD_TILE = (128, 256, 3)
+DCN_FWD_WIDE_TILE = (64, 512, 2)
 DCN_FWD_WARPS = 16
-DCN_FWD_STAGES = 3
 DCN_FWD_ROW_BYTES = 128
 MAX_SMEM_BYTES = 232448
 
@@ -66,25 +66,26 @@ def dcn_fwd_plan(cin: int, cout: int, taps: int = 9,
     """The launch plan of ``dcn_fwd`` for a layer of ``taps`` taps, ``cin``
     -> ``cout`` channels, in a dtype of ``itemsize`` bytes (2 bf16, 4 f32).
 
-    A tile is 128 pixels by 256 output channels (16 warps; in bf16 four
-    warpgroups of wgmma m64n128), so each column element is sampled once up
-    to Cout 256; a wider Cout takes more channel tiles.  A stage holds 128
-    bytes of input channels per row (64 bf16, 32 f32).  The shared memory
-    is the layout of ``FwdLayout`` in ``csrc/deform_conv.cu`` (the launch
-    refuses a plan that disagrees): 1024 bytes of alignment slack, a ring
-    of three stages of the sampled columns (rows x 128 bytes) and the
-    weight slice (bn x 128 bytes), which the output tile (rows x bn, rows
-    padded by 16 bytes) reuses, 64 bytes of mbarriers and a flag, then the
-    geometry (4 f32 corner weights and the int32 row of the first corner
-    per pixel and tap).  The grid is one wave of blocks that share the
-    tiles' items evenly (``csrc/deform_conv.cu``)."""
+    A tile is 128 pixels by 256 output channels in a ring of three items,
+    or, for 256 < Cout <= 512, 64 pixels by 512 channels in a ring of two
+    (16 warps; in bf16 four warpgroups of wgmma m64n128), so each column
+    element is sampled once up to Cout 512; a wider Cout takes more channel
+    tiles.  A stage holds 128 bytes of input channels per row (64 bf16, 32
+    f32).  The shared memory is the layout of ``FwdLayout`` in
+    ``csrc/deform_conv.cu`` (the launch refuses a plan that disagrees): 1024
+    bytes of alignment slack, the ring's stages of the sampled columns
+    (rows x 128 bytes) and the weight slice (bn x 128 bytes), which the
+    output tile (rows x bn, rows padded by 16 bytes) reuses, 64 bytes of
+    mbarriers and a flag, then the geometry (4 f32 corner weights and the
+    int32 row of the first corner per pixel and tap).  The grid is one wave
+    of blocks that share the tiles' items evenly (``csrc/deform_conv.cu``)."""
+    wide = DCN_FWD_TILE[1] < cout <= DCN_FWD_WIDE_TILE[1]
+    rows, bn, stages = DCN_FWD_WIDE_TILE if wide else DCN_FWD_TILE
     kc = DCN_FWD_ROW_BYTES // itemsize
-    stage = (DCN_FWD_ROWS + DCN_FWD_BN) * DCN_FWD_ROW_BYTES
-    out = DCN_FWD_ROWS * (DCN_FWD_BN + 16 // itemsize) * itemsize
-    smem = (1024 + max(DCN_FWD_STAGES * stage, out) + 64
-            + taps * DCN_FWD_ROWS * 20)
-    return DcnFwdPlan(rows=DCN_FWD_ROWS, bn=DCN_FWD_BN,
-                      channel_tiles=-(-cout // DCN_FWD_BN),
+    stage = (rows + bn) * DCN_FWD_ROW_BYTES
+    out = rows * (bn + 16 // itemsize) * itemsize
+    smem = 1024 + max(stages * stage, out) + 64 + taps * rows * 20
+    return DcnFwdPlan(rows=rows, bn=bn, channel_tiles=-(-cout // bn),
                       warps=DCN_FWD_WARPS, kc=kc, chunks=-(-cin // kc),
                       smem_bytes=smem)
 
