@@ -9,7 +9,8 @@ then, each phase printing one line (or a few) and raising on any failure:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
      kernel build time, and what ``nvcc -Xptxas -v`` reports for K1, K2
-     (dcn_fwd) and K7 (registers, static shared memory, stack, spills);
+     (dcn_fwd), K3, K4 and K7 (registers, static shared memory, stack,
+     spills);
   2. kernel K1 (MSDA) against its plain PyTorch version at the five
      flagship call shapes, in f32 (TF32 off) and bf16, with both times,
      their ratio and the access width each site takes;
@@ -33,9 +34,11 @@ then, each phase printing one line (or a few) and raising on any failure:
   6. a torch.profiler breakdown of one forward by kernel;
   7. the backward kernels against their plain versions (autograd through
      the plain forwards) at the flagship call sites, f32 (TF32 off) and
-     bf16, with both times: K3 msda_bwd and K4 dcn_bwd (each timed with the
-     K5 scatter-adds it ends in), and K5 scatter_add_rows alone on one chunk
-     of contribution rows per site;
+     bf16, with both times and each site's launch plan: K3 msda_bwd and K4
+     dcn_bwd (one launch a call, d_value / d_x added into their tables),
+     and K5 scatter_add_rows, which no path launches, alone on 128 MB of
+     bf16 contribution rows per site, with index_add_ beside it and K5 on
+     the same rows all zero (read, no atomic issued);
   8. one tiny camera-only train step on CUDA against the same step on the
      CPU: losses, gradients and the parameters after the step;
   9. the full-width flagship camera-only train step (float32 parameters,
@@ -77,15 +80,16 @@ then, each phase printing one line (or a few) and raising on any failure:
  18. the full-width flagship LC train step (float32 parameters, bf16
      autocast, modality dropout, GridMask and dropout on): launch counts of
      one step against the counts derived from the call sites (K6 8, K7 41,
-     K8 4, K9 21 and K1-K5 with the LiDAR MSDA sites), s/step (median of 10
+     K8 4, K9 21 and K1-K4 with the LiDAR MSDA sites), s/step (median of 10
      after 3 warm-ups) with the flags each step drew, peak memory, finite
      losses, SCA overflow on the camera-live steps, frozen parameters
      bit-identical, LiDAR running statistics moved;
  19. a torch.profiler breakdown of one LC train step by kernel.
 
 Each kernel's entry in the line before the last gives its launches on the
-path it serves (K1, K2, K6, K7: one LC predict; the im2col, K3-K5, K8, K9:
-one LC train step), its time summed over that path's call sites (CUDA events), its plain
+path it serves (K1, K2, K6, K7: one LC predict; the im2col, K3, K4, K8,
+K9: one LC train step; K5, on no path, 0), its time summed over that path's
+call sites (CUDA events; K5 over the row chunks of SCATTER_SITES), its plain
 version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes each call must move over 3.35 TB/s
 and its operations over 989 TFLOP/s, the H100 SXM's HBM3 and dense bf16
@@ -124,8 +128,7 @@ from unibev_tpu_torch.ops.deform_conv import (  # noqa: E402
 from unibev_tpu_torch.ops.msda import (cell_interior,  # noqa: E402
                                        ms_deform_attn, ms_deform_attn_backward,
                                        ms_deform_attn_reference)
-from unibev_tpu_torch.ops.scatter import (bwd_chunks,  # noqa: E402
-                                          scatter_add_rows,
+from unibev_tpu_torch.ops.scatter import (scatter_add_rows,  # noqa: E402
                                           scatter_add_rows_reference)
 from unibev_tpu_torch.ops.sparse_conv import (  # noqa: E402
     SparseGrid, build_table, downsample_with_table, gather_conv, sparse_conv,
@@ -142,8 +145,8 @@ from unibev_tpu_torch.parallel.train_state import (make_optimizer,  # noqa: E402
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 TINY_REL_TOL = 1e-3     # CPU vs CUDA through a depth-50 backbone, f32, TF32 off
 # Backwards: the same relative tolerances.  f32: float32 atomics sum the
-# contribution rows in no fixed order.  bf16: each contribution row is
-# rounded to bf16 before the float32 sum.  K5 alone: 1e-5 (atomic order).
+# d_value / d_x terms in no fixed order.  bf16: the inputs are bf16 and the
+# outputs rounded to bf16.  K5 alone: 1e-5 (atomic order).
 # d_loc and d_offset jump across cell edges, where the kernels and
 # grid_sample may round a position to different sides; they are compared at
 # points 1e-3 pixels or more inside a cell (cell_interior / tap_interior).
@@ -180,6 +183,21 @@ CHECK_LAUNCHES = True
 DCN_SITES = [
     ("stage3", 23, 6, 58, 100, 256, 256),
     ("stage4", 3, 6, 29, 50, 512, 512),
+]
+
+# K5 at the shapes of the contribution rows of each MSDA and DCN site, cut
+# into launches of at most 128 MB of bf16 rows as the JAX package chunks its
+# MSDA backward: (site, launches per LC train step, rows a launch, row
+# width, table rows).  K3 and K4 add into their tables themselves and no
+# path launches K5; its record sums these launches.
+SCATTER_SITES = [
+    ("tsa", 9, 1706752, 32, 320000),
+    ("camera_sca", 24, 1966080, 32, 69600),
+    ("decoder_ca", 6, 115200, 32, 320000),
+    ("pts_tsa", 9, 1706752, 32, 320000),
+    ("pts_sca", 18, 1706752, 32, 259200),
+    ("stage3", 138, 208800, 256, 34800),
+    ("stage4", 9, 104400, 512, 8700),
 ]
 
 
@@ -253,7 +271,8 @@ def ratio_line(label, rec):
           f"{rec['bound_ms']:.4f} ms", flush=True)
 
 
-def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "sparse_conv_kernel")):
+def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "msda_bwd", "dcn_bwd",
+                          "sparse_conv_kernel")):
     """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
     entry functions whose names hold one of ``kernels``: one dict each."""
     log = _build.BUILD_DIR / "nvcc.log"
@@ -511,17 +530,100 @@ def phase_flagship(iters=10):
 
 
 def phase_backward(gen):
-    print("phase 7: K3 msda_bwd, K4 dcn_bwd (with their K5 scatter-adds) and "
-          "K5 scatter_add_rows vs plain versions", flush=True)
+    # imported here: --compare also runs against checkouts that predate them
+    from unibev_tpu_torch.ops.deform_conv import dcn_bwd_plan
+    from unibev_tpu_torch.ops.msda import msda_bwd_plan
+    print("phase 7: K3 msda_bwd and K4 dcn_bwd (d_value / d_x added into "
+          "their tables) and K5 scatter_add_rows vs plain versions", flush=True)
     recs = {k: new_rec() for k in ("msda_bwd", "dcn_bwd", "scatter_add_rows")}
     recs["scatter_add_rows"]["library_ms"] = 0.0
+    for k in ("msda_bwd", "dcn_bwd"):
+        recs[k]["device_ms"] = 0.0
 
-    def record(kernel, site, calls, ms, plain, err, nbytes, ops):
-        bound = add_site(recs[kernel], site, calls, ms, plain, err, nbytes, ops)
-        print(f"  {kernel} {site} bf16: kernel {ms:.4f} ms, plain {plain:.4f} "
-              f"ms, bound {bound:.4f} ms (x{calls} per train step)", flush=True)
+    def record(kernel, site, calls, ms, plain, err, nbytes, ops, **extra):
+        bound = add_site(recs[kernel], site, calls, ms, plain, err, nbytes, ops,
+                         **extra)
+        dev = extra.get("device_ms")
+        if dev is not None:
+            recs[kernel]["device_ms"] += calls * dev
+        print(f"  {kernel} {site} bf16: kernel {ms:.4f} ms"
+              + ("" if dev is None else f" (device {dev:.4f} ms)")
+              + f", plain {plain:.4f} ms, bound {bound:.4f} ms (x{calls} per "
+              f"LC train step)", flush=True)
 
-    def scatter_site(site, calls, M, L, tr):
+    def one_launch(kernel, fn):
+        """``fn()``, which must launch ``kernel`` once and K5 never."""
+        before = dict(_build.launches)
+        out = fn()
+        torch.cuda.synchronize()
+        grew = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                if v != before.get(k, 0)}
+        if grew != {kernel: 1}:
+            raise AssertionError(f"one backward call launched {grew}")
+        return out
+
+    for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES + LIDAR_MSDA_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, attn = _msda_inputs(gen, B, V, Q, heads, D, levels, P,
+                                            dtype)
+            g = torch.randn(B, Q, heads * D, device="cuda", generator=gen).to(dtype)
+            got = one_launch("msda_bwd", lambda: ms_deform_attn_backward(
+                value, levels, loc, attn, g))
+            plain = _plain_backward(
+                lambda v, l, a: ms_deform_attn_reference(v, levels, l, a),
+                (value, loc, attn), g)
+            interior = cell_interior(loc, levels)
+            errs = [check(f"{name} {str(dtype)[6:]} {n}", a * m, b * m,
+                          BWD_REL_TOL[dtype])
+                    for n, a, b, m in zip(("d_value", "d_loc", "d_attn"), got,
+                                          plain(), (1, interior, 1))]
+            print(f"  ({int((~interior).sum())} of {interior.numel()} points "
+                  f"on a cell edge left out of d_loc)", flush=True)
+            if dtype is torch.bfloat16:
+                plan = msda_bwd_plan(B, V, Q, heads, D, 2, value.data_ptr(),
+                                     g.data_ptr())
+                print(f"  {name}: msda_bwd plan {plan._asdict()}", flush=True)
+                run = lambda: ms_deform_attn_backward(value, levels, loc, attn, g)  # noqa: E731
+                # value, loc, attn, g in; d_value, d_loc, d_attn out; three
+                # 4-corner x D products per point
+                pts = B * Q * heads * len(levels) * P
+                record("msda_bwd", name, calls, cuda_ms(run, 10),
+                       cuda_ms(plain, 3), max(errs),
+                       4 * B * V * heads * D + 20 * pts + 2 * B * Q * heads * D,
+                       24 * D * pts, device_ms=device_ms(run, 5),
+                       plan=plan._asdict())
+            del plain, got
+
+    for name, calls, B, H, W, Cin, _ in DCN_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, off, mask = _dcn_inputs(gen, B, H, W, Cin, dtype)
+            d_cols = torch.randn(B * H * W, 9 * Cin, device="cuda",
+                                 generator=gen).to(dtype)
+            got = one_launch("dcn_bwd", lambda: deform_im2col_backward(
+                x, off, mask, d_cols))
+            plain = _plain_backward(deform_im2col_reference, (x, off, mask),
+                                    d_cols)
+            interior = tap_interior(off)
+            errs = [check(f"{name} {str(dtype)[6:]} {n}", a * m, b * m,
+                          BWD_REL_TOL[dtype])
+                    for n, a, b, m in zip(("d_x", "d_offset", "d_mask"), got,
+                                          plain(), (1, interior, 1))]
+            print(f"  ({int((~interior).sum()) // 2} of {interior.numel() // 2} "
+                  f"taps on a cell edge left out of d_offset)", flush=True)
+            if dtype is torch.bfloat16:
+                plan = dcn_bwd_plan(B, H, W, Cin, H, W, 9, 2, x.data_ptr(),
+                                    d_cols.data_ptr())
+                print(f"  {name}: dcn_bwd plan {plan._asdict()}", flush=True)
+                run = lambda: deform_im2col_backward(x, off, mask, d_cols)  # noqa: E731
+                # x, offsets, mask, d_cols in; d_x, d_offset, d_mask out
+                pix = B * H * W
+                record("dcn_bwd", name, calls, cuda_ms(run, 10),
+                       cuda_ms(plain, 3), max(errs),
+                       2 * pix * (2 * Cin + 54 + 9 * Cin), 24 * pix * 9 * Cin,
+                       device_ms=device_ms(run, 5), plan=plan._asdict())
+            del plain, got
+
+    for site, calls, M, L, tr in SCATTER_SITES:
         idx = torch.randint(0, tr, (M,), device="cuda", generator=gen,
                             dtype=torch.int32)
         contrib = torch.randn(M, L, device="cuda", generator=gen).bfloat16()
@@ -534,70 +636,26 @@ def phase_backward(gen):
         idx64, contrib32 = idx.long(), contrib.float()
         lib = cuda_ms(lambda: table.index_add_(0, idx64, contrib32), 20)
         recs["scatter_add_rows"]["library_ms"] += calls * lib
+        # the same rows, all zero: K5 reads them and issues no atomic
+        zero = torch.zeros_like(contrib)
+        zero_ms = cuda_ms(lambda: scatter_add_rows(idx, zero, tr), 20)
+        recs["scatter_add_rows"]["zero_rows_ms"] = (
+            recs["scatter_add_rows"].get("zero_rows_ms", 0.0) + calls * zero_ms)
         record("scatter_add_rows", site, calls,
                cuda_ms(lambda: scatter_add_rows(idx, contrib, tr), 20),
                cuda_ms(lambda: scatter_add_rows_reference(idx, contrib, tr), 5),
-               err, 4 * M + 2 * M * L + 4 * tr * L, M * L)
-        recs["scatter_add_rows"]["sites"][site]["library_ms"] = lib
-        print(f"  index_add_ {site}: {lib:.4f} ms", flush=True)
-
-    for name, calls, B, V, Q, heads, D, levels, P in MSDA_SITES + LIDAR_MSDA_SITES:
-        for dtype in (torch.float32, torch.bfloat16):
-            value, loc, attn = _msda_inputs(gen, B, V, Q, heads, D, levels, P,
-                                            dtype)
-            g = torch.randn(B, Q, heads * D, device="cuda", generator=gen).to(dtype)
-            got = ms_deform_attn_backward(value, levels, loc, attn, g)
-            plain = _plain_backward(
-                lambda v, l, a: ms_deform_attn_reference(v, levels, l, a),
-                (value, loc, attn), g)
-            interior = cell_interior(loc, levels)
-            errs = [check(f"{name} {str(dtype)[6:]} {n}", a * m, b * m,
-                          BWD_REL_TOL[dtype])
-                    for n, a, b, m in zip(("d_value", "d_loc", "d_attn"), got,
-                                          plain(), (1, interior, 1))]
-            print(f"  ({int((~interior).sum())} of {interior.numel()} points "
-                  f"on a cell edge left out of d_loc)", flush=True)
-            if dtype is torch.bfloat16:
-                # value, loc, attn, g in; d_value, d_loc, d_attn out; three
-                # 4-corner x D products per point
-                pts = B * Q * heads * len(levels) * P
-                record("msda_bwd", name, calls,
-                       cuda_ms(lambda: ms_deform_attn_backward(value, levels, loc,
-                                                               attn, g), 10),
-                       cuda_ms(plain, 3), max(errs),
-                       4 * B * V * heads * D + 20 * pts + 2 * B * Q * heads * D,
-                       24 * D * pts)
-            del plain, got
-        chunk = bwd_chunks(B * Q, heads * len(levels) * P * 4 * D * 2)
-        scatter_site(name, calls * len(chunk), chunk[0][1] * heads * len(levels)
-                     * P * 4, D, B * V * heads)
-
-    for name, calls, B, H, W, Cin, _ in DCN_SITES:
-        for dtype in (torch.float32, torch.bfloat16):
-            x, off, mask = _dcn_inputs(gen, B, H, W, Cin, dtype)
-            d_cols = torch.randn(B * H * W, 9 * Cin, device="cuda",
-                                 generator=gen).to(dtype)
-            got = deform_im2col_backward(x, off, mask, d_cols)
-            plain = _plain_backward(deform_im2col_reference, (x, off, mask),
-                                    d_cols)
-            interior = tap_interior(off)
-            errs = [check(f"{name} {str(dtype)[6:]} {n}", a * m, b * m,
-                          BWD_REL_TOL[dtype])
-                    for n, a, b, m in zip(("d_x", "d_offset", "d_mask"), got,
-                                          plain(), (1, interior, 1))]
-            print(f"  ({int((~interior).sum()) // 2} of {interior.numel() // 2} "
-                  f"taps on a cell edge left out of d_offset)", flush=True)
-            if dtype is torch.bfloat16:
-                # x, offsets, mask, d_cols in; d_x, d_offset, d_mask out
-                pix = B * H * W
-                record("dcn_bwd", name, calls,
-                       cuda_ms(lambda: deform_im2col_backward(x, off, mask,
-                                                              d_cols), 10),
-                       cuda_ms(plain, 3), max(errs),
-                       2 * pix * (2 * Cin + 54 + 9 * Cin), 24 * pix * 9 * Cin)
-            del plain, got
-        chunk = bwd_chunks(B * H * W, 9 * 4 * Cin * 2)
-        scatter_site(name, calls * len(chunk), chunk[0][1] * 36, Cin, B * H * W)
+               err, 4 * M + 2 * M * L + 4 * tr * L, M * L, library_ms=lib,
+               zero_rows_ms=zero_ms)
+        print(f"  index_add_ {site}: {lib:.4f} ms; K5 on all-zero rows "
+              f"{zero_ms:.4f} ms", flush=True)
+        del idx, contrib, zero, table, idx64, contrib32
+    for k in ("msda_bwd", "dcn_bwd"):
+        ratio_line(f"{k} over the launches of one LC train step", recs[k])
+        print(f"  {k} device time over the launches of one LC train step: "
+              f"{recs[k]['device_ms']:.4f} ms", flush=True)
+    ratio_line("scatter_add_rows over SCATTER_SITES", recs["scatter_add_rows"])
+    print(f"  scatter_add_rows on all-zero rows over SCATTER_SITES: "
+          f"{recs['scatter_add_rows']['zero_rows_ms']:.4f} ms", flush=True)
     torch.cuda.empty_cache()
     return recs
 
@@ -632,24 +690,19 @@ def expected_predict_launches(camera=True, lidar=True):
 
 def expected_train_launches(lidar=False):
     """Kernel launches of one flagship train step, C or (``lidar``) LC, from
-    the call sites: K1 once per MSDA call; K2 (dcn_fwd) once per DCN call
-    and once more in the backbone's checkpoint recompute; the im2col once
-    per DCN backward (the columns for d_weight); K3 and K4 once per chunk of
-    their call's contribution rows (bf16, ops/scatter.py::bwd_chunks); K5
-    once after each K3 or K4 launch.  LC adds the LiDAR encoder's MSDA
+    the call sites: K1 and K3 once per MSDA call; K2 (dcn_fwd) once per DCN
+    call and once more in the backbone's checkpoint recompute; the im2col
+    (the columns for d_weight) and K4 once per DCN backward; no K5 (K3 and
+    K4 add into their tables themselves).  LC adds the LiDAR encoder's MSDA
     sites and the sparse encoder: one K6 rulebook per resolution and per
     strided conv, K7 once per conv forward and once per conv but conv_input
     backward (d_feats; the voxel features need none), K8 once per strided
     conv, K9 once per conv."""
     sites = MSDA_SITES + (LIDAR_MSDA_SITES if lidar else [])
-    msda_bwd = sum(calls * len(bwd_chunks(B * Q, heads * len(lv) * P * 4 * D * 2))
-                   for _, calls, B, _, Q, heads, D, lv, P in sites)
-    dcn_bwd = sum(calls * len(bwd_chunks(B * H * W, 9 * 4 * Cin * 2))
-                  for _, calls, B, H, W, Cin, _ in DCN_SITES)
+    msda = sum(s[1] for s in sites)
     dcn = sum(s[1] for s in DCN_SITES)
-    out = dict(msda_fwd=sum(s[1] for s in sites), msda_bwd=msda_bwd,
-               dcn_fwd=2 * dcn, dcn_im2col=dcn, dcn_bwd=dcn_bwd,
-               scatter_add_rows=msda_bwd + dcn_bwd)
+    out = dict(msda_fwd=msda, msda_bwd=msda, dcn_fwd=2 * dcn, dcn_im2col=dcn,
+               dcn_bwd=dcn)
     if lidar:
         nbr, convs, strided = _sparse_launches()
         out.update(sparse_nbr=nbr, sparse_conv=2 * convs - 1,
@@ -708,7 +761,7 @@ def phase_tiny_train(lidar=False):
         metrics.append(train_step(model, opt, sched, b))
         torch.cuda.synchronize()
     launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
-    need = {"msda_bwd", "dcn_bwd", "scatter_add_rows"}
+    need = {"msda_bwd", "dcn_bwd"}
     if lidar:
         need |= {"sparse_nbr", "sparse_conv", "sparse_inv_nbr",
                  "sparse_conv_wgrad"}
@@ -837,7 +890,8 @@ def phase_flagship_train(iters=10, lidar=False):
                frozen_params=len(frozen), frozen_unchanged=still,
                lidar_stats=len(stats), lidar_stats_moved=len(moved))
     print(f"  {s_step:.4f} s/step (median of {iters}; min {min(times):.4f}, "
-          f"max {max(times):.4f}); peak {peak / 2 ** 30:.2f} GiB; loss "
+          f"max {max(times):.4f}); peak {peak / 2 ** 30:.2f} GiB ({peak} "
+          f"bytes); loss "
           f"{values['loss']:.4f} grad_norm {values['grad_norm']:.4f}; "
           f"sca_overflow {overflow}; {len(frozen)} frozen parameters "
           f"unchanged {still}; LiDAR running statistics moved {len(moved)} of "
@@ -1275,7 +1329,13 @@ def phase_profile_lidar(model, lc_batch, l_batch, lc_ms, l_ms):
 def phase_profile_train(model, opt, sched, batch, gen, wall_ms, lidar=False):
     print(f"phase {19 if lidar else 10}: torch.profiler breakdown of one "
           f"{'LC' if lidar else 'C'} train step (device kernels)", flush=True)
-    return _profile(lambda: train_step(model, opt, sched, batch, gen), wall_ms)
+    rec = _profile(lambda: train_step(model, opt, sched, batch, gen), wall_ms)
+    cats = ("K3 msda_bwd", "K4 dcn_bwd", "K5 scatter_add_rows")
+    rec["sampling_backwards_ms"] = sum(rec["by_category"].get(c, 0.0)
+                                       for c in cats)
+    print(f"  K3 + K4 + K5: {rec['sampling_backwards_ms']:.3f} ms of device "
+          f"time", flush=True)
+    return rec
 
 
 def compare_only():
@@ -1386,7 +1446,8 @@ def main(argv):
                      lc_steps["dcn_bwd"], bwd["dcn_bwd"]),
         kernel_entry("scatter_add_rows", "unibev_tpu_torch/csrc/scatter.cu",
                      "unibev_tpu/ops/scatter_pallas.py:60",
-                     lc_steps["scatter_add_rows"], bwd["scatter_add_rows"],
+                     lc_steps.get("scatter_add_rows", 0),
+                     bwd["scatter_add_rows"],
                      library_ms=bwd["scatter_add_rows"]["library_ms"]),
         kernel_entry("sparse_nbr", sparse_cu, "unibev_tpu/ops/sparse_conv.py:170",
                      lc["launches"]["sparse_nbr"], k6),

@@ -9,10 +9,10 @@ installed::
 Tolerances are relative to max |plain| (at least 1): f32 1e-4 for the
 DCN columns and the fused DCN forward ``dcn_fwd``, 1e-5 for MSDA (the same terms summed in another
 order, TF32 off); bf16 2^-6 (outputs rounded to bf16, relative 2^-8, with
-margin).  The backwards (K3, K4, each followed by the scatter-add K5) sum
-their contributions with float32 atomics in no fixed order: f32 1e-4, bf16
-2^-6 (each contribution row is rounded to bf16 before the sum).  The chunk
-budget is shrunk so that every backward runs several chunks.  d_loc and
+margin).  The backwards (K3, K4, one launch a call) add d_value / d_x into
+float32 tables with vector atomics in no fixed order: f32 1e-4, bf16 2^-6
+(bf16 inputs, outputs rounded to bf16).  The scatter-add K5, which no path
+launches, is held alone at 1e-5.  d_loc and
 d_offset jump across cell edges, where the kernels and grid_sample may round
 a position to different sides: they are compared at points 1e-3 pixels or
 more inside a cell (``cell_interior`` / ``tap_interior``).  The sparse-conv
@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from torch_port_utils import cuda_device  # noqa: F401
-from unibev_tpu_torch.ops import _build, deform_conv, scatter
+from unibev_tpu_torch.ops import _build, deform_conv
 from unibev_tpu_torch.ops.deform_conv import (
     dcn_fwd, deform_im2col, deform_im2col_backward,
     deform_im2col_backward_reference, deform_im2col_reference,
@@ -58,6 +58,12 @@ def _no_tf32():
 def _close(got, want, rel):
     tol = rel * max(1.0, want.float().abs().max().item())
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _launched_since(before):
+    """{kernel: launches} counted since the snapshot ``before``."""
+    return {k: v - before.get(k, 0) for k, v in _build.launches.items()
+            if v != before.get(k, 0)}
 
 
 def _msda_inputs(device, dtype, levels, P, B=2, Q=300, heads=8, D=32, seed=0):
@@ -266,16 +272,14 @@ def test_scatter_kernel_matches_plain(cuda_device, dtype):
                                       (((200, 200),), 4)], ids=["sca", "L2", "bev"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_msda_backward_kernel_matches_plain(cuda_device, monkeypatch, levels,
-                                            P, dtype):
-    monkeypatch.setattr(scatter, "BWD_CHUNK_BYTES", 1e6)
+def test_msda_backward_kernel_matches_plain(cuda_device, levels, P, dtype):
     value, loc, attn = _msda_inputs(cuda_device, dtype, levels, P)
     loc[0, 0, 0, 0, 0] = float("nan")          # samples nothing, gets no grad
     g = torch.randn(2, 300, 8 * 32, device=cuda_device).to(dtype)
-    before = _build.launches["msda_bwd"]
+    before = dict(_build.launches)
     got = ms_deform_attn_backward(value, levels, loc, attn, g)
     torch.cuda.synchronize()
-    assert _build.launches["msda_bwd"] > before + 1      # several chunks
+    assert _launched_since(before) == {"msda_bwd": 1}     # one launch a call
     assert got[1][0, 0, 0, 0, 0].abs().sum() == 0 and got[2][0, 0, 0, 0, 0] == 0
     loc[0, 0, 0, 0, 0] = 5.0                   # as far out: the plain version's
     want = ms_deform_attn_backward_reference(value, levels, loc, attn, g)
@@ -289,16 +293,14 @@ def test_msda_backward_kernel_matches_plain(cuda_device, monkeypatch, levels,
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_dcn_backward_kernel_matches_plain(cuda_device, monkeypatch, stride,
-                                           dtype):
-    monkeypatch.setattr(scatter, "BWD_CHUNK_BYTES", 2e5)
+def test_dcn_backward_kernel_matches_plain(cuda_device, stride, dtype):
     x, off, mask, _ = _dcn_inputs(cuda_device, dtype, stride=stride)
     d_cols = torch.randn(deform_im2col_reference(x, off, mask, stride=stride).shape,
                          device=cuda_device).to(dtype)
-    before = _build.launches["dcn_bwd"]
+    before = dict(_build.launches)
     got = deform_im2col_backward(x, off, mask, d_cols, stride=stride)
     torch.cuda.synchronize()
-    assert _build.launches["dcn_bwd"] > before + 1       # several chunks
+    assert _launched_since(before) == {"dcn_bwd": 1}      # one launch a call
     want = deform_im2col_backward_reference(x, off, mask, d_cols, stride=stride)
     masks = (1, tap_interior(off, stride=stride), 1)
     for a, b, m in zip(got, want, masks):
@@ -306,10 +308,60 @@ def test_dcn_backward_kernel_matches_plain(cuda_device, monkeypatch, stride,
         _close(a * m, b * m, BWD_REL[dtype])
 
 
+def _backward_case(op, device, dtype):
+    """(kernel call, plain call, the input's leading batch) of one backward
+    op on small inputs: MSDA on a 29 x 50 map (K3) or a stride-1 DCN (K4)."""
+    if op == "msda":
+        levels = ((29, 50),)
+        value, loc, attn = _msda_inputs(device, dtype, levels, 8)
+        g = torch.randn(2, 300, 8 * 32, device=device).to(dtype)
+        return ((value, loc, attn, g),
+                lambda v, l, a, gr: ms_deform_attn_backward(v, levels, l, a, gr),
+                lambda v, l, a, gr: ms_deform_attn_backward_reference(
+                    v, levels, l, a, gr),
+                lambda l: cell_interior(l, levels))
+    x, off, mask, _ = _dcn_inputs(device, dtype, stride=1)
+    d_cols = torch.randn(2 * 11 * 13, 9 * 40, device=device).to(dtype)
+    return ((x, off, mask, d_cols), deform_im2col_backward,
+            deform_im2col_backward_reference, tap_interior)
+
+
+@pytest.mark.parametrize("op", ["msda", "dcn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_of_points_wholly_outside_the_map(cuda_device, op, dtype):
+    """Every point (tap) of batch element 1 lies far outside the map: its
+    d_value (d_x) rows stay exactly zero, its d_loc (d_offset) and d_attn
+    (d_mask) are zero and finite; element 0 matches the plain version."""
+    inputs, kernel, plain, interior = _backward_case(op, cuda_device, dtype)
+    where = inputs[1]
+    where[1] = 7.0 if op == "msda" else 500.0   # loc or offset, element 1
+    got = kernel(*inputs)
+    torch.cuda.synchronize()
+    want = plain(*inputs)
+    masks = (1, interior(where), 1)
+    for a, b, m in zip(got, want, masks):
+        assert torch.isfinite(a).all()
+        assert (a[1] == 0).all()
+        _close(a * m, b * m, BWD_REL[dtype])
+
+
+@pytest.mark.parametrize("op", ["msda", "dcn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_of_a_zero_grad(cuda_device, op, dtype):
+    """A zero grad_out (d_cols) adds nothing: the table, and so d_value
+    (d_x), and the other two gradients are all zeros."""
+    inputs, kernel, _, _ = _backward_case(op, cuda_device, dtype)
+    inputs = (*inputs[:3], torch.zeros_like(inputs[3]))
+    for a, t in zip(kernel(*inputs), inputs):
+        assert a.shape == t.shape and (a == 0).all()
+
+
 def test_autograd_goes_through_the_kernels(cuda_device):
-    """Gradients of the ops on CUDA tensors (K1/K3/K5, and dcn_fwd with the
-    im2col/K4/K5 backward) against autograd through the plain versions,
-    f32."""
+    """Gradients of the ops on CUDA tensors (K1/K3, and dcn_fwd with the
+    im2col/K4 backward) against autograd through the plain versions, f32;
+    no row scatter-add K5."""
     value, loc, attn = _msda_inputs(cuda_device, torch.float32, ((29, 50),), 8)
     x, off, mask, w = _dcn_inputs(cuda_device, torch.float32, stride=1)
     cases = [(ms_deform_attn, ms_deform_attn_reference, (value, loc, attn),
@@ -332,22 +384,20 @@ def test_autograd_goes_through_the_kernels(cuda_device):
             _close(a * m, b * m, 1e-4)
     torch.cuda.synchronize()
     after = dict(_build.launches)
-    for k in ("msda_fwd", "msda_bwd", "dcn_fwd", "dcn_im2col", "dcn_bwd",
-              "scatter_add_rows"):
+    for k in ("msda_fwd", "msda_bwd", "dcn_fwd", "dcn_im2col", "dcn_bwd"):
         assert after.get(k, 0) > before.get(k, 0), k
+    assert after.get("scatter_add_rows", 0) == before.get("scatter_add_rows", 0)
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2 ** -6)],
                          ids=["f32", "bf16"])
-def test_dcn_autograd_launches_fwd_then_im2col(cuda_device, monkeypatch, dtype,
-                                               rel):
+def test_dcn_autograd_launches_fwd_then_im2col(cuda_device, dtype, rel):
     """``modulated_deform_conv2d`` on CUDA: one ``dcn_fwd`` launch in the
     forward and no im2col; one ``dcn_im2col`` launch in the backward, which
     rebuilds the columns for d_weight.  d_x, d_offset (on interior taps),
     d_mask and d_weight against autograd through the plain version in
     float32 on the same values."""
-    monkeypatch.setattr(scatter, "BWD_CHUNK_BYTES", 2e5)
     x, off, mask, w = _dcn_inputs(cuda_device, dtype, stride=1)
     leaves = [t.detach().clone().requires_grad_() for t in (x, off, mask, w)]
     g = torch.randn(2, 11, 13, 24, device=cuda_device).to(dtype)
@@ -362,7 +412,7 @@ def test_dcn_autograd_launches_fwd_then_im2col(cuda_device, monkeypatch, dtype,
     after = dict(_build.launches)
     assert after.get("dcn_im2col", 0) == mid.get("dcn_im2col", 0) + 1
     assert after.get("dcn_fwd", 0) == mid.get("dcn_fwd", 0)
-    assert after.get("dcn_bwd", 0) > mid.get("dcn_bwd", 0)
+    assert after.get("dcn_bwd", 0) == mid.get("dcn_bwd", 0) + 1
     plain = [t.detach().float().requires_grad_() for t in (x, off, mask, w)]
     want = torch.autograd.grad(modulated_deform_conv2d_reference(*plain), plain,
                                g.float())

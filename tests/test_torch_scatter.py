@@ -22,8 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from unibev_tpu.ops.scatter_pallas import scatter_add_rows as pallas_scatter
 
 from torch_port_utils import t
-from unibev_tpu_torch.ops import scatter
-from unibev_tpu_torch.ops.scatter import (bwd_chunks, scatter_add_rows,
+from unibev_tpu_torch.ops.scatter import (scatter_add_rows,
                                           scatter_add_rows_reference)
 
 
@@ -82,20 +81,3 @@ def test_chunks_accumulate_into_one_table():
     np.testing.assert_allclose(
         table.numpy(), scatter_add_rows_reference(t(idx), t(contrib), tr).numpy(),
         atol=1e-5, rtol=0)
-
-
-@pytest.mark.parametrize("n_items,bytes_per_item,budget", [
-    (40000, 8192, 128e6), (61440, 16384, 128e6), (900, 8192, 128e6),
-    (34800, 18432, 128e6), (7, 100, 250), (0, 8, 64)])
-def test_bwd_chunks_cover_in_order_within_budget(monkeypatch, n_items,
-                                                 bytes_per_item, budget):
-    monkeypatch.setattr(scatter, "BWD_CHUNK_BYTES", budget)
-    chunks = bwd_chunks(n_items, bytes_per_item)
-    starts = [s for s, _ in chunks]
-    assert starts == sorted(starts) and sum(n for _, n in chunks) == n_items
-    assert all(s + n == s2 for (s, n), s2 in zip(chunks, starts[1:]))
-    assert all(n * bytes_per_item <= max(budget, bytes_per_item)
-               for _, n in chunks)
-    if chunks:                   # near-equal: sizes differ by < the count
-        sizes = [n for _, n in chunks]
-        assert max(sizes) - min(sizes) < len(sizes)

@@ -1,5 +1,5 @@
 // Device helpers shared by the port's sampling kernels: dtype conversions,
-// the bilinear geometry of one sample point, and a warp sum.
+// vector loads, the bilinear geometry of one sample point, and lane sums.
 //
 // The geometry is the one the forward kernels and their backwards must agree
 // on exactly: a point counts only when it lies in (-1, W) x (-1, H) (this
@@ -30,6 +30,44 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned;
+};
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
+};
+
+// VEC consecutive channels of T, moved as one 16-, 8-, 4- or 2-byte access.
+template <typename T, int VEC>
+struct Chunk {
+  using Raw = typename RawOf<VEC * (int)sizeof(T)>::type;
+  Raw raw;
+  __device__ __forceinline__ void load(const T* p) {
+    raw = *reinterpret_cast<const Raw*>(p);
+  }
+  __device__ __forceinline__ void clear() { raw = Raw{}; }
+  __device__ __forceinline__ float get(int i) const {
+    if constexpr (sizeof(T) == 4) {
+      return reinterpret_cast<const float*>(&raw)[i];
+    } else {  // bf16 -> float is the 16 bits shifted up, exactly
+      return __uint_as_float(
+          (unsigned)reinterpret_cast<const unsigned short*>(&raw)[i] << 16);
+    }
+  }
+};
 
 // One sample point at pixel coordinates (x, y).  Corner c = 2 * dy + dx sits
 // at (y0 + dy, x0 + dx) and carries the bilinear weight w[c]; in[c] says
@@ -83,11 +121,28 @@ __device__ __forceinline__ long long corner_cell(const Bilinear& b, int c,
   return (long long)y * W + x;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+// Threads that share one item of `chunks` vector chunks (a row of
+// channels): chunks rounded up to a power of two, at most a warp; lane j
+// owns the chunks j, j + lanes, ...
+__host__ __device__ inline int group_lanes(int chunks) {
+  int lanes = 1;
+  while (lanes < chunks && lanes < 32) lanes *= 2;
+  return lanes;
+}
+
+// The sum of v over a group of `lanes` consecutive lanes of a warp (a power
+// of two, at most 32, the group aligned to it); `mask` names the group's
+// lanes (group_mask).  Every lane of the group gets the sum.
+__device__ __forceinline__ float group_sum(float v, int lanes, unsigned mask) {
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(mask, v, off);
   return v;
+}
+
+__device__ __forceinline__ unsigned group_mask(int lanes) {
+  if (lanes == 32) return 0xffffffffu;
+  const int first = (threadIdx.x & 31) & ~(lanes - 1);
+  return ((1u << lanes) - 1u) << first;
 }
 
 }  // namespace

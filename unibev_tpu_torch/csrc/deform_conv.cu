@@ -14,8 +14,8 @@
 // The backward follows _mdcn_fast_bwd (:323), which recomputes the gather
 // rather than saving it: dcn_im2col writes the columns for d_weight = cols^T
 // g (a torch.matmul); from d_cols = g W^T (again a torch.matmul) K4 computes
-// d_offset, d_mask and the d_x contribution rows, and the row scatter-add K5
-// (csrc/scatter.cu) sums the rows into d_x.
+// d_offset and d_mask and adds d_x straight into a float32 table with
+// vector reductions (scatter.cuh), in one launch per layer.
 //
 // Semantics, per output pixel n = (b, ho, wo) and tap k = ky * Kw + kx:
 //   sy = ho * stride - pad + ky * dil + offset[b, ho, wo, 2k]      (dy)
@@ -82,12 +82,32 @@
 //     takes plain loads of x into the same layout; the wrapper pads each
 //     tap's weights to whole stages.
 
-// dcn_im2col and K4: one warp per (output pixel, tap), the geometry
-// computed once per warp, lanes over Cin, so that the corner reads and the
-// column and contribution writes are contiguous; K4 reduces its five
-// per-tap dot products over Cin with warp shuffles.  Bytes bound both: the
-// columns (160 MB at stage 3 in bf16) and, for K4, four Cin-wide
-// contribution rows per tap (640 MB at stage 3, in chunks).
+// dcn_im2col: one warp per (output pixel, tap), the geometry computed once
+// per warp, lanes over Cin, so that the corner reads and the column writes
+// are contiguous; the columns' bytes (160 MB at stage 3 in bf16) bound it.
+//
+// K4: each (pixel, tap) reads a Cin-wide row of d_cols (160 MB a flagship
+// stage-3 call, from HBM) and four Cin-wide corner rows of x (in L2), and
+// adds four Cin-wide f32 rows into the table: 1.2 GB of reductions a
+// stage-3 call, 37x the 35.6 MB table (beside x's 17.8 MB: together just
+// above the 50 MB L2).  What bounds it on the H100 is not those
+// reductions (without them a stage-3 call kept 0.378 of its 0.439 ms,
+// PERF.md section 6) but the dependent loads and the per-tap work of each
+// lane.  The design: `lanes` threads per (pixel, tap) (ops/deform_conv.py::
+// dcn_bwd_plan), each owning chunks of 4 channels of Cin (8-byte loads in
+// bf16: a warp covers 128 channels a pass, two passes at Cin 256, where
+// 2-byte accesses took eight), the five dot products summed with one warp
+// shuffle, and each corner's chunk added from registers as one 16-byte
+// reduction, so that a warp's reductions cover 512 contiguous bytes.
+// 16-byte loads of 8 channels left each lane two reductions 32 bytes apart
+// and took twice as long (0.85 against 0.44 ms at stage 3).  Measured and
+// dropped: a block that first summed a pixel tile's adds in a shared-memory
+// window of input cells took 2.4x (stage 3) and 6.7x (stage 4) as long; a
+// thread group per pixel walking its taps, 8 or 16 threads per (pixel,
+// tap), changed the time by less than 4%; each lane loading two chunks
+// before using either made it 7% slower.  No contribution rows: four bf16
+// rows per tap, written and read back by a scatter-add, would come to
+// 15.7 GB an LC train step.
 
 #include <algorithm>
 #include <atomic>
@@ -95,11 +115,13 @@
 #include <cstdint>
 
 #include "bilinear.cuh"
+#include "scatter.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;  // dcn_im2col
+constexpr int kBwdThreads = 256;   // K4
 
 struct Tap {
   long long n;  // output pixel (b * Ho + ho) * Wo + wo
@@ -163,78 +185,106 @@ __global__ void dcn_im2col_kernel(const T* __restrict__ x,
   }
 }
 
-// One warp per (output pixel, tap) of the pixels [n0, n0 + n_pix).
-// Contribution row ((n - n0) * K + k) * 4 + c holds mask * w_c * d_cols for
-// corner c, and idx names the row of x viewed as (B * H * W, Cin) it adds
-// to; corners outside the map and taps that sample nothing get zero rows at
-// an in-range index.
-template <typename T>
-__global__ void dcn_bwd_kernel(const T* __restrict__ x,
-                               const T* __restrict__ offset,
-                               const T* __restrict__ mask,
-                               const T* __restrict__ d_cols,
-                               T* __restrict__ d_offset,
-                               T* __restrict__ d_mask,
-                               T* __restrict__ contrib, int* __restrict__ idx,
-                               int H, int W, int Cin, int Ho, int Wo, int Kw,
-                               int K, int stride, int pad, int dil,
-                               long long n0, long long n_warps) {
-  const long long local =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (local >= n_warps) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const long long warp = n0 * K + local;  // = n * K + k
-  const Tap t = tap_at(warp, offset, mask, Ho, Wo, Kw, K, stride, pad, dil);
-  const T* ds = d_cols + warp * Cin;
-  T* cw = contrib + local * 4 * Cin;
-  const long long xrow0 = t.b * H * W;  // idx of x row (b, 0, 0)
+// K4: `lanes` threads per (output pixel, tap) item, each owning the
+// VEC-channel chunks lane, lane + lanes, ... of Cin (a warp, two chunks of
+// 4 bf16 channels a lane at Cin 256, four at Cin 512).  Each thread loads
+// its chunk of d_cols and of the four corners with one access each,
+// forms its share of the per-corner dot products and of d_mask, and adds
+// mask * w_c * d_cols for each live corner into the f32 table (x's layout)
+// with add_f32's vector reductions; the shares are summed over the item's
+// lanes and one lane writes d_offset and d_mask.  A tap that samples
+// nothing gets zeros and adds nothing.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBwdThreads)
+    dcn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                   const T* __restrict__ mask, const T* __restrict__ d_cols,
+                   T* __restrict__ d_offset, T* __restrict__ d_mask,
+                   float* __restrict__ table, int H, int W, int Cin, int Ho,
+                   int Wo, int Kw, int K, int stride, int pad, int dil,
+                   int lanes, long long n_threads) {
+  const long long t = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
+  if (t >= n_threads) return;  // whole groups: n_threads = items * lanes
+  const long long item = t >> (__ffs(lanes) - 1);  // = n * K + k
+  const int lane = (int)(t & (lanes - 1));
+  const unsigned gmask = group_mask(lanes);
+  const Tap tp = tap_at(item, offset, mask, Ho, Wo, Kw, K, stride, pad, dil);
+  const long long dofs = tp.n * 2 * K + 2 * tp.k;
 
   Bilinear g;
-  if (!bilinear_at(t.sx, t.sy, W, H, g)) {
-    for (int c = 0; c < 4; ++c) {
-      for (int i = lane; i < Cin; i += 32) cw[c * Cin + i] = from_float<T>(0.f);
-      if (lane == 0) idx[local * 4 + c] = (int)xrow0;
-    }
+  if (!bilinear_at(tp.sx, tp.sy, W, H, g)) {  // uniform across the group
     if (lane == 0) {
-      d_offset[t.n * 2 * K + 2 * t.k] = from_float<T>(0.f);
-      d_offset[t.n * 2 * K + 2 * t.k + 1] = from_float<T>(0.f);
-      d_mask[t.n * K + t.k] = from_float<T>(0.f);
+      d_offset[dofs] = from_float<T>(0.f);
+      d_offset[dofs + 1] = from_float<T>(0.f);
+      d_mask[tp.n * K + tp.k] = from_float<T>(0.f);
     }
     return;
   }
-  const T* img = x + xrow0 * Cin;
+  // element offset of x's row (b, 0, 0), in x and in the table
+  const long long xbase = tp.b * H * W * Cin;
+  const T* ds = d_cols + item * Cin;
+  const int groups = Cin / VEC;
   float gv[4] = {0.f, 0.f, 0.f, 0.f};
   float dm = 0.f;
-  for (int i = lane; i < Cin; i += 32) {
-    const float d = to_float(ds[i]);
-    const float dsm = d * t.m;
-    float sampled = 0.f;
+  for (int ch = lane; ch < groups; ch += lanes) {
+    Chunk<T, VEC> d;
+    d.load(ds + ch * VEC);
+    Chunk<T, VEC> v[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      float contribution = 0.f;
-      if (g.in[c]) {
-        const float v = to_float(img[corner_cell(g, c, W) * Cin + i]);
-        sampled += g.w[c] * v;
-        gv[c] += v * dsm;
-        contribution = dsm * g.w[c];
-      }
-      cw[c * Cin + i] = from_float<T>(contribution);
+      if (g.in[c])
+        v[c].load(x + xbase + corner_cell(g, c, W) * Cin + ch * VEC);
+      else
+        v[c].clear();
     }
-    dm += d * sampled;
+    float dsm[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float di = d.get(i);
+      dsm[i] = di * tp.m;
+      float sampled = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float vc = v[c].get(i);
+        if (g.in[c]) sampled += g.w[c] * vc;
+        gv[c] += vc * dsm[i];
+      }
+      dm += di * sampled;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!g.in[c]) continue;
+      float add[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) add[i] = dsm[i] * g.w[c];
+      add_f32<VEC>(table + xbase + corner_cell(g, c, W) * Cin + ch * VEC, add);
+    }
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c) gv[c] = warp_sum(gv[c]);
-  dm = warp_sum(dm);
-  if (lane < 4) idx[local * 4 + lane] = (int)(xrow0 + corner_cell(g, lane, W));
+  for (int c = 0; c < 4; ++c) gv[c] = group_sum(gv[c], lanes, gmask);
+  dm = group_sum(dm, lanes, gmask);
   if (lane == 0) {
-    const float dsx =
-        (gv[1] - gv[0]) * (1.f - g.ly) + (gv[3] - gv[2]) * g.ly;
-    const float dsy =
-        (gv[2] - gv[0]) * (1.f - g.lx) + (gv[3] - gv[1]) * g.lx;
-    d_offset[t.n * 2 * K + 2 * t.k] = from_float<T>(dsy);
-    d_offset[t.n * 2 * K + 2 * t.k + 1] = from_float<T>(dsx);
-    d_mask[t.n * K + t.k] = from_float<T>(dm);
+    const float dsx = (gv[1] - gv[0]) * (1.f - g.ly) + (gv[3] - gv[2]) * g.ly;
+    const float dsy = (gv[2] - gv[0]) * (1.f - g.lx) + (gv[3] - gv[1]) * g.lx;
+    d_offset[dofs] = from_float<T>(dsy);
+    d_offset[dofs + 1] = from_float<T>(dsx);
+    d_mask[tp.n * K + tp.k] = from_float<T>(dm);
   }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd(const void* x, const void* offset, const void* mask,
+                       const void* d_cols, void* d_offset, void* d_mask,
+                       void* table, int H, int W, int Cin, int Ho, int Wo,
+                       int Kw, int K, int stride, int pad, int dil, int lanes,
+                       long long n_threads, cudaStream_t s) {
+  dcn_bwd_kernel<T, VEC>
+      <<<(unsigned)((n_threads + kBwdThreads - 1) / kBwdThreads), kBwdThreads,
+         0, s>>>(static_cast<const T*>(x), static_cast<const T*>(offset),
+                 static_cast<const T*>(mask), static_cast<const T*>(d_cols),
+                 static_cast<T*>(d_offset), static_cast<T*>(d_mask),
+                 static_cast<float*>(table), H, W, Cin, Ho, Wo, Kw, K, stride,
+                 pad, dil, lanes, n_threads);
+  return cudaGetLastError();
 }
 
 unsigned blocks_for(long long n_warps) {
@@ -914,41 +964,50 @@ extern "C" int unibev_dcn_im2col(const void* x, const void* offset,
   return cudaGetLastError();
 }
 
-// The backward of the output pixels [n0, n0 + n_pix).  d_cols, d_offset and
-// d_mask are full-size in x's dtype; contrib (n_pix * K * 4, Cin) in x's
-// dtype and idx (same rows,) int32 hold this chunk only.
+// The backward.  d_cols, d_offset and d_mask in x's dtype; table (B * H *
+// W, Cin) f32, zeroed by the caller, takes d_x.  vec: channels per access,
+// at most 4 (Cin % vec == 0; x and d_cols aligned to vec elements, the
+// table to vec floats); lanes: threads per (pixel, tap), which must be
+// group_lanes(Cin / vec) (ops/deform_conv.py::dcn_bwd_plan).  Returns the
+// cudaError_t of the launch.
 extern "C" int unibev_dcn_bwd(const void* x, const void* offset,
                               const void* mask, const void* d_cols,
-                              void* d_offset, void* d_mask, void* contrib,
-                              void* idx, int B, int H, int W, int Cin, int Ho,
-                              int Wo, int Kh, int Kw, int stride, int pad,
-                              int dil, long long n0, long long n_pix,
-                              int dtype, void* stream) {
-  if (Kh < 1 || Kw < 1 || Cin < 1 || stride < 1 || dil < 1)
-    return cudaErrorInvalidValue;
-  if (n0 < 0 || n_pix < 0 || n0 + n_pix > (long long)B * Ho * Wo)
+                              void* d_offset, void* d_mask, void* table, int B,
+                              int H, int W, int Cin, int Ho, int Wo, int Kh,
+                              int Kw, int stride, int pad, int dil, int dtype,
+                              int vec, int lanes, void* stream) {
+  const int size = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  if (Kh < 1 || Kw < 1 || Cin < 1 || stride < 1 || dil < 1 || size == 0 ||
+      vec < 1 || Cin % vec != 0 || 16 % (vec * size) != 0 ||
+      reinterpret_cast<uintptr_t>(x) % (vec * size) != 0 ||
+      reinterpret_cast<uintptr_t>(d_cols) % (vec * size) != 0 ||
+      reinterpret_cast<uintptr_t>(table) % (4 * vec) != 0 || vec > 4 ||
+      lanes != group_lanes(Cin / vec))
     return cudaErrorInvalidValue;
   const int K = Kh * Kw;
-  const long long n_warps = n_pix * K;
-  if (n_warps == 0) return cudaSuccess;
+  const long long n = (long long)B * Ho * Wo * K * lanes;
+  if (n == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dcn_bwd_kernel<float><<<blocks_for(n_warps), kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(offset),
-        static_cast<const float*>(mask), static_cast<const float*>(d_cols),
-        static_cast<float*>(d_offset), static_cast<float*>(d_mask),
-        static_cast<float*>(contrib), static_cast<int*>(idx), H, W, Cin, Ho,
-        Wo, Kw, K, stride, pad, dil, n0, n_warps);
-  } else if (dtype == 1) {
-    using T = __nv_bfloat16;
-    dcn_bwd_kernel<T><<<blocks_for(n_warps), kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(offset),
-        static_cast<const T*>(mask), static_cast<const T*>(d_cols),
-        static_cast<T*>(d_offset), static_cast<T*>(d_mask),
-        static_cast<T*>(contrib), static_cast<int*>(idx), H, W, Cin, Ho, Wo,
-        Kw, K, stride, pad, dil, n0, n_warps);
-  } else {
-    return cudaErrorInvalidValue;
+  using BF = __nv_bfloat16;
+#define UNIBEV_DCN_BWD(T, VEC)                                            \
+  launch_bwd<T, VEC>(x, offset, mask, d_cols, d_offset, d_mask, table, H, W, \
+                     Cin, Ho, Wo, Kw, K, stride, pad, dil, lanes, n, s)
+  switch (dtype * 100 + vec) {
+    case 4:
+      return UNIBEV_DCN_BWD(float, 4);
+    case 2:
+      return UNIBEV_DCN_BWD(float, 2);
+    case 1:
+      return UNIBEV_DCN_BWD(float, 1);
+    case 104:
+      return UNIBEV_DCN_BWD(BF, 4);
+    case 102:
+      return UNIBEV_DCN_BWD(BF, 2);
+    case 101:
+      return UNIBEV_DCN_BWD(BF, 1);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+#undef UNIBEV_DCN_BWD
 }
+

@@ -9,8 +9,10 @@
 //     cross-attention over the 200x200 BEV map.
 // K3 replaces their backwards: unibev_tpu/ops/msda.py::_slab_level_op2_bwd
 // and the autodiff of msda_pallas._smallv_reference (_smallv_bwd).  It
-// writes d_attn, d_loc and the d_value contribution rows; the row
-// scatter-add K5 (csrc/scatter.cu) sums the rows into d_value.
+// writes d_attn and d_loc and adds d_value straight into a float32 table
+// with vector reductions (scatter.cuh); the JAX backward's contribution
+// rows and their scatter-add (the Pallas kernel scatter_pallas.py, ported
+// as K5) have no counterpart on this path.
 //
 // Semantics (the reference's multi_scale_deformable_attn_pytorch, grid_sample
 // with align_corners=False and zero padding):
@@ -27,11 +29,12 @@
 //
 // What bounds them on the H100: the gathers.  Every (query, head, point)
 // reads four D-wide value rows (4 * 32 * 2 = 256 bytes in bf16) at
-// data-dependent addresses, and K3 also writes four D-wide contribution rows;
-// there is almost no arithmetic per byte.  The maps are small enough to stay
-// in the 50 MB L2 (the 200x200x256 BEV map is 20 MB in bf16, the six
-// 29x50x256 camera maps 4.5 MB), so the rate is set by L2 gather throughput
-// and by how many warps are in flight.
+// data-dependent addresses; there is almost no arithmetic per byte.  The
+// maps are small enough to stay in the 50 MB L2 (the 200x200x256 BEV map is
+// 20 MB in bf16, the six 29x50x256 camera maps 4.5 MB), so the rate is set
+// by L2 gather throughput and by how many warps are in flight.  K3 adds, on
+// top, four D-wide float32 rows per point into its table (512 bytes in
+// reductions): 655 MB a call at the flagship's TSA.
 //
 // K1: one thread per (b, q, head, group of VEC channels), VEC channels per
 // 16-byte access where D and value's alignment allow (8 in bf16, 4 in f32:
@@ -44,63 +47,43 @@
 // head's small camera map (29x50, 92.8 KB in bf16) into shared memory, the
 // Pallas kernel's idea, gained the camera SCA about 7% on the H100 (PERF.md
 // section 6): too little to keep a second kernel for.
-// K3 keeps one warp per (b, q, head) and reduces the four corner dot
-// products <v_c, g> over D with warp shuffles.  Left for later: fusing K5
-// into K3 (atomics straight into d_value instead of the contribution rows).
+// K3 (ops/msda.py::msda_bwd_plan): `lanes` threads per (b, q, head),
+// each owning chunks of VEC <= 4 channels (at D = 32, 4 threads of two
+// chunks of 4 bf16 channels: 8-byte loads of the corners and of grad), so
+// that each live corner's g * attn * w_c goes from registers into the
+// table as one 16-byte reduction per chunk, the item's lanes covering 64
+// contiguous bytes an instruction.  The shares of d_attn and d_loc (linear
+// in the four corner dot products <v_c, g>) are summed over the item's
+// lanes with a 4-lane shuffle.  Measured at the flagship's sites (PERF.md
+// section 6): 16-byte loads of 8 channels, whose two reductions a lane lie
+// 32 bytes apart, took ~15% longer, and 8 threads of one chunk ~10%
+// longer.  One launch per call and no contribution rows: four bf16 rows
+// per point, written and read back by a scatter-add, would come to 7 GB an
+// LC train step.  Map and table side by side: the camera SCA's (4.5 + 9
+// MB) and, just, the LiDAR SCA's (17 + 33 MB) fit the 50 MB L2; at TSA,
+// the decoder and the LiDAR TSA (20 + 41 MB) the gathers and the
+// reductions share L2 with some traffic to HBM.  Without the reductions a
+// call kept ~88% of its time (8 threads a point, PERF.md section 6): the
+// gathers, the geometry and the shuffles per point, not the atomics, set
+// it.
 
 #include <cstdint>
 
 #include "bilinear.cuh"
+#include "scatter.cuh"
 
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kWarpsPerBlock = 8;  // K3
 constexpr int kFwdThreads = 256;   // K1
 constexpr int kBatch = 4;          // points whose corner loads K1 issues together
+constexpr int kBwdThreads = 256;   // K3
+constexpr int kBwdBatch = 2;       // points whose corner loads K3 issues together
 
 struct Levels {
   int h[kMaxLevels];
   int w[kMaxLevels];
   int start[kMaxLevels];
-};
-
-template <int BYTES>
-struct RawOf;
-template <>
-struct RawOf<16> {
-  using type = uint4;
-};
-template <>
-struct RawOf<8> {
-  using type = uint2;
-};
-template <>
-struct RawOf<4> {
-  using type = unsigned;
-};
-template <>
-struct RawOf<2> {
-  using type = unsigned short;
-};
-
-// VEC consecutive channels of T, moved as one 16-, 8-, 4- or 2-byte access.
-template <typename T, int VEC>
-struct Chunk {
-  using Raw = typename RawOf<VEC * (int)sizeof(T)>::type;
-  Raw raw;
-  __device__ __forceinline__ void load(const T* p) {
-    raw = *reinterpret_cast<const Raw*>(p);
-  }
-  __device__ __forceinline__ void clear() { raw = Raw{}; }
-  __device__ __forceinline__ float get(int i) const {
-    if constexpr (sizeof(T) == 4) {
-      return reinterpret_cast<const float*>(&raw)[i];
-    } else {  // bf16 -> float is the 16 bits shifted up, exactly
-      return __uint_as_float(
-          (unsigned)reinterpret_cast<const unsigned short*>(&raw)[i] << 16);
-    }
-  }
 };
 
 template <typename T, int VEC>
@@ -201,97 +184,138 @@ cudaError_t launch_fwd(const void* value, const void* loc, const void* attn,
   return cudaGetLastError();
 }
 
-// One warp per (b, q, head) of the rows [r0, r0 + n_rows) of the flattened
-// (b, q) range.  Contribution row ((local * heads + h) * L * P + i) * 4 + c
-// holds g * attn * w_c for corner c of point i, and idx names the row of
-// value viewed as (B * V * heads, D) it adds to.  Corners outside the map and
-// points that fail the whole-point test get zero rows at an in-range index.
-template <typename T>
-__global__ void msda_bwd_kernel(const T* __restrict__ value,
-                                const float* __restrict__ loc,
-                                const T* __restrict__ attn,
-                                const T* __restrict__ grad,
-                                T* __restrict__ d_attn,
-                                float* __restrict__ d_loc,
-                                T* __restrict__ contrib,
-                                int* __restrict__ idx, int V, int Q,
-                                int heads, int D, int L, int P, long long r0,
-                                long long n_warps, Levels lv) {
-  const long long local =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (local >= n_warps) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const long long warp = r0 * heads + local;  // = (b * Q + q) * heads + h
-  const int h = (int)(warp % heads);
-  const long long b = warp / heads / Q;
-  const long long row = (long long)heads * D;
-  const T* vb = value + b * V * row + (long long)h * D;
-  const float* lw = loc + warp * L * P * 2;
-  const T* aw = attn + warp * L * P;
-  const T* gw = grad + warp * D;
-  const long long vrow0 = b * V * heads + h;  // idx of value row (b, 0, h)
+// K3: `lanes` threads per (b, q, head) item, each owning the VEC-channel
+// chunks lane, lane + lanes, ... of the D channels (two at the flagship's
+// D = 32: 4 threads of 2 x 4 bf16 channels).  For each point it loads its
+// chunks of the four corners and of grad, forms its share of the corner
+// dot products <v_c, g> and adds g * attn * w_c for each live corner into
+// the f32 table (value's layout) with add_f32's vector reductions.  The
+// shares of d_attn and d_loc are summed over the item's lanes, and one
+// lane writes them.  Points go in batches of kBwdBatch, whose corner loads
+// are issued together.  A point that fails the whole-point test gets zero
+// d_attn and d_loc and adds nothing; a corner outside the map loads and
+// adds nothing.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBwdThreads)
+    msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                    const T* __restrict__ attn, const T* __restrict__ grad,
+                    T* __restrict__ d_attn, float* __restrict__ d_loc,
+                    float* __restrict__ table, int V, int Q, int heads, int D,
+                    int L, int P, int lanes, long long n_threads, Levels lv) {
+  const long long t = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
+  if (t >= n_threads) return;  // whole groups: n_threads = items * lanes
+  const int shift = __ffs(lanes) - 1;
+  const long long item = t >> shift;  // (b * Q + q) * heads + h
+  const int lane = (int)(t & (lanes - 1));
+  const unsigned mask = group_mask(lanes);
+  const int groups = D / VEC;
+  const int h = (int)(item % heads);
+  const long long b = item / heads / Q;
+  const long long row = (long long)heads * D;  // elements between value rows
+  // element offset of (b, cell 0, h, channel 0), in value and in the table
+  const long long base = b * V * row + (long long)h * D;
+  const float* lw = loc + item * L * P * 2;
+  const T* aw = attn + item * L * P;
+  const T* gw = grad + item * D;
 
   for (int l = 0; l < L; ++l) {
-    const int H = lv.h[l];
     const int W = lv.w[l];
-    const T* vl = vb + (long long)lv.start[l] * row;
-    for (int p = 0; p < P; ++p) {
-      const int i = l * P + p;
-      const long long crow = ((local * L * P) + i) * 4;
-      T* cw = contrib + crow * D;
-      const float x = lw[2 * i] * W - 0.5f;
-      const float y = lw[2 * i + 1] * H - 0.5f;
-      Bilinear g;
-      if (!bilinear_at(x, y, W, H, g)) {
-        for (int c = 0; c < 4; ++c) {
-          for (int d = lane; d < D; d += 32) cw[c * D + d] = from_float<T>(0.f);
-          if (lane == 0) idx[crow + c] = (int)vrow0;
-        }
-        if (lane == 0) {
-          d_attn[warp * L * P + i] = from_float<T>(0.f);
-          d_loc[(warp * L * P + i) * 2] = 0.f;
-          d_loc[(warp * L * P + i) * 2 + 1] = 0.f;
-        }
-        continue;
-      }
-      const float a = to_float(aw[i]);
-      float gv[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int d = lane; d < D; d += 32) {
-        const float gd = to_float(gw[d]);
+    const int H = lv.h[l];
+    const long long lbase = base + (long long)lv.start[l] * row;
+    for (int p0 = 0; p0 < P; p0 += kBwdBatch) {
+      Bilinear g[kBwdBatch];
+      bool ok[kBwdBatch];
+      float a[kBwdBatch];
+      float gv[kBwdBatch][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float contribution = 0.f;
-          if (g.in[c]) {
-            gv[c] += gd * to_float(vl[corner_cell(g, c, W) * row + d]);
-            contribution = gd * a * g.w[c];
+      for (int j = 0; j < kBwdBatch; ++j) {
+        const int i = l * P + p0 + j;
+        ok[j] = p0 + j < P && bilinear_at(lw[2 * i] * W - 0.5f,
+                                          lw[2 * i + 1] * H - 0.5f, W, H, g[j]);
+        a[j] = ok[j] ? to_float(aw[i]) : 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gv[j][c] = 0.f;
+      }
+      for (int ch = lane; ch < groups; ch += lanes) {
+        Chunk<T, VEC> gc;
+        gc.load(gw + ch * VEC);
+        Chunk<T, VEC> v[kBwdBatch][4];
+#pragma unroll
+        for (int j = 0; j < kBwdBatch; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (ok[j] && g[j].in[c])
+              v[j][c].load(value + lbase + corner_cell(g[j], c, W) * row +
+                           ch * VEC);
+            else
+              v[j][c].clear();
           }
-          cw[c * D + d] = from_float<T>(contribution);
+#pragma unroll
+        for (int j = 0; j < kBwdBatch; ++j) {
+          float ga[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) ga[i] = gc.get(i) * a[j];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float s = 0.f;
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) s += gc.get(i) * v[j][c].get(i);
+            gv[j][c] += s;
+            if (ok[j] && g[j].in[c]) {
+              float add[VEC];
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) add[i] = ga[i] * g[j].w[c];
+              add_f32<VEC>(table + lbase + corner_cell(g[j], c, W) * row +
+                               ch * VEC,
+                           add);
+            }
+          }
         }
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) gv[c] = warp_sum(gv[c]);
-      if (lane < 4) {
-        idx[crow + lane] = (int)(vrow0 + ((long long)lv.start[l] +
-                                          corner_cell(g, lane, W)) * heads);
-      }
-      if (lane == 0) {
-        const float da = g.w[0] * gv[0] + g.w[1] * gv[1] + g.w[2] * gv[2] +
-                         g.w[3] * gv[3];
-        const float dx =
-            ((gv[1] - gv[0]) * (1.f - g.ly) + (gv[3] - gv[2]) * g.ly) * a;
-        const float dy =
-            ((gv[2] - gv[0]) * (1.f - g.lx) + (gv[3] - gv[1]) * g.lx) * a;
-        d_attn[warp * L * P + i] = from_float<T>(da);
-        d_loc[(warp * L * P + i) * 2] = dx * W;
-        d_loc[(warp * L * P + i) * 2 + 1] = dy * H;
+      for (int j = 0; j < kBwdBatch; ++j) {
+        if (p0 + j >= P) break;  // uniform across the item's lanes
+        // d_attn and d_loc are linear in the corner sums: each lane forms
+        // its share from its own, and three values are summed over the
+        // item's lanes instead of four
+        float da = 0.f, dx = 0.f, dy = 0.f;
+        if (ok[j]) {
+          const Bilinear& q = g[j];
+          da = q.w[0] * gv[j][0] + q.w[1] * gv[j][1] + q.w[2] * gv[j][2] +
+               q.w[3] * gv[j][3];
+          dx = ((gv[j][1] - gv[j][0]) * (1.f - q.ly) +
+                (gv[j][3] - gv[j][2]) * q.ly) * a[j] * W;
+          dy = ((gv[j][2] - gv[j][0]) * (1.f - q.lx) +
+                (gv[j][3] - gv[j][1]) * q.lx) * a[j] * H;
+        }
+        da = group_sum(da, lanes, mask);
+        dx = group_sum(dx, lanes, mask);
+        dy = group_sum(dy, lanes, mask);
+        if (lane != (j & (lanes - 1))) continue;
+        const long long i = item * L * P + l * P + p0 + j;
+        d_attn[i] = from_float<T>(da);
+        *reinterpret_cast<float2*>(d_loc + 2 * i) = make_float2(dx, dy);
       }
     }
   }
 }
 
-unsigned blocks_for(long long n_warps) {
-  return (unsigned)((n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+template <typename T, int VEC>
+cudaError_t launch_bwd(const void* value, const void* loc, const void* attn,
+                       const void* grad, void* d_attn, void* d_loc,
+                       void* table, int B, int V, int Q, int heads, int D,
+                       int L, int P, int lanes, const Levels& lv,
+                       cudaStream_t s) {
+  const long long n = (long long)B * Q * heads * lanes;
+  msda_bwd_kernel<T, VEC>
+      <<<(unsigned)((n + kBwdThreads - 1) / kBwdThreads), kBwdThreads, 0, s>>>(
+          static_cast<const T*>(value), static_cast<const float*>(loc),
+          static_cast<const T*>(attn), static_cast<const T*>(grad),
+          static_cast<T*>(d_attn), static_cast<float*>(d_loc),
+          static_cast<float*>(table), V, Q, heads, D, L, P, lanes, n, lv);
+  return cudaGetLastError();
 }
+
 
 bool read_levels(int L, int P, int D, const int* shapes, Levels& lv) {
   if (L < 1 || L > kMaxLevels || P < 1 || D < 1) return false;
@@ -352,41 +376,51 @@ extern "C" int unibev_msda_fwd(const void* value, const void* loc,
   }
 }
 
-// The backward of the (b, q) rows [r0, r0 + n_rows).  grad (B, Q, heads * D)
-// and d_attn in value's dtype, d_loc f32, all full-size; contrib
-// (n_rows * heads * L * P * 4, D) in value's dtype and idx (same rows,) int32
-// hold this chunk only.
+
+// The backward.  grad (B, Q, heads * D) and d_attn in value's dtype, d_loc
+// f32; table (B * V * heads, D) f32, zeroed by the caller, takes d_value.
+// vec: channels per access, at most 4 (D % vec == 0; value and grad
+// aligned to vec elements, the table to vec floats); lanes: threads per
+// (b, q, head), which must be group_lanes((D / vec + 1) / 2) (ops/msda.py::
+// msda_bwd_plan).  Returns the cudaError_t of the launch.
 extern "C" int unibev_msda_bwd(const void* value, const void* loc,
                                const void* attn, const void* grad,
-                               void* d_attn, void* d_loc, void* contrib,
-                               void* idx, int B, int V, int Q, int heads,
-                               int D, int L, int P, const int* shapes,
-                               long long r0, long long n_rows, int dtype,
-                               void* stream) {
+                               void* d_attn, void* d_loc, void* table, int B,
+                               int V, int Q, int heads, int D, int L, int P,
+                               const int* shapes, int dtype, int vec,
+                               int lanes, void* stream) {
   Levels lv;
   if (!read_levels(L, P, D, shapes, lv)) return cudaErrorInvalidValue;
-  if (r0 < 0 || n_rows < 0 || r0 + n_rows > (long long)B * Q)
+  const int size = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  if (size == 0 || vec < 1 || D % vec != 0 || 16 % (vec * size) != 0 ||
+      reinterpret_cast<uintptr_t>(value) % (vec * size) != 0 ||
+      reinterpret_cast<uintptr_t>(grad) % (vec * size) != 0 ||
+      reinterpret_cast<uintptr_t>(table) % (4 * vec) != 0 || vec > 4 ||
+      lanes != group_lanes((D / vec + 1) / 2))
     return cudaErrorInvalidValue;
-  const long long n_warps = n_rows * heads;
-  if (n_warps == 0) return cudaSuccess;
+  if ((long long)B * Q * heads == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    msda_bwd_kernel<float><<<blocks_for(n_warps), kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const float*>(value), static_cast<const float*>(loc),
-        static_cast<const float*>(attn), static_cast<const float*>(grad),
-        static_cast<float*>(d_attn), static_cast<float*>(d_loc),
-        static_cast<float*>(contrib), static_cast<int*>(idx), V, Q, heads, D,
-        L, P, r0, n_warps, lv);
-  } else if (dtype == 1) {
-    using T = __nv_bfloat16;
-    msda_bwd_kernel<T><<<blocks_for(n_warps), kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const T*>(value), static_cast<const float*>(loc),
-        static_cast<const T*>(attn), static_cast<const T*>(grad),
-        static_cast<T*>(d_attn), static_cast<float*>(d_loc),
-        static_cast<T*>(contrib), static_cast<int*>(idx), V, Q, heads, D, L,
-        P, r0, n_warps, lv);
-  } else {
-    return cudaErrorInvalidValue;
+  using BF = __nv_bfloat16;
+  switch (dtype * 100 + vec) {
+    case 4:
+      return launch_bwd<float, 4>(value, loc, attn, grad, d_attn, d_loc, table,
+                                  B, V, Q, heads, D, L, P, lanes, lv, s);
+    case 2:
+      return launch_bwd<float, 2>(value, loc, attn, grad, d_attn, d_loc, table,
+                                  B, V, Q, heads, D, L, P, lanes, lv, s);
+    case 1:
+      return launch_bwd<float, 1>(value, loc, attn, grad, d_attn, d_loc, table,
+                                  B, V, Q, heads, D, L, P, lanes, lv, s);
+    case 104:
+      return launch_bwd<BF, 4>(value, loc, attn, grad, d_attn, d_loc, table, B,
+                               V, Q, heads, D, L, P, lanes, lv, s);
+    case 102:
+      return launch_bwd<BF, 2>(value, loc, attn, grad, d_attn, d_loc, table, B,
+                               V, Q, heads, D, L, P, lanes, lv, s);
+    case 101:
+      return launch_bwd<BF, 1>(value, loc, attn, grad, d_attn, d_loc, table, B,
+                               V, Q, heads, D, L, P, lanes, lv, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }

@@ -31,6 +31,7 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -59,14 +60,14 @@ _SIGNATURES = {
     # dtype, stream
     "unibev_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
-    # value, loc, attn, grad, d_attn, d_loc, contrib, idx, B, V, Q, heads, D,
-    # L, P, shapes, r0, n_rows, dtype, stream
-    "unibev_msda_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _P, _L, _L, _I, _P),
-    # x, offset, mask, d_cols, d_offset, d_mask, contrib, idx, B, H, W, Cin,
-    # Ho, Wo, Kh, Kw, stride, pad, dil, n0, n_pix, dtype, stream
-    "unibev_dcn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _L, _L, _I, _P),
+    # value, loc, attn, grad, d_attn, d_loc, table, B, V, Q, heads, D, L, P,
+    # shapes, dtype, vec, lanes, stream
+    "unibev_msda_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P, _I, _I, _I, _P),
+    # x, offset, mask, d_cols, d_offset, d_mask, table, B, H, W, Cin, Ho, Wo,
+    # Kh, Kw, stride, pad, dil, dtype, vec, lanes, stream
+    "unibev_dcn_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # idx, contrib, table, M, L, tr, dtype, stream
     "unibev_scatter_add_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
     # table, coords, mask, out, Vout, D, H, W, kz, ky, kx, sz, sy, sx, pz,
@@ -156,6 +157,66 @@ def lib() -> ctypes.CDLL:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def access_width(row_bytes: int, itemsize: int, *addresses: int,
+                 most: int = 16) -> int:
+    """The widest vector access, in bytes, of 16, 8 and 4 (at most
+    ``most``) that divides a row of ``row_bytes`` and every address, else
+    one element."""
+    return next(n for n in (16, 8, 4, itemsize)
+                if n <= max(most, itemsize) and row_bytes % n == 0
+                and all(a % n == 0 for a in addresses))
+
+
+def group_lanes(chunks: int) -> int:
+    """Threads that share one item of ``chunks`` vector chunks in the
+    sampling backwards (``group_lanes`` in ``csrc/bilinear.cuh``): the chunks
+    rounded up to a power of two, at most a warp."""
+    lanes = 1
+    while lanes < chunks and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+# the H100's L2 cache, against which the backwards' f32 tables are sized
+L2_BYTES = 50 * 2 ** 20
+BWD_THREADS = 256   # kBwdThreads of csrc/msda.cu and csrc/deform_conv.cu
+
+
+class BwdPlan(NamedTuple):
+    """How a sampling backward (K3, K4) covers one call: ``lanes`` threads
+    per item, each owning ``chunks_per_lane`` chunks of ``vec_bytes`` bytes
+    of the item's row; ``blocks`` of ``threads`` threads; the f32 table of
+    ``table_bytes``, which fits the L2 beside the map it is the gradient of
+    (``map_bytes``) when ``l2_resident``."""
+    vec_bytes: int
+    lanes: int
+    chunks_per_lane: int
+    threads: int
+    blocks: int
+    table_bytes: int
+    map_bytes: int
+    l2_resident: bool
+
+
+def bwd_plan(items: int, row: int, itemsize: int, addresses, map_elems: int,
+             chunks_per_lane: int = 1) -> BwdPlan:
+    """The plan of a sampling backward over ``items`` items of ``row``
+    elements: at most 4 elements an access (8 bytes in bf16), so that each
+    chunk's f32 adds are one 16-byte reduction, narrowed where the row or
+    an address does not allow it; the row's chunks over ``chunks_per_lane``
+    rounded up to a power of two threads per item, at most a warp (the C
+    entry points refuse other lanes); one thread per lane of every item."""
+    vec = access_width(row * itemsize, itemsize, *addresses,
+                       most=4 * itemsize)
+    chunks = row * itemsize // vec
+    lanes = group_lanes(-(-chunks // chunks_per_lane))
+    table, values = 4 * map_elems, itemsize * map_elems
+    return BwdPlan(vec_bytes=vec, lanes=lanes,
+                   chunks_per_lane=-(-chunks // lanes), threads=BWD_THREADS,
+                   blocks=-(-items * lanes // BWD_THREADS), table_bytes=table,
+                   map_bytes=values, l2_resident=table + values <= L2_BYTES)
 
 
 def dtype_code(dtype) -> int:

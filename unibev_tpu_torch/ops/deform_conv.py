@@ -9,9 +9,9 @@ deformable columns into shared memory and multiplies them there, so the
 ``_mdcn_fast_bwd``, which recomputes the gather: the im2col kernel
 (``unibev_dcn_im2col``) writes the columns for d_weight = cols^T g; d_cols
 = g W^T and d_weight are ``torch.matmul``; kernel K4 (``csrc/deform_conv.cu::
-unibev_dcn_bwd``) turns d_cols into d_offset, d_mask and the d_x
-contribution rows, which the row scatter-add K5 (``ops/scatter.py``) sums,
-in chunks of output pixels.
+unibev_dcn_bwd``), one launch per layer, turns d_cols into d_offset and
+d_mask and adds d_x straight into a float32 table with vector reductions;
+:func:`dcn_bwd_plan` is its launch plan.
 
 Each kernel tap moves to a fractional position ``(ho*stride - pad + ky*dil +
 dy, wo*stride - pad + kx*dil + dx)``, is sampled bilinearly with zero
@@ -28,7 +28,6 @@ import torch
 import torch.nn.functional as F
 
 from unibev_tpu_torch.ops import _build
-from unibev_tpu_torch.ops.scatter import bwd_chunks, scatter_add_rows
 
 
 def _out_size(size, k, stride, padding, dilation):
@@ -88,6 +87,16 @@ def dcn_fwd_plan(cin: int, cout: int, taps: int = 9,
     return DcnFwdPlan(rows=rows, bn=bn, channel_tiles=-(-cout // bn),
                       warps=DCN_FWD_WARPS, kc=kc, chunks=-(-cin // kc),
                       smem_bytes=smem)
+
+
+def dcn_bwd_plan(B: int, H: int, W: int, Cin: int, Ho: int, Wo: int,
+                 taps: int, itemsize: int, x_address: int = 0,
+                 d_cols_address: int = 0) -> _build.BwdPlan:
+    """K4's launch plan (:func:`_build.bwd_plan`): items (output pixel,
+    tap) of Cin channels, x's and d_cols' addresses (a warp of two 4-channel
+    chunks a lane at Cin 256 in bf16)."""
+    return _build.bwd_plan(B * Ho * Wo * taps, Cin, itemsize,
+                           (x_address, d_cols_address), B * H * W * Cin)
 
 
 def _im2col_f32(x, offset, mask, kernel_size, stride, padding, dilation):
@@ -176,7 +185,7 @@ def deform_im2col_backward(x, offset, mask, d_cols, kernel_size=(3, 3),
                            stride=1, padding=1, dilation=1):
     """(d_x, d_offset, d_mask) of :func:`deform_im2col` for ``d_cols``
     (B*Ho*Wo, K*Cin); CPU tensors take the plain version, CUDA tensors
-    kernels K4 and K5.  All three in x's dtype."""
+    kernel K4.  All three in x's dtype."""
     if x.device.type == "cpu":
         return deform_im2col_backward_reference(x, offset, mask, d_cols,
                                                 kernel_size, stride, padding,
@@ -311,30 +320,23 @@ def _dcn_bwd_cuda(x, offset, mask, d_cols, kernel_size, stride, padding,
     d_cols = d_cols.to(x.dtype).contiguous()
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
-    tr = B * H * W
-    table = torch.zeros((tr, Cin), dtype=torch.float32, device=x.device)
-    rows_per_pixel = K * 4                  # one row per (tap, corner)
-    chunks = bwd_chunks(N, rows_per_pixel * Cin * x.element_size())
-    most = max(n for _, n in chunks) * rows_per_pixel
-    contrib = torch.empty((most, Cin), dtype=x.dtype, device=x.device)
-    idx = torch.empty((most,), dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    for n0, n in chunks:
-        err = _build.lib().unibev_dcn_bwd(
-            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), d_cols.data_ptr(),
-            d_offset.data_ptr(), d_mask.data_ptr(), contrib.data_ptr(),
-            idx.data_ptr(), B, H, W, Cin, Ho, Wo, Kh, Kw, stride, padding,
-            dilation, n0, n, code, stream)
-        _build.check(err, "dcn_bwd")
-        _build.launches["dcn_bwd"] += 1
-        m = n * rows_per_pixel
-        scatter_add_rows(idx[:m], contrib[:m], tr, out=table)
+    table = torch.zeros((B * H * W, Cin), dtype=torch.float32, device=x.device)
+    size = x.element_size()
+    plan = dcn_bwd_plan(B, H, W, Cin, Ho, Wo, K, size, x.data_ptr(),
+                        d_cols.data_ptr())
+    err = _build.lib().unibev_dcn_bwd(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), d_cols.data_ptr(),
+        d_offset.data_ptr(), d_mask.data_ptr(), table.data_ptr(), B, H, W, Cin,
+        Ho, Wo, Kh, Kw, stride, padding, dilation, code, plan.vec_bytes // size,
+        plan.lanes, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "dcn_bwd")
+    _build.launches["dcn_bwd"] += 1
     d_x = table.view(B, H, W, Cin).to(x.dtype)
     return d_x, d_offset, d_mask
 
 
 class _DCNFunction(torch.autograd.Function):
-    """``dcn_fwd`` forward; im2col + matmuls + K4 + K5 backward
+    """``dcn_fwd`` forward; im2col + matmuls + K4 backward
     (``_mdcn_fast_bwd``).  Nothing sampled is saved: the backward rebuilds
     the columns for d_weight, as the JAX package's backward recomputes its
     gather.  Under the backbone's checkpointing the recompute runs
@@ -383,7 +385,7 @@ def modulated_deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
     mask (B, Ho, Wo, Kh*Kw), already sigmoid-ed; weight (Kh*Kw*Cin, Cout)
     tap-major; bias (Cout,) or None.  Returns (B, Ho, Wo, Cout).  On CPU
     tensors the plain versions run (and autograd goes through them); on CUDA
-    the fused kernel ``dcn_fwd``, with the im2col + K4 + K5 backward.
+    the fused kernel ``dcn_fwd``, with the im2col + K4 backward.
     """
     if x.device.type == "cpu":
         cols = deform_im2col_reference(x, offset, mask, kernel_size, stride,

@@ -11,9 +11,11 @@ K1 reads 16 bytes per corner where D and value's alignment allow;
 :func:`msda_fwd_route` picks the access width per call.
 
 The gradient is a ``torch.autograd.Function`` whose backward is kernel K3
-(``csrc/msda.cu::unibev_msda_bwd``: d_attn, d_loc and the d_value
-contribution rows) followed by the row scatter-add K5 (``ops/scatter.py``),
-in chunks of queries, as ``_slab_level_op2_bwd`` of the JAX package does.
+(``csrc/msda.cu::unibev_msda_bwd``), one launch per call: it writes d_attn
+and d_loc and adds d_value straight into a float32 table with vector
+reductions, where ``_slab_level_op2_bwd`` of the JAX package writes
+contribution rows in chunks of queries and scatter-adds them.
+:func:`msda_bwd_plan` is its launch plan.
 
 Semantics are the reference's ``multi_scale_deformable_attn_pytorch``:
 locations in [0, 1] over each level's (W, H), bilinear sampling with
@@ -30,7 +32,6 @@ import torch
 import torch.nn.functional as F
 
 from unibev_tpu_torch.ops import _build
-from unibev_tpu_torch.ops.scatter import bwd_chunks, scatter_add_rows
 
 MAX_LEVELS = 8   # csrc/msda.cu kMaxLevels
 
@@ -39,8 +40,18 @@ def msda_fwd_route(D: int, itemsize: int, address: int = 0) -> int:
     """K1's access width in bytes for one call: the widest of 16, 8 and 4
     bytes that divides a head's D-wide row and ``address`` (value's data
     pointer), else one element."""
-    return next(n for n in (16, 8, 4, itemsize)
-                if (D * itemsize) % n == 0 and address % n == 0)
+    return _build.access_width(D * itemsize, itemsize, address)
+
+
+def msda_bwd_plan(B: int, V: int, Q: int, heads: int, D: int, itemsize: int,
+                  value_address: int = 0,
+                  grad_address: int = 0) -> _build.BwdPlan:
+    """K3's launch plan (:func:`_build.bwd_plan`): items (b, q, head) of D
+    channels, value's and grad's addresses, two chunks a lane where a row
+    has two (4 threads of 2 x 4 bf16 channels at D = 32)."""
+    return _build.bwd_plan(B * Q * heads, D, itemsize,
+                           (value_address, grad_address), B * V * heads * D,
+                           chunks_per_lane=2)
 
 
 def ms_deform_attn_reference(value: torch.Tensor,
@@ -106,7 +117,7 @@ def ms_deform_attn(value: torch.Tensor,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
     """MSDA forward; CPU tensors take the plain version, CUDA tensors kernel
-    K1, with the K3 + K5 backward.
+    K1, with the K3 backward.
 
     Same layouts as :func:`ms_deform_attn_reference`.  On CUDA the kernels
     take value in bfloat16 or float32, locations in float32 and attention
@@ -123,7 +134,7 @@ def ms_deform_attn_backward(value, spatial_shapes, sampling_locations,
                             attention_weights, grad_out):
     """(d_value, d_loc, d_attn) of :func:`ms_deform_attn` for ``grad_out``
     (B, Q, heads * D); CPU tensors take the plain version, CUDA tensors
-    kernels K3 and K5.  d_loc is float32, the others in their input's dtype."""
+    kernel K3.  d_loc is float32, the others in their input's dtype."""
     if value.device.type == "cpu":
         return ms_deform_attn_backward_reference(
             value, spatial_shapes, sampling_locations, attention_weights,
@@ -133,7 +144,7 @@ def ms_deform_attn_backward(value, spatial_shapes, sampling_locations,
 
 
 class _MSDAFunction(torch.autograd.Function):
-    """K1 forward, K3 + K5 backward.  Autocast is declared but casts nothing:
+    """K1 forward, K3 backward.  Autocast is declared but casts nothing:
     locations must stay float32 (a bf16 location is off by up to half a cell
     on a 200-cell map)."""
 
@@ -216,23 +227,17 @@ def _msda_bwd_cuda(value, spatial_shapes, loc, attn, grad_out):
     grad_out = grad_out.to(value.dtype).contiguous()
     d_attn = torch.empty_like(attn)
     d_loc = torch.empty_like(loc)
-    tr = B * V * heads
-    table = torch.zeros((tr, D), dtype=torch.float32, device=value.device)
-    rows_per_query = heads * L * P * 4      # one row per (head, point, corner)
-    chunks = bwd_chunks(B * Q, rows_per_query * D * value.element_size())
-    most = max(n for _, n in chunks) * rows_per_query
-    contrib = torch.empty((most, D), dtype=value.dtype, device=value.device)
-    idx = torch.empty((most,), dtype=torch.int32, device=value.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    for r0, n in chunks:
-        err = _build.lib().unibev_msda_bwd(
-            value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            grad_out.data_ptr(), d_attn.data_ptr(), d_loc.data_ptr(),
-            contrib.data_ptr(), idx.data_ptr(), B, V, Q, heads, D, L, P,
-            ctypes.addressof(shapes), r0, n, code, stream)
-        _build.check(err, "msda_bwd")
-        _build.launches["msda_bwd"] += 1
-        m = n * rows_per_query
-        scatter_add_rows(idx[:m], contrib[:m], tr, out=table)
+    table = torch.zeros((B * V * heads, D), dtype=torch.float32,
+                        device=value.device)
+    size = value.element_size()
+    plan = msda_bwd_plan(B, V, Q, heads, D, size, value.data_ptr(),
+                         grad_out.data_ptr())
+    err = _build.lib().unibev_msda_bwd(
+        value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+        d_attn.data_ptr(), d_loc.data_ptr(), table.data_ptr(), B, V, Q, heads,
+        D, L, P, ctypes.addressof(shapes), code, plan.vec_bytes // size,
+        plan.lanes, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "msda_bwd")
+    _build.launches["msda_bwd"] += 1
     d_value = table.view(B, V, heads, D).to(value.dtype)
     return d_value, d_loc, d_attn

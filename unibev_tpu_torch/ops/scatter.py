@@ -2,9 +2,11 @@
 
 Counterpart of the Pallas TPU kernel ``unibev_tpu/ops/scatter_pallas.py::
 scatter_add_rows``: ``rows[idx[m]] += contrib[m]`` into a fresh (tr, L)
-table.  Every deformable-sampling backward ends in it: the MSDA d_value
-(``ops/msda.py``) and the DCNv2 d_x (``ops/deform_conv.py``).  On CUDA it runs
-kernel K5 (``csrc/scatter.cu::unibev_scatter_add_rows``).
+table.  On the TPU every deformable-sampling backward ends in it (the MSDA
+d_value, the DCNv2 d_x); the port's backward kernels K3 and K4 add their
+rows straight into their tables with the same vector reductions
+(``csrc/scatter.cuh``), so no path launches it.  On CUDA it runs kernel K5
+(``csrc/scatter.cu::unibev_scatter_add_rows``).
 
 The table is float32 whatever the contributions' dtype, and a caller may run
 several chunks of rows into one table through ``out`` before it rounds the
@@ -15,29 +17,11 @@ order, and the last bits of a sum, change from run to run.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from unibev_tpu_torch.ops import _build
-
-# Budget for one chunk of contribution rows in the backwards (bytes), as the
-# JAX package bounds its MSDA backward (unibev_tpu/ops/msda.py
-# BWD_CHUNK_BYTES).  Tests shrink it to force several chunks.
-BWD_CHUNK_BYTES = 128e6
-
-
-def bwd_chunks(n_items: int, bytes_per_item: int) -> List[Tuple[int, int]]:
-    """Split ``n_items`` (queries or output pixels, each owning
-    ``bytes_per_item`` of contribution rows) into (start, count) chunks of
-    near-equal size that stay within :data:`BWD_CHUNK_BYTES`, as the JAX
-    package chunks its backward."""
-    if n_items <= 0:
-        return []
-    per = max(1, int(BWD_CHUNK_BYTES // max(bytes_per_item, 1)))
-    n_chunks = -(-n_items // per)
-    per = -(-n_items // n_chunks)
-    return [(s, min(per, n_items - s)) for s in range(0, n_items, per)]
 
 
 def scatter_add_rows_reference(idx: torch.Tensor, contrib: torch.Tensor,
