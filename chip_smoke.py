@@ -9,7 +9,7 @@ then, each phase printing one line (or a few) and raising on any failure:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
      kernel build time, and what ``nvcc -Xptxas -v`` reports for K1, K2
-     (dcn_fwd), K3, K4 and K7 (registers, static shared memory, stack,
+     (dcn_fwd), K3, K4, K7 and K9 (registers, static shared memory, stack,
      spills);
   2. kernel K1 (MSDA) against its plain PyTorch version at the five
      flagship call shapes, in f32 (TF32 off) and bf16, with both times,
@@ -69,7 +69,9 @@ then, each phase printing one line (or a few) and raising on any failure:
      flagship LiDAR site: K8 sparse_inv_nbr exactly at its 4 sites, K9
      sparse_conv_wgrad at its 21 (f32 with TF32 off, and bf16; the 4
      submanifold convs of a resolution share a rulebook and take fresh
-     data each), and
+     data each; bf16 on the tensor cores, its time per site and over the
+     step beside the plain version's, the bound and K9's time before its
+     tensor-core design, K9_BEFORE_MS), and
      SparseConvFn's d_feats (K7 with the transposed weights, over the
      rulebook or K8's inverse one) against autograd through the plain
      forward, with the times of kernels and plain versions and their ratio;
@@ -155,6 +157,14 @@ SCATTER_REL_TOL = 1e-5
 # K9 sums its row spans with float32 atomics in no fixed order: f32 1e-4;
 # bf16 inputs 2^-6 (the products are exact in float32 either way).
 WGRAD_REL_TOL = REL_TOL
+# K9's bf16 time a call at each site before its tensor-core design (the
+# CUDA-core kernel; CUDA events on an NVIDIA H100 80GB HBM3 at 700.00 W, as
+# PERF.md section 6 records it): phase 16 prints each site's new time
+# beside it, and the sum over an LC step's 21 launches (10.702 ms).
+K9_BEFORE_MS = {"conv_input": 0.151, "subm0": 0.152, "down0": 0.302,
+                "subm1": 0.333, "down1": 0.223, "subm2": 0.324,
+                "down2": 0.539, "subm3": 1.533, "conv_out": 0.118}
+K9_BEFORE_STEP_MS = 10.702
 
 # The least time of a call: the larger of its bytes (each input read once,
 # each output written once) over the H100 SXM's HBM3 rate and its
@@ -272,7 +282,7 @@ def ratio_line(label, rec):
 
 
 def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "msda_bwd", "dcn_bwd",
-                          "sparse_conv_kernel")):
+                          "sparse_conv_kernel", "sparse_wgrad")):
     """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
     entry functions whose names hold one of ``kernels``: one dict each."""
     log = _build.BUILD_DIR / "nvcc.log"
@@ -1046,6 +1056,8 @@ def phase_sparse_backward(gen):
     print("phase 16: the sparse conv's backward at the flagship LiDAR sites: "
           "K8 sparse_inv_nbr, K9 sparse_conv_wgrad and SparseConvFn's d_feats "
           "(K7) vs their plain versions", flush=True)
+    # imported here: --compare runs this script in checkouts without it
+    from unibev_tpu_torch.ops.sparse_conv import wgrad_plan
     points = synthetic_batch(np.random.RandomState(0), device="cuda")["points"][0]
     _, k7, k8, _ = lidar_sites(points)
     rec8, rec9, rec_df = new_rec(), new_rec(), new_rec()
@@ -1083,14 +1095,22 @@ def phase_sparse_backward(gen):
             if dtype is torch.bfloat16:
                 ms = cuda_ms(lambda: sparse_conv_wgrad(feats, nidx, g), 10)
                 plain = cuda_ms(lambda: sparse_conv_wgrad_reference(feats, nidx, g), 5)
+                before = K9_BEFORE_MS[name]
+                plan = wgrad_plan(Vout, K, cin, cout, 2,
+                                  _build.sm_count(feats.device.index))
                 # feats, rulebook, g in, the float32 dW out
                 bound = add_site(rec9, name, calls, ms, plain, err,
                                  2 * rows * cin + 4 * Vout * K + 2 * Vout * cout
                                  + 4 * K * cin * cout, 2 * live * cin * cout,
-                                 live=live)
+                                 live=live, before_ms=before,
+                                 plan=plan._asdict())
                 print(f"  K9 {name} bf16 ({Vout} x {K} taps, {live} live, {cin} "
-                      f"-> {cout}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                      f"bound {bound:.4f} ms (x{calls} per step)", flush=True)
+                      f"-> {cout}; span {plan.span}, item {plan.chunk} rows, "
+                      f"{plan.grid[0]} blocks): kernel {ms:.4f} ms, plain "
+                      f"{plain:.4f} ms, kernel/plain {ms / plain:.4f}, bound "
+                      f"{bound:.4f} ms, kernel/bound {ms / bound:.1f}, before "
+                      f"{before:.3f} ms, kernel/before {ms / before:.4f} "
+                      f"(x{calls} per step)", flush=True)
         if name == "conv_input":
             continue            # the voxel features take no gradient
         subm = name.startswith("subm")
@@ -1131,6 +1151,10 @@ def phase_sparse_backward(gen):
                       f"{plain_ms:.4f} ms, kernel/plain {ms / plain_ms:.4f}, "
                       f"bound {bound:.4f} ms (x{calls} per step)", flush=True)
                 del plain
+    ratio_line("K9 over the 21 launches of one LC train step", rec9)
+    print(f"  K9 over the step: kernel {rec9['ms']:.4f} ms against "
+          f"{K9_BEFORE_STEP_MS} ms before its tensor-core design, "
+          f"kernel/before {rec9['ms'] / K9_BEFORE_STEP_MS:.4f}", flush=True)
     ratio_line("K7 as d_feats over the 20 launches of one LC train step",
                rec_df)
     del k7, k8, inv

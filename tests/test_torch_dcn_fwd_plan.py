@@ -26,8 +26,8 @@ import torch
 import chip_smoke
 from unibev_tpu.config.config import Config
 from unibev_tpu_torch.models.backbones.resnet import DeformConv2d, ResNet
-from unibev_tpu_torch.ops.deform_conv import (MAX_SMEM_BYTES,
-                                              dcn_fwd_plan)
+from unibev_tpu_torch.ops._build import MAX_SMEM_BYTES
+from unibev_tpu_torch.ops.deform_conv import dcn_fwd_plan
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs/unibev/**/*.py"),

@@ -611,12 +611,17 @@ def test_sparse_inv_nbr_kernel_matches_plain(cuda_device, kernel, stride,
 
 @pytest.mark.parametrize("cin,cout,taps", [(5, 16, 27), (16, 32, 27),
                                            (40, 24, 27), (64, 128, 27),
-                                           (128, 128, 3)])
+                                           (128, 128, 3), (16, 12, 27),
+                                           (16, 10, 27), (256, 16, 27)])
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2 ** -6)],
                          ids=["f32", "bf16"])
 def test_sparse_conv_wgrad_kernel_matches_plain(cuda_device, cin, cout, taps,
                                                 dtype, rel):
+    """Besides the flagship's widths, bf16 takes g by plain loads at Cout 12
+    and 10 (rows not 16-byte multiples), adds into dW one float at a time
+    at Cout 10 (rows not float4 multiples), and runs two input-channel
+    chunks of the grid at Cin 256."""
     grid = _sparse_grid(cuda_device, n=3000, V=3500, shape=(20, 30, 31))
     table = build_table(grid)
     V = grid.coords.shape[0]
@@ -632,6 +637,102 @@ def test_sparse_conv_wgrad_kernel_matches_plain(cuda_device, cin, cout, taps,
     assert _build.launches["sparse_conv_wgrad"] == before + 1
     assert got.dtype == torch.float32 and got.shape == (taps * cin, cout)
     _close(got, sparse_conv_wgrad_reference(feats, nidx, cot), rel)
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 16), (5, 16), (32, 128),
+                                       (64, 32), (128, 128), (128, 40)])
+def test_sparse_conv_wgrad_mma_fragments(cuda_device, cin, cout):
+    """K9's bf16 tensor-core tile on exact products: with g the identity,
+    dW is the gathered rows transposed; with the features the identity, dW
+    is g's rows; with permuted rows the columns follow the permutation.
+    Each sum holds one product that is not zero, so any order gives it
+    exactly, and a wrong ldmatrix.trans or mma fragment layout misplaces
+    values (rows span two of the kernel's 64-row items at 128)."""
+    n = max(cin, cout)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(n, cin, device=cuda_device, generator=g).bfloat16()
+    y = torch.randn(n, cout, device=cuda_device, generator=g).bfloat16()
+    eye = torch.eye(n, device=cuda_device, dtype=torch.bfloat16)
+    nidx = torch.arange(n, dtype=torch.int32, device=cuda_device)[:, None]
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda_device)
+    assert torch.equal(sparse_conv_wgrad(x, nidx, eye[:, :cout].contiguous()),
+                       x[:cout].t().float())
+    assert torch.equal(sparse_conv_wgrad(eye[:, :cin].contiguous(), nidx, y),
+                       y[:cin].float())
+    assert torch.equal(
+        sparse_conv_wgrad(x, nidx[perm].contiguous(),
+                          eye[:, :cout].contiguous()),
+        x[perm][:cout].t().float())
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 16), (128, 128)])
+def test_sparse_conv_wgrad_ignores_g_of_dropped_rows(cuda_device, cin, cout):
+    """An output row whose taps are all sentinels (dropped by a capacity)
+    adds nothing: NaN in its g leaves dW finite and equal to the plain
+    version with those rows zeroed, as the old kernel gave.  The first 600
+    rows are dropped ones, so that whole spans hold no live tap."""
+    grid = _sparse_grid(cuda_device, n=3000, V=3500, shape=(20, 30, 31))
+    table = build_table(grid)
+    V = grid.coords.shape[0]
+    nidx = sparse_nbr(table, V, grid.shape, grid.coords, grid.mask, (3, 3, 3),
+                      (1, 1, 1), (1, 1, 1))
+    nidx = torch.cat([torch.full_like(nidx[:600], V), nidx])
+    dropped = torch.cat([torch.ones_like(grid.mask[:600]), ~grid.mask])
+    assert bool((nidx[dropped] == V).all()) and int(dropped.sum()) == 1100
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    feats = torch.randn(V, cin, device=cuda_device, generator=g).bfloat16()
+    cot = torch.randn(V + 600, cout, device=cuda_device,
+                      generator=g).bfloat16()
+    want = sparse_conv_wgrad_reference(feats, nidx, cot)
+    cot[dropped] = float("nan")
+    got = sparse_conv_wgrad(feats, nidx, cot)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, 2 ** -6)
+
+
+@pytest.mark.parametrize("cout,taps", [(16, 27), (16, 3), (24, 27)])
+def test_sparse_conv_wgrad_cin5(cuda_device, cout, taps):
+    """conv_input's Cin = 5 (10-byte rows: plain loads into the 16-channel
+    tile, the padded channels never written to dW), bf16, against the plain
+    version; an odd Cout of 24 takes the 32-wide tile."""
+    grid = _sparse_grid(cuda_device, n=3000, V=3500, shape=(20, 30, 31))
+    table = build_table(grid)
+    V = grid.coords.shape[0]
+    kernel = (3, 3, 3) if taps == 27 else (3, 1, 1)
+    nidx = sparse_nbr(table, V, grid.shape, grid.coords, grid.mask, kernel,
+                      (1, 1, 1), tuple(k // 2 for k in kernel))
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    feats = torch.randn(V, 5, device=cuda_device, generator=g).bfloat16()
+    cot = torch.randn(V, cout, device=cuda_device, generator=g).bfloat16()
+    got = sparse_conv_wgrad(feats, nidx, cot)
+    assert got.shape == (taps * 5, cout)
+    _close(got, sparse_conv_wgrad_reference(feats, nidx, cot), 2 ** -6)
+
+
+def test_sparse_conv_wgrad_refuses_another_plan(cuda_device):
+    """The entry point refuses a span, item or shared-memory size that
+    disagrees with its own layout, and tiles that are not its own."""
+    from unibev_tpu_torch.ops.sparse_conv import wgrad_plan
+    feats = torch.zeros(300, 16, device=cuda_device, dtype=torch.bfloat16)
+    g = torch.zeros(300, 16, device=cuda_device, dtype=torch.bfloat16)
+    nidx = torch.zeros(300, 27, device=cuda_device, dtype=torch.int32)
+    dw = torch.zeros(27 * 16, 16, device=cuda_device)
+    plan = wgrad_plan(300, 27, 16, 16, 2, _build.sm_count(feats.device.index))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(**kw):
+        p = plan._replace(**kw)
+        return _build.lib().unibev_sparse_conv_wgrad(
+            feats.data_ptr(), nidx.data_ptr(), g.data_ptr(), dw.data_ptr(),
+            300, 27, 16, 16, 300, 1, p.kc, p.bn, p.span, p.chunk,
+            p.smem_bytes, stream)
+
+    assert call() == 0
+    for kw in (dict(smem_bytes=plan.smem_bytes + 16), dict(kc=32),
+               dict(bn=64), dict(chunk=96), dict(span=plan.span + 64)):
+        assert call(**kw) != 0, kw
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("case", ["subm"] + ["k3s2p1", "k3s2p011", "conv_out"])

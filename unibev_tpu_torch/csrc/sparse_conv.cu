@@ -63,24 +63,51 @@
 // runs at the latency of a launch.
 //
 // K9 unibev_sparse_conv_wgrad: dW[k * Cin + c, n] = sum_v feats_pad[nidx[v,
-// k], c] * g[v, n], float32 products and sums, dW float32 whatever the
-// inputs' dtype.  A block owns one tap, one span of rows and a TI x TO
-// (input x output channel) patch of dW: it stages 64 gathered feature rows
-// and the matching 64 rows of g in shared memory, zero for the sentinel (g
-// is not even read there), and accumulates the patch in registers on CUDA
-// cores, (TI / 16) x (TO / 16) per thread; a step whose 64 rows all miss
-// the tap is skipped, as in K7.  At the end each thread atomicAdds its part
-// of the patch into dW, which the wrapper zeroes: a span of 256 to 4096
-// rows, chosen so that the grid has about 1024 blocks or more, bounds the
-// atomics to a few per element of dW.  The atomics sum the spans in an
-// order that changes from run to run, so the last bits of dW do too.  What
-// bounds it: CUDA-core FMAs, the same contraction as K7's forward;
-// tensor cores are later work.
+// k], c] * g[v, n], float32 sums, dW float32 whatever the inputs' dtype; a
+// sentinel entry adds nothing.  Replaces _dw_dot (:358), one bf16
+// contraction on the TPU's matrix unit with float32 sums.  The launch plan
+// (span, chunk, tiles, shared memory) is ops/sparse_conv.py::wgrad_plan; the
+// entry point refuses a plan that disagrees with its own layout.
+//   * bf16, on the tensor cores: a block owns a span of output rows, KC
+//     input channels (Cin padded to 16, at most 128) and BN output channels
+//     (16 to 128).  It reads the span's (rows x K) index tile once,
+//     coalesced, into shared memory and compacts, with one ballot per (tap,
+//     chunk of rows), the (tap, chunk) items that hold a live row, tap by
+//     tap; empty items are never visited (at res 0-2 most are empty).  It
+//     stages the span's g slice once, zero for a row with no live tap (a
+//     dropped output row: its g may hold anything, and 0 * NaN must not
+//     reach dW), and reuses it for every item.  For each item it stages the
+//     chunk's gathered feature rows (zero for a sentinel, not read) with
+//     16-byte cp.async, two stages deep, one barrier per item, and
+//     multiplies with mma.sync m16n8k16: M = input channels, N = output
+//     channels, the contraction over the chunk's rows.  Both tiles are
+//     stored row by row, so A (the gathered rows, transposed) and B (g) both
+//     load with ldmatrix.trans.  The 8 warps split M, N and, at narrow
+//     widths, the chunk's 16-row steps (WgradWarps).  When the block leaves
+//     a tap it adds its (KC x BN) partial into dW, which the wrapper zeroes,
+//     with 16-byte float4 reductions (add_f32; a pair of lanes swaps halves
+//     of its C fragments so that each lane holds 4 consecutive columns).
+//     Widths that are not 16-byte multiples (conv_input's Cin = 5) take
+//     plain loads into the same layout.  mma.sync and not wgmma: the items
+//     are 64-256 gathered rows deep and 16-128 channels wide, the products
+//     small against the gathers, as in K7.
+//   * float32: exact float32 FMAs on CUDA cores (TF32 would break the 1e-4
+//     float32 tolerance; no main path runs K9 in float32).  A block owns
+//     one tap, one span of rows and a TI x TO patch of dW, stages 64 rows
+//     at a time and adds its patch with scalar atomics at the end.
+// The reductions sum the spans in an order that changes from run to run, so
+// the last bits of dW do too.  What bounds the bf16 kernel: its parts run
+// one after another, none hidden behind another (measured by builds that
+// drop each, PERF.md section 6): at res 3 the products, the reductions (one
+// KC x BN partial per block and live tap, which the span trades against
+// the number of blocks), the gathers, and the staging of g with the
+// barriers take a fifth to a third each.
 
 #include <atomic>
 #include <cstdint>
 
 #include "bilinear.cuh"
+#include "scatter.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -481,11 +508,11 @@ __global__ void sparse_inv_nbr_kernel(const int* __restrict__ table,
 
 constexpr int kWRows = 64;  // rows staged at a time by K9
 
-template <typename T, int TI, int TO>
+template <int TI, int TO>
 __global__ void __launch_bounds__(kThreads)
-    sparse_wgrad_kernel(const T* __restrict__ feats,
+    sparse_wgrad_kernel(const float* __restrict__ feats,
                         const int* __restrict__ nidx,
-                        const T* __restrict__ g, float* __restrict__ dw,
+                        const float* __restrict__ g, float* __restrict__ dw,
                         long long Vout, int K, int Cin, int Cout, int V,
                         long long span) {
   constexpr int kI = TI / 16;  // input channels per thread
@@ -526,14 +553,14 @@ __global__ void __launch_bounds__(kThreads)
       const int c = e - rr * TI;
       const int src = rows[rr];
       float x = 0.f;
-      if (src >= 0 && c0 + c < Cin) x = to_float(feats[(long long)src * Cin + c0 + c]);
+      if (src >= 0 && c0 + c < Cin) x = feats[(long long)src * Cin + c0 + c];
       a_s[rr][c] = x;
     }
     for (int e = tid; e < kWRows * TO; e += kThreads) {
       const int rr = e / TO;
       const int n = e - rr * TO;
       float y = 0.f;
-      if (rows[rr] >= 0 && n0 + n < Cout) y = to_float(g[(v0 + rr) * Cout + n0 + n]);
+      if (rows[rr] >= 0 && n0 + n < Cout) y = g[(v0 + rr) * Cout + n0 + n];
       b_s[rr][n] = y;
     }
     __syncthreads();
@@ -564,42 +591,352 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int TI, int TO>
-void launch_wgrad(const void* feats, const int* nidx, const void* g, float* dw,
-                  long long Vout, int K, int Cin, int Cout, int V,
-                  cudaStream_t s) {
+// K9, float32: the launch over the plan's span (a multiple of kWRows).
+template <int TI, int TO>
+cudaError_t launch_wgrad_f32(const void* feats, const int* nidx,
+                             const void* g, float* dw, long long Vout, int K,
+                             int Cin, int Cout, int V, int span,
+                             cudaStream_t s) {
+  if (span % kWRows != 0 || K > 65535) return cudaErrorInvalidValue;
   const int tiles = ((Cin + TI - 1) / TI) * ((Cout + TO - 1) / TO);
-  long long span = 4096;
-  while (span > 256 && ((Vout + span - 1) / span) * K * tiles < 1024) span /= 2;
   const dim3 grid((unsigned)((Vout + span - 1) / span), (unsigned)K,
                   (unsigned)tiles);
-  sparse_wgrad_kernel<T, TI, TO><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(feats), nidx, static_cast<const T*>(g), dw, Vout,
-      K, Cin, Cout, V, span);
+  sparse_wgrad_kernel<TI, TO><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(feats), nidx, static_cast<const float*>(g), dw,
+      Vout, K, Cin, Cout, V, span);
+  return cudaGetLastError();
 }
 
-template <typename T, int TI>
-void dispatch_wgrad_out(const void* feats, const int* nidx, const void* g,
-                        float* dw, long long Vout, int K, int Cin, int Cout,
-                        int V, cudaStream_t s) {
-  if (Cout <= 16)
-    launch_wgrad<T, TI, 16>(feats, nidx, g, dw, Vout, K, Cin, Cout, V, s);
-  else if (Cout <= 32)
-    launch_wgrad<T, TI, 32>(feats, nidx, g, dw, Vout, K, Cin, Cout, V, s);
-  else
-    launch_wgrad<T, TI, 64>(feats, nidx, g, dw, Vout, K, Cin, Cout, V, s);
+// K9, bf16: the block's shared memory, byte offsets from its start: the
+// (span x K) index tile; one flag per (tap, chunk) pair; the live items, tap
+// by tap, then their count; one flag per row (a live tap); the span's g
+// slice (span x BN, pitch BN + 8 elements), 128-aligned; two stages of
+// gathered rows (chunk x KC, pitch KC + 8).  The 16 bytes of padding put
+// the eight 16-byte rows one ldmatrix reads on distinct banks.
+struct WgradLayout {
+  int a_pitch;  // elements
+  int g_pitch;  // elements
+  int flags;
+  int list;
+  int live;
+  int g;
+  int stages;
+  int stage;    // bytes per stage
+  int bytes;    // in all
+};
+
+WgradLayout wgrad_layout(int K, int span, int chunk, int kc, int bn) {
+  WgradLayout L;
+  const int pairs = span / chunk * K;
+  L.a_pitch = kc + 8;
+  L.g_pitch = bn + 8;
+  L.flags = span * K * 4;
+  L.list = L.flags + pairs * 4;
+  L.live = L.list + (pairs + 1) * 4;
+  L.g = (L.live + span * 4 + 127) / 128 * 128;
+  L.stages = L.g + span * L.g_pitch * 2;
+  L.stage = chunk * L.a_pitch * 2;
+  L.bytes = L.stages + 2 * L.stage;
+  return L;
 }
 
-template <typename T>
-void dispatch_wgrad(const void* feats, const int* nidx, const void* g,
-                    float* dw, long long Vout, int K, int Cin, int Cout, int V,
-                    cudaStream_t s) {
-  if (Cin <= 16)
-    dispatch_wgrad_out<T, 16>(feats, nidx, g, dw, Vout, K, Cin, Cout, V, s);
-  else if (Cin <= 32)
-    dispatch_wgrad_out<T, 32>(feats, nidx, g, dw, Vout, K, Cin, Cout, V, s);
-  else
-    dispatch_wgrad_out<T, 64>(feats, nidx, g, dw, Vout, K, Cin, Cout, V, s);
+// How the 8 warps split a (KC x BN) tile: WM x WN warps of MT m-tiles (16
+// input channels) by NT n-tiles (8 output channels) each, and WK warps
+// that take every WK-th 16-row step of an item (at narrow widths).
+template <int KC, int BN>
+struct WgradWarps {
+  static constexpr int WM = KC / 16 < 4 ? KC / 16 : 4;
+  static constexpr int MT = KC / 16 / WM;
+  static constexpr int WN = BN / 8 < 8 / WM ? BN / 8 : 8 / WM;
+  static constexpr int NT = BN / 8 / WN;
+  static constexpr int WK = 8 / (WM * WN);
+  static_assert(WM * WN * WK == 8 && WK <= 4, "8 warps, 4 steps an item");
+};
+
+template <int KC, int BN>
+__global__ void __launch_bounds__(kThreads)
+    sparse_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ feats,
+                            const int* __restrict__ nidx,
+                            const __nv_bfloat16* __restrict__ g,
+                            float* __restrict__ dw, long long Vout, int K,
+                            int Cin, int Cout, int V, int span, int chunk,
+                            WgradLayout lay, bool vec_a, bool vec_g,
+                            bool vec_dw) {
+  using W = WgradWarps<KC, BN>;
+  constexpr int kAcc = W::MT * W::NT * 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* idx_s = reinterpret_cast<int*>(smem);
+  int* flags = reinterpret_cast<int*>(smem + lay.flags);
+  int* list = reinterpret_cast<int*>(smem + lay.list);
+  int* live = reinterpret_cast<int*>(smem + lay.live);
+  __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(smem + lay.g);
+  __nv_bfloat16* const stage0 =
+      reinterpret_cast<__nv_bfloat16*>(smem + lay.stages);
+  const int stage_elems = lay.stage / 2;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long v0 = (long long)blockIdx.x * span;
+  const int n0 = blockIdx.y * BN;
+  const int c0 = blockIdx.z * KC;
+  const int rows = (int)min((long long)span, Vout - v0);
+  const int chunks = span / chunk;
+  const int pairs = chunks * K;
+
+  // The index tile, one coalesced read: -1 for a sentinel or a row past
+  // Vout.
+  const int* tile = nidx + v0 * K;
+#pragma unroll 4
+  for (int e = tid; e < span * K; e += kThreads) {
+    int src = -1;
+    if (e < rows * K) {
+      src = tile[e];
+      if (src < 0 || src >= V) src = -1;
+    }
+    idx_s[e] = src;
+  }
+  __syncthreads();
+  // A row is live when any tap reads a row; a (tap, chunk) pair when any of
+  // the chunk's rows is live in the tap: a ballot per pair, p = k * chunks
+  // + chunk, so that the items of one tap follow each other.
+  for (int r = tid; r < span; r += kThreads) {
+    bool any = false;
+    for (int k = 0; k < K; ++k) any |= idx_s[r * K + k] >= 0;
+    live[r] = any;
+  }
+  for (int p = warp; p < pairs; p += kThreads / 32) {
+    const int k = p / chunks;
+    const int* col = idx_s + (p - k * chunks) * chunk * K + k;
+    bool any = false;
+    for (int i = lane; i < chunk; i += 32) any |= col[i * K] >= 0;
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) flags[p] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int p0 = 0; p0 < pairs; p0 += 32) {
+      const bool on = p0 + lane < pairs && flags[p0 + lane];
+      const unsigned bits = __ballot_sync(0xffffffffu, on);
+      if (on) list[n + __popc(bits & ((1u << lane) - 1u))] = p0 + lane;
+      n += __popc(bits);
+    }
+    if (lane == 0) list[pairs] = n;
+  }
+  __syncthreads();
+  const int items = list[pairs];
+  if (items == 0) return;
+
+  // The span's g slice, once, in the first copy group: zeros for a row
+  // with no live tap and past Cout.
+  if (vec_g) {
+    constexpr int segs = BN / 8;
+    for (int e = tid; e < span * segs; e += kThreads) {
+      const int r = e / segs;
+      const int n = (e - r * segs) * 8;
+      const bool ok = live[r] && n0 + n < Cout;
+      cp_async16(g_s + r * lay.g_pitch + n,
+                 ok ? g + (v0 + r) * Cout + n0 + n : g, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < span * BN; e += kThreads) {
+      const int r = e / BN;
+      const int n = e - r * BN;
+      g_s[r * lay.g_pitch + n] = live[r] && n0 + n < Cout
+                                     ? g[(v0 + r) * Cout + n0 + n]
+                                     : __float2bfloat16(0.f);
+    }
+  }
+  // Stage item `it` into buffer it & 1: the chunk's rows gathered through
+  // the item's tap, zeros for a sentinel and past Cin.
+  auto issue = [&](int it) {
+    __nv_bfloat16* a_s = stage0 + (it & 1) * stage_elems;
+    const int p = list[it];
+    const int k = p / chunks;
+    const int* col = idx_s + (p - k * chunks) * chunk * K + k;
+    if (vec_a) {
+      constexpr int segs = KC / 8;
+      for (int e = tid; e < chunk * segs; e += kThreads) {
+        const int r = e / segs;
+        const int c = (e - r * segs) * 8;
+        const int src = col[r * K];
+        const bool ok = src >= 0 && c0 + c < Cin;
+        cp_async16(a_s + r * lay.a_pitch + c,
+                   ok ? feats + (long long)src * Cin + c0 + c : feats,
+                   ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < chunk * KC; e += kThreads) {
+        const int r = e / KC;
+        const int c = e - r * KC;
+        const int src = col[r * K];
+        a_s[r * lay.a_pitch + c] = src >= 0 && c0 + c < Cin
+                                       ? feats[(long long)src * Cin + c0 + c]
+                                       : __float2bfloat16(0.f);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int wm = warp % W::WM;
+  const int wn = (warp / W::WM) % W::WN;
+  const int wk = warp / (W::WM * W::WN);
+  // ldmatrix.trans row addresses.  A: lanes 8j..8j+7 give the rows (k)
+  // 8 (j / 2) + 0..7 at channels 8 (j % 2), matrices a0-a3 of the mma's A
+  // (channels x rows).  B: lanes 0-15 give rows 0-15 of the warp's first
+  // n-tile, lanes 16-31 those of the next.
+  const int a_lane = ((lane & 7) + ((lane >> 4) << 3)) * lay.a_pitch +
+                     wm * W::MT * 16 + ((lane >> 3) & 1) * 8;
+  const int g_lane = (lane & 15) * lay.g_pitch + wn * W::NT * 8 +
+                     (W::NT > 1 ? (lane >> 4) * 8 : 0);
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+
+  // Two stages, one barrier per item: the barrier publishes item `it` and
+  // frees the other buffer, whose copies for it + 1 then fly while `it` is
+  // multiplied (deeper rings measured no faster, PERF.md section 6).
+  issue(0);
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < items) issue(it + 1);
+    const int p = list[it];
+    const int k = p / chunks;
+    const __nv_bfloat16* a_s = stage0 + (it & 1) * stage_elems + a_lane;
+    const __nv_bfloat16* b_s =
+        g_s + (p - k * chunks) * chunk * lay.g_pitch + g_lane;
+    for (int kk = wk * 16; kk < chunk; kk += 16 * W::WK) {
+      unsigned a[W::MT][4];
+#pragma unroll
+      for (int i = 0; i < W::MT; ++i)
+        ldmatrix_x4_trans(a[i], a_s + kk * lay.a_pitch + i * 16);
+      const __nv_bfloat16* b_k = b_s + kk * lay.g_pitch;
+      if constexpr (W::NT == 1) {
+        unsigned b0, b1;
+        ldmatrix_x2_trans(b0, b1, b_k);
+#pragma unroll
+        for (int i = 0; i < W::MT; ++i) mma_bf16(acc + 4 * i, a[i], b0, b1);
+      } else {
+#pragma unroll
+        for (int j = 0; j < W::NT; j += 2) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, b_k + j * 8);
+#pragma unroll
+          for (int i = 0; i < W::MT; ++i) {
+            mma_bf16(acc + 4 * (i * W::NT + j), a[i], b[0], b[1]);
+            mma_bf16(acc + 4 * (i * W::NT + j + 1), a[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (it + 1 < items && list[it + 1] / chunks == k) continue;
+    // The block leaves tap k: add the partial into dW.  C fragment of a
+    // tile: c0, c1 at (channel l / 4, columns 2 (l % 4) + 0, 1), c2, c3 8
+    // channels further.  An even lane takes its odd neighbour's c0, c1
+    // (columns 4 (l % 4 / 2) + 0..3 of channel l / 4), the odd lane the
+    // even one's c2, c3 (the same columns, 8 channels further).
+    const bool odd = lane & 1;
+#pragma unroll
+    for (int i = 0; i < W::MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j) {
+        float* d = acc + 4 * (i * W::NT + j);
+        const float x = __shfl_xor_sync(0xffffffffu, odd ? d[0] : d[2], 1);
+        const float y = __shfl_xor_sync(0xffffffffu, odd ? d[1] : d[3], 1);
+        const float v[4] = {odd ? x : d[0], odd ? y : d[1], odd ? d[2] : x,
+                            odd ? d[3] : y};
+        const int c =
+            c0 + wm * W::MT * 16 + i * 16 + (lane >> 2) + (odd ? 8 : 0);
+        const int n = n0 + wn * W::NT * 8 + j * 8 + 4 * ((lane & 3) >> 1);
+        if (c < Cin && n < Cout) {
+          float* dst = dw + ((long long)k * Cin + c) * Cout + n;
+          if (vec_dw) {
+            add_f32<4>(dst, v);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (n + q < Cout && v[q] != 0.f) atomicAdd(dst + q, v[q]);
+          }
+        }
+        d[0] = d[1] = d[2] = d[3] = 0.f;
+      }
+    }
+  }
+}
+
+template <int KC, int BN>
+cudaError_t launch_wgrad_mma(const void* feats, const int* nidx,
+                             const void* g, float* dw, long long Vout, int K,
+                             int Cin, int Cout, int V, int span, int chunk,
+                             int smem_bytes, cudaStream_t s) {
+  if (chunk % 64 != 0 || span % chunk != 0) return cudaErrorInvalidValue;
+  const WgradLayout lay = wgrad_layout(K, span, chunk, KC, BN);
+  if (lay.bytes != smem_bytes || lay.bytes > kMaxSmemBytes)
+    return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err =
+      allow_max_smem(sparse_wgrad_mma_kernel<KC, BN>, smem_set);
+  if (err != cudaSuccess) return err;
+  const bool vec_a =
+      Cin % 8 == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+  const bool vec_g =
+      Cout % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const bool vec_dw =
+      Cout % 4 == 0 && reinterpret_cast<uintptr_t>(dw) % 16 == 0;
+  const dim3 grid((unsigned)((Vout + span - 1) / span),
+                  (unsigned)((Cout + BN - 1) / BN),
+                  (unsigned)((Cin + KC - 1) / KC));
+  sparse_wgrad_mma_kernel<KC, BN><<<grid, kThreads, lay.bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(feats), nidx,
+      static_cast<const __nv_bfloat16*>(g), dw, Vout, K, Cin, Cout, V, span,
+      chunk, lay, vec_a, vec_g, vec_dw);
+  return cudaGetLastError();
+}
+
+// A tile width of the plan: the least of 16, 32, 64 (and 128 where `wide`)
+// that holds `c`, else the widest.
+inline int wgrad_tile(int c, bool wide) {
+  for (int t = 16; t < (wide ? 128 : 64); t *= 2)
+    if (c <= t) return t;
+  return wide ? 128 : 64;
+}
+
+template <int KC>
+cudaError_t dispatch_wgrad_mma(int bn, const void* feats, const int* nidx,
+                               const void* g, float* dw, long long Vout, int K,
+                               int Cin, int Cout, int V, int span, int chunk,
+                               int smem_bytes, cudaStream_t s) {
+  switch (bn) {
+    case 16:
+      return launch_wgrad_mma<KC, 16>(feats, nidx, g, dw, Vout, K, Cin, Cout,
+                                      V, span, chunk, smem_bytes, s);
+    case 32:
+      return launch_wgrad_mma<KC, 32>(feats, nidx, g, dw, Vout, K, Cin, Cout,
+                                      V, span, chunk, smem_bytes, s);
+    case 64:
+      return launch_wgrad_mma<KC, 64>(feats, nidx, g, dw, Vout, K, Cin, Cout,
+                                      V, span, chunk, smem_bytes, s);
+    default:
+      return launch_wgrad_mma<KC, 128>(feats, nidx, g, dw, Vout, K, Cin, Cout,
+                                       V, span, chunk, smem_bytes, s);
+  }
+}
+
+template <int TI>
+cudaError_t dispatch_wgrad_f32(int to, const void* feats, const int* nidx,
+                               const void* g, float* dw, long long Vout, int K,
+                               int Cin, int Cout, int V, int span,
+                               cudaStream_t s) {
+  if (to == 16)
+    return launch_wgrad_f32<TI, 16>(feats, nidx, g, dw, Vout, K, Cin, Cout, V,
+                                    span, s);
+  if (to == 32)
+    return launch_wgrad_f32<TI, 32>(feats, nidx, g, dw, Vout, K, Cin, Cout, V,
+                                    span, s);
+  return launch_wgrad_f32<TI, 64>(feats, nidx, g, dw, Vout, K, Cin, Cout, V,
+                                  span, s);
 }
 
 }  // namespace
@@ -677,23 +1014,52 @@ extern "C" int unibev_sparse_inv_nbr(const void* table, const void* coords,
 
 // feats (V, Cin); nidx (Vout, K) int32; g (Vout, Cout); dw (K * Cin, Cout)
 // float32, zeroed by the caller, the sums added into it.  dtype: 0 f32, 1
-// bf16 (feats and g).  Returns the cudaError_t of the launch.
+// bf16 (feats and g).  The plan (ops/sparse_conv.py::wgrad_plan): tiles of
+// kc input by bn output channels, spans of `span` rows, items of `chunk`
+// rows and smem_bytes of dynamic shared memory (bf16; for f32 chunk 64 and
+// smem_bytes 0); a plan that disagrees with this file's tiles or layout is
+// refused.  Returns the cudaError_t of the launch.
 extern "C" int unibev_sparse_conv_wgrad(const void* feats, const void* nidx,
                                         const void* g, void* dw,
                                         long long Vout, int K, int Cin,
-                                        int Cout, int V, int dtype,
-                                        void* stream) {
-  if (Vout < 0 || K < 1 || K > 65535 || Cin < 1 || Cout < 1 || V < 0)
+                                        int Cout, int V, int dtype, int kc,
+                                        int bn, int span, int chunk,
+                                        int smem_bytes, void* stream) {
+  if (Vout < 0 || K < 1 || Cin < 1 || Cout < 1 || V < 0 || span < 1 ||
+      chunk < 1)
     return cudaErrorInvalidValue;
-  if (Vout == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* idx = static_cast<const int*>(nidx);
   float* out = static_cast<float*>(dw);
-  if (dtype == 0)
-    dispatch_wgrad<float>(feats, idx, g, out, Vout, K, Cin, Cout, V, s);
-  else if (dtype == 1)
-    dispatch_wgrad<__nv_bfloat16>(feats, idx, g, out, Vout, K, Cin, Cout, V, s);
-  else
+  if (dtype == 0) {
+    if (kc != wgrad_tile(Cin, false) || bn != wgrad_tile(Cout, false) ||
+        chunk != kWRows || smem_bytes != 0)
+      return cudaErrorInvalidValue;
+    if (Vout == 0) return cudaSuccess;
+    if (kc == 16)
+      return dispatch_wgrad_f32<16>(bn, feats, idx, g, out, Vout, K, Cin,
+                                    Cout, V, span, s);
+    if (kc == 32)
+      return dispatch_wgrad_f32<32>(bn, feats, idx, g, out, Vout, K, Cin,
+                                    Cout, V, span, s);
+    return dispatch_wgrad_f32<64>(bn, feats, idx, g, out, Vout, K, Cin, Cout,
+                                  V, span, s);
+  }
+  if (dtype != 1 || kc != wgrad_tile(Cin, true) || bn != wgrad_tile(Cout, true))
     return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  if (Vout == 0) return cudaSuccess;
+  switch (kc) {
+    case 16:
+      return dispatch_wgrad_mma<16>(bn, feats, idx, g, out, Vout, K, Cin,
+                                    Cout, V, span, chunk, smem_bytes, s);
+    case 32:
+      return dispatch_wgrad_mma<32>(bn, feats, idx, g, out, Vout, K, Cin,
+                                    Cout, V, span, chunk, smem_bytes, s);
+    case 64:
+      return dispatch_wgrad_mma<64>(bn, feats, idx, g, out, Vout, K, Cin,
+                                    Cout, V, span, chunk, smem_bytes, s);
+    default:
+      return dispatch_wgrad_mma<128>(bn, feats, idx, g, out, Vout, K, Cin,
+                                     Cout, V, span, chunk, smem_bytes, s);
+  }
 }

@@ -25,6 +25,7 @@ DCN backward), ``msda_bwd`` (K3), ``dcn_bwd`` (K4), ``scatter_add_rows``
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -80,8 +81,10 @@ _SIGNATURES = {
     # py, px, sentinel, table_size, stream
     "unibev_sparse_inv_nbr": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _L, _P),
-    # feats, nidx, g, dw, Vout, K, Cin, Cout, V, dtype, stream
-    "unibev_sparse_conv_wgrad": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # feats, nidx, g, dw, Vout, K, Cin, Cout, V, dtype, kc, bn, span, chunk,
+    # smem_bytes, stream
+    "unibev_sparse_conv_wgrad": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _P),
 }
 
 launches: Counter = Counter()
@@ -181,6 +184,17 @@ def group_lanes(chunks: int) -> int:
 
 # the H100's L2 cache, against which the backwards' f32 tables are sized
 L2_BYTES = 50 * 2 ** 20
+# the most dynamic shared memory a block may use on the H100 (227 KB;
+# kMaxSmemBytes of csrc/tensor_core.cuh)
+MAX_SMEM_BYTES = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, for the plans that size their grid
+    to one wave (``dcn_fwd``, K9's wide tiles)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 BWD_THREADS = 256   # kBwdThreads of csrc/msda.cu and csrc/deform_conv.cu
 
 

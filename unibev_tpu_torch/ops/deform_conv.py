@@ -21,7 +21,6 @@ is mmcv's: ``offset[..., 2k] = dy_k``, ``offset[..., 2k+1] = dx_k``.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -36,13 +35,11 @@ def _out_size(size, k, stride, padding, dilation):
 
 # dcn_fwd's square tile (output pixels, output channels, items in its
 # shared-memory ring) and its wide tile for 256 < Cout <= 512; threads (16
-# warps), the bytes of a staged row; the most dynamic shared memory a block
-# may use on the H100 (227 KB)
+# warps), the bytes of a staged row
 DCN_FWD_TILE = (128, 256, 3)
 DCN_FWD_WIDE_TILE = (64, 512, 2)
 DCN_FWD_WARPS = 16
 DCN_FWD_ROW_BYTES = 128
-MAX_SMEM_BYTES = 232448
 
 
 class DcnFwdPlan(NamedTuple):
@@ -236,11 +233,6 @@ def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
     return cols
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # per device: dcn_fwd's arrival counts, one int32 per tile, zero between
 # launches (the last block to finish a shared tile sets its count back);
 # launches that share them run one after another, as on the port's one
@@ -279,7 +271,7 @@ def _dcn_fwd_cuda(x, offset, mask, weight, kernel_size, stride, padding,
     out = torch.empty((B, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
     # at most one block per SM; two slots of f32 tile sums per block for the
     # tiles that blocks share
-    blocks = _sm_count(x.device.index)
+    blocks = _build.sm_count(x.device.index)
     partial = torch.empty((2 * blocks, plan.rows * plan.bn),
                           dtype=torch.float32, device=x.device)
     tiles = -(-(B * Ho * Wo) // plan.rows) * plan.channel_tiles

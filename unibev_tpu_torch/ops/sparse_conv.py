@@ -36,7 +36,8 @@ row that a gather appends to the features.
 * The weight gradient, kernel K9 (``csrc/sparse_conv.cu::
   unibev_sparse_conv_wgrad``, the JAX ``_dw_dot`` over the gathered
   columns): ``dW[k * Cin + c] = sum_v feats_pad[nidx[v, k], c] * g[v]``,
-  float32 products and sums, float32 out.
+  float32 sums, float32 out; bf16 on the tensor cores over spans of rows,
+  :func:`wgrad_plan` its launch plan.
 
 CPU tensors take the plain versions (``sparse_nbr_reference``,
 ``sparse_conv_reference``, ``sparse_inv_nbr_reference``,
@@ -45,6 +46,7 @@ CPU tensors take the plain versions (``sparse_nbr_reference``,
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -326,13 +328,109 @@ def sparse_conv_wgrad_reference(feats: torch.Tensor, nidx: torch.Tensor,
     return cols.view(Vout, K * Cin).float().t() @ g.float()
 
 
+# K9's launch plan, the layout of csrc/sparse_conv.cu (WgradLayout,
+# WgradWarps, wgrad_tile): 256 threads a block.
+WGRAD_THREADS = 256
+WGRAD_F32_ROWS = 64
+# a (kc x bn) tile at least this large is wide: its partial of a tap is 32
+# to 64 KB of float32 reductions
+WGRAD_WIDE_TILE = 64 * 128
+
+
+class WgradPlan(NamedTuple):
+    """How K9 covers one call: blocks of ``kc`` input by ``bn`` output
+    channels (``grid`` = (spans, output tiles, input chunks)) over ``span``
+    rows each, items of ``chunk`` rows, ``smem_bytes`` of dynamic shared
+    memory; bf16: the 8 warps as ``warps`` = (WM, WN, WK) of ``tiles`` =
+    (MT, NT) mma tiles."""
+    kc: int
+    bn: int
+    warps: Tuple[int, int, int]
+    tiles: Tuple[int, int]
+    chunk: int
+    span: int
+    grid: Triple
+    smem_bytes: int
+
+
+def _wgrad_tile(c: int, widest: int) -> int:
+    return next((t for t in (16, 32, 64) if c <= t and t < widest), widest)
+
+
+def wgrad_warps(kc: int, bn: int):
+    """((WM, WN, WK), (MT, NT)): the 8 warps of a (kc x bn) tile as WM x WN
+    warps of MT m-tiles of 16 input channels by NT n-tiles of 8 output
+    channels, and WK warps taking every WK-th 16-row step of an item."""
+    wm = min(kc // 16, 4)
+    wn = min(bn // 8, 8 // wm)
+    return (wm, wn, 8 // (wm * wn)), (kc // 16 // wm, bn // 8 // wn)
+
+
+def wgrad_smem_bytes(K: int, span: int, chunk: int, kc: int, bn: int) -> int:
+    """The bf16 kernel's shared memory (``wgrad_layout``): the (span x K)
+    index tile, a flag per (tap, chunk), the item list and its count, a flag
+    per row, then 128-aligned the g slice (span x (bn + 8) bf16) and two
+    stages of gathered rows (chunk x (kc + 8))."""
+    pairs = span // chunk * K
+    head = 4 * (span * K + pairs + pairs + 1 + span)
+    return -(-head // 128) * 128 + 2 * span * (bn + 8) + 4 * chunk * (kc + 8)
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(Vout: int, K: int, Cin: int, Cout: int, itemsize: int,
+               sms: int) -> WgradPlan:
+    """K9's launch plan for ``Vout`` rows of ``K`` taps, ``Cin`` -> ``Cout``
+    channels, in bf16 (``itemsize`` 2) or float32 (4), on a card of ``sms``
+    SMs (:func:`_build.sm_count`).
+
+    bf16: tiles of Cin and Cout each padded to 16, 32, 64 or 128 (wider
+    takes more blocks).  Items of 256 rows at 16 or 32 input channels, 128
+    at 64 or 128; spans of 256 rows, so that several blocks share an SM;
+    for a wide tile (``WGRAD_WIDE_TILE``) the least span of whole items
+    that puts one block on each SM, since every block adds a partial of up
+    to 64 KB per live tap.  Input rows that are not 16-byte multiples
+    (conv_input's Cin = 5, plain loads): items of 64 rows, spans of 128.
+    Each the fastest of the spans and items measured at the flagship's
+    sites (PERF.md section 6).  The kernel refuses a layout that disagrees
+    with its own.  Cached: the wrapper asks once a call.
+
+    float32 (CUDA cores): 16, 32 or 64 channel tiles, spans of 64-row steps
+    halved from 4096 (not below 256) until the grid of (span, tap, tiles)
+    blocks reaches 1024.
+    """
+    if itemsize == 4:
+        kc, bn = _wgrad_tile(Cin, 64), _wgrad_tile(Cout, 64)
+        tiles = -(-Cin // kc) * -(-Cout // bn)
+        s = 4096
+        while s > 256 and -(-Vout // s) * K * tiles < 1024:
+            s //= 2
+        return WgradPlan(kc=kc, bn=bn, warps=(0, 0, 0), tiles=(0, 0),
+                         chunk=WGRAD_F32_ROWS, span=s,
+                         grid=(-(-Vout // s), K, tiles), smem_bytes=0)
+    kc, bn = _wgrad_tile(Cin, 128), _wgrad_tile(Cout, 128)
+    warps, tiles = wgrad_warps(kc, bn)
+    plain = Cin * itemsize % 16 != 0
+    chunk = 64 if plain else 256 if kc <= 32 else 128
+    span = 2 * chunk if plain else max(chunk, 256)
+    if kc * bn >= WGRAD_WIDE_TILE:
+        span = max(chunk, -(-Vout // (sms * chunk)) * chunk)
+        while (span > chunk and wgrad_smem_bytes(K, span, chunk, kc, bn)
+               > _build.MAX_SMEM_BYTES):
+            span -= chunk
+    return WgradPlan(kc=kc, bn=bn, warps=warps, tiles=tiles, chunk=chunk,
+                     span=span,
+                     grid=(-(-Vout // span), -(-Cout // bn), -(-Cin // kc)),
+                     smem_bytes=wgrad_smem_bytes(K, span, chunk, kc, bn))
+
+
 def sparse_conv_wgrad(feats: torch.Tensor, nidx: torch.Tensor,
                       g: torch.Tensor) -> torch.Tensor:
     """The weight gradient of a sparse conv; CPU tensors take the plain
     version, CUDA tensors kernel K9.  Arguments as
     :func:`sparse_conv_wgrad_reference`; on CUDA feats and g share one dtype
     (float32 or bfloat16), nidx is int32, all contiguous.  On the card the
-    row spans are summed with float32 atomics, in no fixed order."""
+    row spans are summed with float32 atomics, in no fixed order; the launch
+    plan is :func:`wgrad_plan`."""
     if feats.device.type == "cpu":
         return sparse_conv_wgrad_reference(feats, nidx, g)
     tensors = (feats, nidx, g)
@@ -350,10 +448,13 @@ def sparse_conv_wgrad(feats: torch.Tensor, nidx: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sparse_conv_wgrad: the kernel takes contiguous tensors")
     Cout = g.shape[1]
+    plan = wgrad_plan(Vout, K, Cin, Cout, feats.element_size(),
+                      _build.sm_count(feats.device.index))
     dw = torch.zeros((K * Cin, Cout), dtype=torch.float32, device=feats.device)
     err = _build.lib().unibev_sparse_conv_wgrad(
         feats.data_ptr(), nidx.data_ptr(), g.data_ptr(), dw.data_ptr(), Vout,
-        K, Cin, Cout, V, code, torch.cuda.current_stream().cuda_stream)
+        K, Cin, Cout, V, code, plan.kc, plan.bn, plan.span, plan.chunk,
+        plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sparse_conv_wgrad")
     _build.launches["sparse_conv_wgrad"] += 1
     return dw
