@@ -9,8 +9,8 @@ then, each phase printing one line (or a few) and raising on any failure:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
      kernel build time, and what ``nvcc -Xptxas -v`` reports for K1, K2
-     (dcn_fwd), K3, K4, K7 and K9 (registers, static shared memory, stack,
-     spills);
+     (dcn_fwd), the im2col, K3, K4, K7 and K9 (registers, static shared
+     memory, stack, spills);
   2. kernel K1 (MSDA) against its plain PyTorch version at the five
      flagship call shapes, in f32 (TF32 off) and bf16, with both times,
      their ratio and the access width each site takes;
@@ -23,7 +23,12 @@ then, each phase printing one line (or a few) and raising on any failure:
      0 (no corner is read; the blend, the product and the loop remain) and
      dcn_fwd's and the route's with offsets an eighth the size; and the
      im2col kernel, which the DCN backward keeps, against its plain
-     version;
+     version, with its launch plan per site, its time (CUDA events and the
+     profiler's device time) and with mask 0 (no corner is read), its
+     bound beside a second floor (its corner reads from L2, printed and
+     not part of the bound), and the backward's column route for d_weight
+     (the im2col and cols^T g, a torch.matmul) beside dcn_fwd, which
+     samples the same columns;
   4. the tiny camera-only model: CUDA with the kernels against the CPU with
      the plain versions, same weights and inputs;
   5. full-width flagship camera-only predict in bf16 (6 cameras at
@@ -172,6 +177,13 @@ K9_BEFORE_STEP_MS = 10.702
 # name and power limit are printed beside every number.
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+# A second floor of the im2col, printed beside its bound and not part of
+# it: its four corner reads per column vector from L2 at ~7 TB/s, an
+# estimate of the H100's L2 read rate (NVIDIA publishes none)
+L2_BYTES_PER_S = 7e12
+# the im2col's sums over its sites besides add_site's
+IM2COL_SUMS = ("device_ms", "no_loads_ms", "no_loads_device_ms", "l2_ms",
+               "wgrad_route_ms", "wgrad_route_device_ms")
 
 # (name, calls per flagship forward, B, V, Q, heads, D, levels, points):
 # the camera-only path's sites (forward and train step), then the LiDAR
@@ -281,8 +293,8 @@ def ratio_line(label, rec):
           f"{rec['bound_ms']:.4f} ms", flush=True)
 
 
-def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "msda_bwd", "dcn_bwd",
-                          "sparse_conv_kernel", "sparse_wgrad")):
+def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "dcn_im2col", "msda_bwd",
+                          "dcn_bwd", "sparse_conv_kernel", "sparse_wgrad")):
     """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
     entry functions whose names hold one of ``kernels``: one dict each."""
     log = _build.BUILD_DIR / "nvcc.log"
@@ -377,7 +389,8 @@ def phase_msda(gen):
 
 def phase_dcn(gen):
     # imported here: --compare also runs against checkouts that predate it
-    from unibev_tpu_torch.ops.deform_conv import dcn_fwd, dcn_fwd_plan
+    from unibev_tpu_torch.ops.deform_conv import (dcn_fwd, dcn_fwd_plan,
+                                                  im2col_plan)
     print("phase 3: K2 dcn_fwd (the fused DCN forward) vs "
           "modulated_deform_conv2d_reference and the route it replaced "
           "(im2col + torch.matmul); the im2col (the backward's columns) vs "
@@ -386,6 +399,8 @@ def phase_dcn(gen):
     for k in ("route_ms", "device_ms", "route_device_ms", "no_loads_ms",
               "small_ms", "small_route_ms"):
         fwd[k] = 0.0
+    for k in IM2COL_SUMS:
+        cols_rec[k] = 0.0
     for name, calls, B, H, W, Cin, Cout in DCN_SITES:
         plan = dcn_fwd_plan(Cin, Cout)
         print(f"  {name}: dcn_fwd plan {plan._asdict()}", flush=True)
@@ -444,9 +459,47 @@ def phase_dcn(gen):
                          ("small_ms", small_ms),
                          ("small_route_ms", small_route)):
                 fwd[k] += calls * v
-            # x, offsets, mask, columns; 4 corners x Cin FMAs per tap
-            add_site(cols_rec, name, calls, cols_ms, plain_cols, err_cols,
-                     2 * pix * (Cin + 27 + 9 * Cin), 8 * pix * 9 * Cin)
+            # the im2col: its plan, device time, mask 0 (no corner is read;
+            # the geometry, the blend of zeros and the column stores
+            # remain), and the backward's column route for d_weight (the
+            # im2col and cols^T g) beside dcn_fwd, which samples the same
+            # columns and multiplies them in one kernel
+            cplan = im2col_plan(B, H, W, Cin, H, W, 9, 2, x.data_ptr())
+            cols_dev = device_ms(lambda: deform_im2col(x, off, mask), 20)
+            cols_zero = cuda_ms(lambda: deform_im2col(x, off, zero), 20)
+            cols_zero_dev = device_ms(lambda: deform_im2col(x, off, zero), 20)
+            g = torch.randn(pix, Cout, device="cuda", generator=gen).to(dtype)
+            wgrad = lambda: torch.matmul(deform_im2col(x, off, mask).t(), g)  # noqa: E731
+            wgrad_ms = cuda_ms(wgrad, 20)
+            wgrad_dev = device_ms(wgrad, 20)
+            # x, offsets, mask, columns; 4 corners x Cin FMAs per tap.  The
+            # corners come from L2: four column vectors' bytes per column
+            # vector, unless L1 holds them
+            l2_bytes = 4 * 2 * pix * 9 * Cin
+            l2_ms = l2_bytes / L2_BYTES_PER_S * 1e3
+            cbound = add_site(cols_rec, name, calls, cols_ms, plain_cols,
+                              err_cols, 2 * pix * (Cin + 27 + 9 * Cin),
+                              8 * pix * 9 * Cin, plan=cplan._asdict(),
+                              device_ms=cols_dev, no_loads_ms=cols_zero,
+                              no_loads_device_ms=cols_zero_dev,
+                              l2_bytes=l2_bytes, l2_ms=l2_ms,
+                              wgrad_route_ms=wgrad_ms,
+                              wgrad_route_device_ms=wgrad_dev,
+                              dcn_fwd_ms=ms, dcn_fwd_device_ms=dev)
+            for k, v in (("device_ms", cols_dev), ("no_loads_ms", cols_zero),
+                         ("no_loads_device_ms", cols_zero_dev),
+                         ("l2_ms", l2_ms), ("wgrad_route_ms", wgrad_ms),
+                         ("wgrad_route_device_ms", wgrad_dev)):
+                cols_rec[k] += calls * v
+            print(f"  {name} bf16: im2col plan {cplan._asdict()}; im2col "
+                  f"{cols_ms:.4f} ms (device {cols_dev:.4f}), mask 0 "
+                  f"{cols_zero:.4f} ms (device {cols_zero_dev:.4f}); bound "
+                  f"{cbound:.4f} ms (bytes); L2 corner bytes "
+                  f"{l2_bytes / 1e6:.1f} MB, {l2_ms:.4f} ms at "
+                  f"{L2_BYTES_PER_S / 1e12:.0f} TB/s; backward column route "
+                  f"(im2col + cols^T g) {wgrad_ms:.4f} ms (device "
+                  f"{wgrad_dev:.4f}) beside dcn_fwd {ms:.4f} ms (device "
+                  f"{dev:.4f})", flush=True)
             print(f"  {name} bf16: dcn_fwd {ms:.4f} ms, route (im2col + "
                   f"matmul) {route:.4f} ms, plain {plain:.4f} ms; dcn_fwd/route "
                   f"{ms / route:.4f}, dcn_fwd/plain {ms / plain:.4f}; device "
@@ -468,6 +521,17 @@ def phase_dcn(gen):
           f"corner loads) {fwd['no_loads_ms']:.4f} ms; offsets / 8: dcn_fwd "
           f"{fwd['small_ms']:.4f} ms, route "
           f"{fwd['small_route_ms']:.4f} ms", flush=True)
+    print(f"  im2col over the 26 launches of a train step: "
+          f"{cols_rec['ms']:.4f} ms (device {cols_rec['device_ms']:.4f}), "
+          f"plain {cols_rec['plain_ms']:.4f} ms, mask 0 "
+          f"{cols_rec['no_loads_ms']:.4f} ms (device "
+          f"{cols_rec['no_loads_device_ms']:.4f}); bound "
+          f"{cols_rec['bound_ms']:.4f} ms (bytes; "
+          f"{cols_rec['bound_ms'] / cols_rec['ms']:.3f} of the kernel), L2 "
+          f"corner floor {cols_rec['l2_ms']:.4f} ms; backward column route "
+          f"{cols_rec['wgrad_route_ms']:.4f} ms (device "
+          f"{cols_rec['wgrad_route_device_ms']:.4f}) beside dcn_fwd "
+          f"{fwd['ms']:.4f} ms (device {fwd['device_ms']:.4f})", flush=True)
     return fwd, cols_rec
 
 

@@ -422,6 +422,147 @@ def test_dcn_autograd_launches_fwd_then_im2col(cuda_device, dtype, rel):
         _close(a * m, b * m, rel)
 
 
+# name: (B, H, W, Cin, stride, dilation, dtype, bytes x starts past a
+# 16-byte boundary): 16-byte vectors with idle lanes (Cin 40 bf16: 5 a row),
+# uneven lanes (Cin 520: 65 vectors over 32), the scalar width for a row
+# that is not whole vectors (Cin 5, Cin 6 f32) or an unaligned x, and the
+# flagship stage 3 at B = 1
+IM2COL_CASES = {
+    "cin40": (2, 11, 13, 40, 1, 1, torch.bfloat16, 0),
+    "cin40_s2": (2, 11, 13, 40, 2, 1, torch.bfloat16, 0),
+    "cin40_dil2": (2, 11, 13, 40, 1, 2, torch.bfloat16, 0),
+    "cin520": (1, 9, 10, 520, 1, 1, torch.bfloat16, 0),
+    "cin5": (2, 11, 13, 5, 1, 1, torch.bfloat16, 0),
+    "cin40_x_off2": (2, 11, 13, 40, 1, 1, torch.bfloat16, 2),
+    "stage3": (1, 58, 100, 256, 1, 1, torch.bfloat16, 0),
+    "cin40_f32": (2, 11, 13, 40, 1, 1, torch.float32, 0),
+    "cin6_f32": (2, 11, 13, 6, 2, 1, torch.float32, 0),
+    "cin40_f32_x_off8": (2, 11, 13, 40, 1, 1, torch.float32, 8),
+    "stage4_f32": (1, 29, 50, 512, 1, 1, torch.float32, 0),
+}
+
+
+def _im2col_case(device, case, seed=11):
+    """x (possibly a view past a 16-byte boundary), offsets with taps off
+    the map and a NaN, a mask with zeros, and the keyword arguments."""
+    B, H, W, Cin, stride, dil, dtype, off_bytes = IM2COL_CASES[case]
+    g = torch.Generator(device=device).manual_seed(seed)
+    Ho = (H - 1) // stride + 1
+    Wo = (W - 1) // stride + 1
+    x = torch.randn(B, H, W, Cin, device=device, generator=g).to(dtype)
+    if off_bytes:
+        skip = off_bytes // x.element_size()
+        buf = torch.empty(x.numel() + skip, dtype=dtype, device=device)
+        view = buf[skip:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == off_bytes
+        x = view
+    off = (torch.randn(B, Ho, Wo, 18, device=device, generator=g)
+           * 2.5).to(dtype)
+    off[0, 0, 1, 6:10] = 1000.0                # taps 3 and 4: off the map
+    off[-1, -1, -1, 0:2] = -1.5                # corners half outside
+    mask = torch.rand(B, Ho, Wo, 9, device=device, generator=g).to(dtype)
+    mask[0, 1] = 0                             # a row of pixels reads nothing
+    mask[..., 5] = 0                           # and tap 5 nowhere
+    return x, off, mask, dict(stride=stride, padding=dil, dilation=dil)
+
+
+@pytest.mark.parametrize("case", list(IM2COL_CASES))
+def test_im2col_kernel_matches_plain(cuda_device, case):
+    """``dcn_im2col`` against the plain columns, one launch a call, with
+    the plan's width; a NaN offset samples nothing (zeros)."""
+    x, off, mask, kw = _im2col_case(cuda_device, case)
+    off[0, 2, 1, 4] = float("nan")             # tap 2 of one pixel
+    plan = deform_conv.im2col_plan(
+        x.shape[0], x.shape[1], x.shape[2], x.shape[3], off.shape[1],
+        off.shape[2], 9, x.element_size(), x.data_ptr(), 0)
+    unaligned = x.data_ptr() % 16 or x.shape[3] * x.element_size() % 16
+    assert plan.vec_bytes == (x.element_size() if unaligned else 16)
+    before = dict(_build.launches)
+    got = deform_im2col(x, off, mask, **kw)
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {"dcn_im2col": 1}
+    assert got.dtype == x.dtype and got.shape == (off[..., 0].numel(),
+                                                  9 * x.shape[3])
+    cols = got.view(*off.shape[:3], 9, -1)
+    assert (cols[0, 2, 1, 2] == 0).all() and (cols[0, 1] == 0).all()
+    assert (cols[..., 5, :] == 0).all()
+    off[0, 2, 1, 4] = 1000.0                   # as far out: the plain version's
+    rel = 1e-4 if x.dtype is torch.float32 else 2 ** -6
+    _close(got, deform_im2col_reference(x, off, mask, **kw), rel)
+
+
+@pytest.mark.parametrize("case", ["cin40", "cin40_s2", "cin40_dil2", "cin5",
+                                  "stage3"])
+def test_im2col_integer_offsets_are_exact(cuda_device, case):
+    """Whole-pixel offsets and mask 1: every column is a value of x (or 0
+    off the map), bit for bit in bf16."""
+    x, off, _, kw = _im2col_case(cuda_device, case)
+    B, H, W, Cin = x.shape
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    off = torch.randint(-3, 4, off.shape, device=cuda_device,
+                        generator=g).to(x.dtype)
+    mask = torch.ones(*off.shape[:3], 9, device=cuda_device, dtype=x.dtype)
+    got = deform_im2col(x, off, mask, **kw).view(*off.shape[:3], 9, Cin)
+    s, d = kw["stride"], kw["dilation"]
+    Ho, Wo = off.shape[1:3]
+    k = torch.arange(9, device=cuda_device)
+    sy = (torch.arange(Ho, device=cuda_device)[:, None, None] * s - d
+          + (k // 3) * d + off[..., 0::2].long())        # (B, Ho, Wo, 9)
+    sx = (torch.arange(Wo, device=cuda_device)[None, :, None] * s - d
+          + (k % 3) * d + off[..., 1::2].long())
+    inside = (sy >= 0) & (sy < H) & (sx >= 0) & (sx < W)
+    b = torch.arange(B, device=cuda_device)[:, None, None, None]
+    want = x[b, sy.clamp(0, H - 1), sx.clamp(0, W - 1)] * inside[..., None]
+    assert torch.equal(got, want.to(x.dtype))
+
+
+@pytest.mark.parametrize("case", ["cin40", "cin40_s2", "cin40_dil2", "cin5",
+                                  "stage4_f32"])
+def test_dcn_fwd_and_im2col_sample_the_same_columns(cuda_device, case):
+    """In f32, ``dcn_fwd(x, off, mask, W)`` equals ``im2col @ W`` to 1e-5:
+    the two kernels sample the same columns (tap_geometry, the same
+    blend)."""
+    x, off, mask, kw = _im2col_case(cuda_device, case)
+    x, off, mask = x.float(), off.float(), mask.float()
+    Cin = x.shape[3]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    w = torch.randn(9 * Cin, 24, device=cuda_device, generator=g) * (9 * Cin) ** -0.5
+    want = torch.matmul(deform_im2col(x, off, mask, **kw), w)
+    got = dcn_fwd(x, off, mask, w, **kw)
+    _close(got.reshape(want.shape), want, 1e-5)
+
+
+def test_im2col_refuses_another_plan(cuda_device, monkeypatch):
+    """The entry point refuses an access width, lanes or pixels a block
+    that disagree with its own check, and the wrapper raises on it."""
+    x, off, mask, _ = _im2col_case(cuda_device, "cin40")
+    B, H, W, Cin = x.shape
+    Ho, Wo = off.shape[1:3]
+    cols = torch.empty(B * Ho * Wo, 9 * Cin, device=cuda_device,
+                       dtype=x.dtype)
+    plan = deform_conv.im2col_plan(B, H, W, Cin, Ho, Wo, 9, 2, x.data_ptr(),
+                                   cols.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(p):
+        return _build.lib().unibev_dcn_im2col(
+            x.data_ptr(), off.data_ptr(), mask.data_ptr(), cols.data_ptr(), B,
+            H, W, Cin, Ho, Wo, 3, 3, 1, 1, 1, 1, p.vec_bytes // 2, p.lanes,
+            p.pixels, stream)
+
+    assert call(plan) == 0
+    for kw in (dict(vec_bytes=2), dict(lanes=16), dict(pixels=plan.pixels + 1),
+               dict(vec_bytes=8)):
+        assert call(plan._replace(**kw)) != 0, kw
+    torch.cuda.synchronize()
+    real = deform_conv.im2col_plan
+    monkeypatch.setattr(deform_conv, "im2col_plan",
+                        lambda *a: real(*a)._replace(lanes=4))
+    with pytest.raises(RuntimeError, match="dcn_im2col"):
+        deform_im2col(x, off, mask)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     value, loc, attn = _msda_inputs(cuda_device, torch.float32, ((29, 50),), 8)
     with pytest.raises(TypeError):

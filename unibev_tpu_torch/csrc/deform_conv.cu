@@ -82,9 +82,43 @@
 //     takes plain loads of x into the same layout; the wrapper pads each
 //     tap's weights to whole stages.
 
-// dcn_im2col: one warp per (output pixel, tap), the geometry computed once
-// per warp, lanes over Cin, so that the corner reads and the column writes
-// are contiguous; the columns' bytes (160 MB at stage 3 in bf16) bound it.
+// dcn_im2col, what bounds it on the H100.  It writes the columns, 160 MB a
+// flagship stage-3 call in bf16 (80 MB at stage 4), to HBM: 0.048 ms at
+// 3.35 TB/s.  Each column vector blends four corner vectors of x (17.8 MB
+// at stage 3, in L2), so L2 serves four times the column bytes, ~640 MB a
+// stage-3 call, unless L1 catches neighbouring points' shared corners.  The
+// design (ops/deform_conv.py::im2col_plan is its launch plan):
+//   * a block takes a tile of `pixels` output pixels and all K taps; one
+//     thread per (pixel, tap) computes its geometry once (tap_geometry, as
+//     dcn_fwd does: the mask folded into the four corner weights, 0 for a
+//     corner that reads nothing, and the row of the first corner) into
+//     shared memory; no lane recomputes it;
+//   * `lanes` threads (the row's vectors rounded up to a power of two, at
+//     most a warp) own a (pixel, tap) at a time and walk its row in 16-byte
+//     vectors (8 bf16 or 4 f32 channels): a corner that weighs something is
+//     one 16-byte load, a corner that weighs 0 is not read, the blend is
+//     dcn_fwd's (f32, the same order: the same columns) and the vector ends
+//     in one 16-byte store.  A row that is not a whole number of 16-byte
+//     vectors, or an unaligned x or cols, takes the scalar width, one
+//     element a lane: a path the plan names;
+//   * a thread issues the corner loads of kColBatch (2) vectors before it
+//     blends any of them, and writes about kColUnits (16) vectors a tile:
+//     14 pixels a block at stage 3, 7 at stage 4;
+//   * the tile's columns are one contiguous stretch of cols, written by
+//     consecutive lanes at consecutive addresses, with streaming stores
+//     (st.global.cs: evict-first), and the 16-byte corner loads carry an
+//     L2 evict-last policy, so that the column stream does not push x out.
+// Measured (unibev_tpu_torch/tools/im2col_study.py, which builds copies of
+// this file with one change each; device time over a step's 23 stage-3 and
+// 3 stage-4 calls, PERF.md section 6): one vector a batch took between
+// 3.5% less and 4.6% more than two (noise), four 20-25% longer (117
+// registers a thread against 64); 8 and 32 vectors a thread 3-6% longer
+// than 16; plain stores 4-6% longer; loads without the evict-last policy
+// -2.4% to +3.6% alone, and in the train step 1.78 ms against 1.71;
+// staging a warp's vectors in shared memory for 512-byte TMA bulk stores
+// (cp.async.bulk) 28-30% longer.  With mask 0 (no corner read) a call
+// keeps ~88% of its time: the column stores, at ~0.88 of the bytes bound,
+// set it.
 //
 // K4: each (pixel, tap) reads a Cin-wide row of d_cols (160 MB a flagship
 // stage-3 call, from HBM) and four Cin-wide corner rows of x (in L2), and
@@ -113,6 +147,7 @@
 #include <atomic>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "bilinear.cuh"
 #include "scatter.cuh"
@@ -120,7 +155,6 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;  // dcn_im2col
 constexpr int kBwdThreads = 256;   // K4
 
 struct Tap {
@@ -148,41 +182,6 @@ __device__ __forceinline__ Tap tap_at(long long warp, const T* offset,
          to_float(offset[t.n * 2 * K + 2 * t.k + 1]);
   t.m = to_float(mask[t.n * K + t.k]);
   return t;
-}
-
-template <typename T>
-__global__ void dcn_im2col_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ offset,
-                                  const T* __restrict__ mask,
-                                  T* __restrict__ cols, int H, int W, int Cin,
-                                  int Ho, int Wo, int Kw, int K, int stride,
-                                  int pad, int dil, long long n_warps) {
-  // warp = n * K + k
-  const long long warp =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp >= n_warps) return;
-  const int lane = threadIdx.x & 31;
-  const Tap t = tap_at(warp, offset, mask, Ho, Wo, Kw, K, stride, pad, dil);
-  T* dst = cols + warp * Cin;
-
-  Bilinear g;
-  if (!bilinear_at(t.sx, t.sy, W, H, g)) {
-    for (int c = lane; c < Cin; c += 32) dst[c] = from_float<T>(0.f);
-    return;
-  }
-  float w[4];
-  const T* p[4];
-  const T* img = x + t.b * H * W * Cin;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    w[c] = g.in[c] ? g.w[c] * t.m : 0.f;   // out-of-range corners weigh 0
-    p[c] = img + corner_cell(g, c, W) * Cin;
-  }
-  for (int c = lane; c < Cin; c += 32) {
-    const float s = w[0] * to_float(p[0][c]) + w[1] * to_float(p[1][c]) +
-                    w[2] * to_float(p[2][c]) + w[3] * to_float(p[3][c]);
-    dst[c] = from_float<T>(s);
-  }
 }
 
 // K4: `lanes` threads per (output pixel, tap) item, each owning the
@@ -285,10 +284,6 @@ cudaError_t launch_bwd(const void* x, const void* offset, const void* mask,
                  static_cast<float*>(table), H, W, Cin, Ho, Wo, Kw, K, stride,
                  pad, dil, lanes, n_threads);
   return cudaGetLastError();
-}
-
-unsigned blocks_for(long long n_warps) {
-  return (unsigned)((n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
 // ---- dcn_fwd ---------------------------------------------------------------
@@ -435,6 +430,38 @@ __device__ __forceinline__ uint4 blend<__nv_bfloat16>(const uint4 (&v)[4],
            ((unsigned)__bfloat16_as_ushort(__float2bfloat16(s[1])) << 16);
   }
   return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// The geometry of tap k of output pixel n (as tap_at, in 32 bits: the
+// launches check B * H * W and the pixel count): the four bilinear corner
+// weights with the mask folded in, 0 for a corner that reads nothing
+// (outside the map, of a point outside it, or mask 0), and the row of
+// corner 0 in x viewed as (B * H * W, Cin), outside the map when corner 0
+// is (corner c adds (c / 2) * W + c % 2).  w4 and row are left as they are
+// for a point outside the map.  dcn_fwd and dcn_im2col both sample with it,
+// so that their columns agree.
+template <typename T>
+__device__ __forceinline__ void tap_geometry(const T* offset, const T* mask,
+                                             int n, int k, int H, int W,
+                                             int Ho, int Wo, int Kw, int K,
+                                             int stride, int pad, int dil,
+                                             float4& w4, int& row) {
+  const int wo = n % Wo;
+  const int ho = n / Wo % Ho;
+  const int b = n / Wo / Ho;
+  const int ky = k / Kw;
+  const int kx = k - ky * Kw;
+  const T* off = offset + ((long long)n * K + k) * 2;
+  const float sy = (float)(ho * stride - pad + ky * dil) + to_float(off[0]);
+  const float sx = (float)(wo * stride - pad + kx * dil) + to_float(off[1]);
+  const float m = to_float(mask[(long long)n * K + k]);
+  Bilinear g;
+  if (!bilinear_at(sx, sy, W, H, g)) return;
+  row = (b * H + g.y0) * W + g.x0;
+  w4.x = g.in[0] ? g.w[0] * m : 0.f;
+  w4.y = g.in[1] ? g.w[1] * m : 0.f;
+  w4.z = g.in[2] ? g.w[2] * m : 0.f;
+  w4.w = g.in[3] ? g.w[3] * m : 0.f;
 }
 
 // The warpgroup's rows of A and first output channel: the 4 warpgroups are
@@ -624,38 +651,17 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     __syncthreads();
     {
       // the geometry of the tile's kRows x K sample points, tap-major
-      // (as tap_at, in 32 bits: the launch checks B * H * W and n_pix)
       const int n0 = u / items / ctiles * Tl::kRows;
       const int rows = (int)min((long long)Tl::kRows, n_pix - n0);
       for (int e = tid; e < Tl::kRows * K; e += kFwdThreads) {
         const int r = e % Tl::kRows;
         const int k = e / Tl::kRows;
-        float w[4] = {0.f, 0.f, 0.f, 0.f};
+        float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
         int row = 0;
-        if (r < rows) {
-          const int n = n0 + r;
-          const int wo = n % Wo;
-          const int ho = n / Wo % Ho;
-          const int b = n / Wo / Ho;
-          const int ky = k / Kw;
-          const int kx = k - ky * Kw;
-          const T* off = offset + ((long long)n * K + k) * 2;
-          const float sy = (float)(ho * stride - pad + ky * dil) +
-                           to_float(off[0]);
-          const float sx = (float)(wo * stride - pad + kx * dil) +
-                           to_float(off[1]);
-          const float m = to_float(mask[(long long)n * K + k]);
-          Bilinear g;
-          if (bilinear_at(sx, sy, W, H, g)) {
-            // corner 0's cell, outside the map when it is; a corner
-            // outside weighs 0 and is not read
-            row = (b * H + g.y0) * W + g.x0;
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              if (g.in[c]) w[c] = g.w[c] * m;
-          }
-        }
-        geo_w[k * Tl::kRows + r] = make_float4(w[0], w[1], w[2], w[3]);
+        if (r < rows)
+          tap_geometry(offset, mask, n0 + r, k, H, W, Ho, Wo, Kw, K, stride,
+                       pad, dil, w4, row);
+        geo_w[k * Tl::kRows + r] = w4;
         geo_row[k * Tl::kRows + r] = row;
       }
       __syncthreads();
@@ -892,6 +898,173 @@ cudaError_t launch_fwd(const void* x, const void* offset, const void* mask,
   return cudaGetLastError();
 }
 
+// ---- dcn_im2col ------------------------------------------------------------
+
+constexpr int kColThreads = 256;        // 8 warps
+constexpr int kColUnits = 16;           // vectors a thread writes a tile (aim)
+constexpr int kColMaxPixels = 128;      // output pixels a tile, at most
+constexpr int kColGeoBytes = 20;        // geometry a (pixel, tap): float4, int
+constexpr int kColMaxSmem = 48 * 1024;  // the geometry's shared memory, most
+constexpr int kColBatch = 2;  // vectors whose loads a thread issues at once
+
+// The output pixels of an im2col tile: about kColUnits vectors a thread, at
+// most kColMaxPixels and what kColMaxSmem of geometry holds, at least one
+// (ops/deform_conv.py::im2col_plan computes the same).
+int col_pixels(int K, int lanes, int per_lane) {
+  const int p = kColUnits * kColThreads / (lanes * K * per_lane);
+  return std::max(1, std::min({p, kColMaxPixels,
+                               kColMaxSmem / (kColGeoBytes * K)}));
+}
+
+// An L2 policy under which the lines a load brings in are evicted after
+// the others: x's, whose corners the tiles read again, stay in L2 while
+// the column stream passes.
+__device__ __forceinline__ unsigned long long l2_evict_last() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// 16 read-only bytes of x under `policy`.
+__device__ __forceinline__ uint4 load_last(const void* p,
+                                           unsigned long long policy) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// One element of x at the scalar width, its bits in the low half of the
+// word.
+__device__ __forceinline__ unsigned load_bits(const float* p) {
+  return __float_as_uint(__ldg(p));
+}
+
+__device__ __forceinline__ unsigned load_bits(const __nv_bfloat16* p) {
+  return __bfloat16_as_ushort(__ldg(p));
+}
+
+// One element of the scalar width: the four corners blended as blend<T>
+// blends each channel, stored streaming (evict-first).
+__device__ __forceinline__ void store_blend(float* p, const unsigned (&v)[4],
+                                            const float (&w)[4]) {
+  __stcs(p, w[0] * __uint_as_float(v[0]) + w[1] * __uint_as_float(v[1]) +
+                w[2] * __uint_as_float(v[2]) + w[3] * __uint_as_float(v[3]));
+}
+
+__device__ __forceinline__ void store_blend(__nv_bfloat16* p,
+                                            const unsigned (&v)[4],
+                                            const float (&w)[4]) {
+  const float s = w[0] * __uint_as_float(v[0] << 16) +
+                  w[1] * __uint_as_float(v[1] << 16) +
+                  w[2] * __uint_as_float(v[2] << 16) +
+                  w[3] * __uint_as_float(v[3] << 16);
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         __bfloat16_as_ushort(__float2bfloat16(s)));
+}
+
+// Block b writes the columns of output pixels [b * pixels, (b + 1) *
+// pixels), one contiguous stretch of cols: items (pixel, tap), pixel-major,
+// each a row of Cin channels.  Group g of `lanes` threads takes items g, g
+// + groups, ...; its lane l the vectors l, l + lanes, ... of each item's
+// row (kE channels a vector: 16 bytes, or one element at the scalar
+// width).  A thread walks that list kColBatch vectors at a time: first all
+// their corner loads, then the blends and stores.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kColThreads)
+    dcn_im2col_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                      const T* __restrict__ mask, T* __restrict__ cols, int H,
+                      int W, int Cin, int Ho, int Wo, int Kw, int K,
+                      int stride, int pad, int dil, int n_pix, int pixels,
+                      int lanes) {
+  constexpr int kE = kVec ? 16 / (int)sizeof(T) : 1;
+  using Raw = std::conditional_t<kVec, uint4, unsigned>;
+  extern __shared__ float4 geo_w[];  // [pixels * K], then the rows
+  int* const geo_row = reinterpret_cast<int*>(geo_w + pixels * K);
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * pixels;
+  const int items = min(pixels, n_pix - n0) * K;
+  for (int i = tid; i < items; i += kColThreads) {
+    const int p = i / K;
+    float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    int row = 0;
+    tap_geometry(offset, mask, n0 + p, i - p * K, H, W, Ho, Wo, Kw, K, stride,
+                 pad, dil, w4, row);
+    geo_w[i] = w4;
+    geo_row[i] = row;
+  }
+  __syncthreads();
+
+  const int shift = __ffs(lanes) - 1;
+  const int lane = tid & (lanes - 1);
+  const int groups = kColThreads >> shift;
+  const int nvec = Cin / kE;
+  const int corner_step[4] = {0, 1, W, W + 1};
+  T* const tile = cols + (long long)n0 * K * Cin;
+  const unsigned long long policy = l2_evict_last();
+  // the thread's next (item, vector); lanes past the row's vectors idle
+  int i = lane < nvec ? tid >> shift : items;
+  int v = lane;
+  while (i < items) {
+    int it[kColBatch], ch[kColBatch];
+    Raw corner[kColBatch][4];
+    float w[kColBatch][4];
+#pragma unroll
+    for (int j = 0; j < kColBatch; ++j) {
+      it[j] = i;
+      ch[j] = v * kE;
+      if (i >= items) continue;
+      const float4 g4 = geo_w[i];
+      const int row = geo_row[i];
+      w[j][0] = g4.x;
+      w[j][1] = g4.y;
+      w[j][2] = g4.z;
+      w[j][3] = g4.w;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        corner[j][c] = Raw{};
+        if (w[j][c] == 0.f) continue;  // outside the map, or mask 0
+        const T* src = x + (long long)(row + corner_step[c]) * Cin + ch[j];
+        if constexpr (kVec)
+          corner[j][c] = load_last(src, policy);
+        else
+          corner[j][c] = load_bits(src);
+      }
+      v += lanes;
+      if (v >= nvec) {
+        v = lane;
+        i += groups;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kColBatch; ++j) {
+      if (it[j] >= items) break;
+      T* const dst = tile + (long long)it[j] * Cin + ch[j];
+      if constexpr (kVec)
+        __stcs(reinterpret_cast<uint4*>(dst), blend<T>(corner[j], w[j]));
+      else
+        store_blend(dst, corner[j], w[j]);
+    }
+  }
+}
+
+template <typename T, bool kVec>
+cudaError_t launch_im2col(const void* x, const void* offset, const void* mask,
+                          void* cols, int H, int W, int Cin, int Ho, int Wo,
+                          int Kw, int K, int stride, int pad, int dil,
+                          int n_pix, int pixels, int lanes, cudaStream_t s) {
+  const unsigned grid = (unsigned)((n_pix + pixels - 1) / pixels);
+  dcn_im2col_kernel<T, kVec><<<grid, kColThreads,
+                               pixels * K * kColGeoBytes, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset),
+      static_cast<const T*>(mask), static_cast<T*>(cols), H, W, Cin, Ho, Wo,
+      Kw, K, stride, pad, dil, n_pix, pixels, lanes);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The fused forward.  x (B, H, W, Cin); offset (B, Ho, Wo, 2K); mask (B,
@@ -934,34 +1107,52 @@ extern "C" int unibev_dcn_fwd(const void* x, const void* offset,
   return cudaErrorInvalidValue;
 }
 
-// dtype: 0 f32, 1 bf16.  Returns the cudaError_t of the launch (0 on success).
+// The backward's columns.  x (B, H, W, Cin); offset (B, Ho, Wo, 2K); mask
+// (B, Ho, Wo, K); cols (B * Ho * Wo, K * Cin); all in one dtype (0 f32, 1
+// bf16).  vec, lanes and pixels are the plan of ops/deform_conv.py::
+// im2col_plan: channels an access (16 bytes where a row of Cin is a whole
+// number of them and x and cols are 16-byte aligned, else one element),
+// threads per (pixel, tap) (group_lanes of the row's accesses) and output
+// pixels a block (col_pixels); a plan that disagrees is refused.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int unibev_dcn_im2col(const void* x, const void* offset,
                                  const void* mask, void* cols, int B, int H,
                                  int W, int Cin, int Ho, int Wo, int Kh,
                                  int Kw, int stride, int pad, int dil,
-                                 int dtype, void* stream) {
-  if (Kh < 1 || Kw < 1 || Cin < 1 || stride < 1 || dil < 1)
+                                 int dtype, int vec, int lanes, int pixels,
+                                 void* stream) {
+  const int size = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  if (B < 0 || Ho < 0 || Wo < 0 || Kh < 1 || Kw < 1 || Cin < 1 ||
+      stride < 1 || dil < 1 || size == 0)
+    return cudaErrorInvalidValue;
+  // the kernel's int32 rows and pixel indices
+  const long long n_pix = (long long)B * Ho * Wo;
+  if ((long long)B * H * W > INT_MAX || n_pix > INT_MAX)
     return cudaErrorInvalidValue;
   const int K = Kh * Kw;
-  const long long n_warps = (long long)B * Ho * Wo * K;
-  if (n_warps == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dcn_im2col_kernel<float><<<blocks_for(n_warps), kWarpsPerBlock * 32, 0,
-                               s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(offset),
-        static_cast<const float*>(mask), static_cast<float*>(cols), H, W, Cin,
-        Ho, Wo, Kw, K, stride, pad, dil, n_warps);
-  } else if (dtype == 1) {
-    using T = __nv_bfloat16;
-    dcn_im2col_kernel<T><<<blocks_for(n_warps), kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(offset),
-        static_cast<const T*>(mask), static_cast<T*>(cols), H, W, Cin, Ho, Wo,
-        Kw, K, stride, pad, dil, n_warps);
-  } else {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int wide = 16 / size;
+  const int want = Cin % wide == 0 && aligned(x) && aligned(cols) ? wide : 1;
+  const int want_lanes = group_lanes(Cin / want);
+  const int per_lane = (Cin / want + want_lanes - 1) / want_lanes;
+  if (vec != want || lanes != want_lanes ||
+      pixels != col_pixels(K, want_lanes, per_lane) ||
+      pixels * K * kColGeoBytes > kColMaxSmem)
     return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (n_pix == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define UNIBEV_DCN_IM2COL(T, VEC)                                            \
+  return launch_im2col<T, VEC>(x, offset, mask, cols, H, W, Cin, Ho, Wo, Kw, \
+                               K, stride, pad, dil, (int)n_pix, pixels,      \
+                               lanes, s)
+  const bool vec16 = vec == wide;
+  if (dtype == 0 && vec16) UNIBEV_DCN_IM2COL(float, true);
+  if (dtype == 0) UNIBEV_DCN_IM2COL(float, false);
+  if (vec16) UNIBEV_DCN_IM2COL(__nv_bfloat16, true);
+  UNIBEV_DCN_IM2COL(__nv_bfloat16, false);
+#undef UNIBEV_DCN_IM2COL
 }
 
 // The backward.  d_cols, d_offset and d_mask in x's dtype; table (B * H *

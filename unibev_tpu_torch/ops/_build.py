@@ -58,9 +58,9 @@ _SIGNATURES = {
     "unibev_dcn_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, offset, mask, cols, B, H, W, Cin, Ho, Wo, Kh, Kw, stride, pad, dil,
-    # dtype, stream
+    # dtype, vec, lanes, pixels, stream
     "unibev_dcn_im2col": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _P),
+                          _I, _I, _I, _I, _I, _I, _P),
     # value, loc, attn, grad, d_attn, d_loc, table, B, V, Q, heads, D, L, P,
     # shapes, dtype, vec, lanes, stream
     "unibev_msda_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

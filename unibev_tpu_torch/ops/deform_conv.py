@@ -7,11 +7,12 @@ deformable columns into shared memory and multiplies them there, so the
 (B*Ho*Wo, K*Cin) column matrix never reaches device memory;
 :func:`dcn_fwd_plan` is its launch plan.  The gradient follows
 ``_mdcn_fast_bwd``, which recomputes the gather: the im2col kernel
-(``unibev_dcn_im2col``) writes the columns for d_weight = cols^T g; d_cols
-= g W^T and d_weight are ``torch.matmul``; kernel K4 (``csrc/deform_conv.cu::
-unibev_dcn_bwd``), one launch per layer, turns d_cols into d_offset and
-d_mask and adds d_x straight into a float32 table with vector reductions;
-:func:`dcn_bwd_plan` is its launch plan.
+(``unibev_dcn_im2col``; :func:`im2col_plan` is its launch plan) writes the
+columns for d_weight = cols^T g; d_cols = g W^T and d_weight are
+``torch.matmul``; kernel K4 (``csrc/deform_conv.cu::unibev_dcn_bwd``), one
+launch per layer, turns d_cols into d_offset and d_mask and adds d_x
+straight into a float32 table with vector reductions; :func:`dcn_bwd_plan`
+is its launch plan.
 
 Each kernel tap moves to a fractional position ``(ho*stride - pad + ky*dil +
 dy, wo*stride - pad + kx*dil + dx)``, is sampled bilinearly with zero
@@ -94,6 +95,60 @@ def dcn_bwd_plan(B: int, H: int, W: int, Cin: int, Ho: int, Wo: int,
     chunks a lane at Cin 256 in bf16)."""
     return _build.bwd_plan(B * Ho * Wo * taps, Cin, itemsize,
                            (x_address, d_cols_address), B * H * W * Cin)
+
+
+# dcn_im2col: threads a block, the vectors a thread writes a tile (the
+# plan's aim), the most output pixels a tile, shared memory per (pixel,
+# tap) of geometry (a float4 of corner weights and an int32 row) and the
+# most of it (csrc/deform_conv.cu, kCol*)
+IM2COL_THREADS = 256
+IM2COL_UNITS = 16
+IM2COL_MAX_PIXELS = 128
+IM2COL_GEO_BYTES = 20
+IM2COL_MAX_SMEM = 48 * 1024
+
+
+class Im2colPlan(NamedTuple):
+    """How ``dcn_im2col`` covers one call: accesses of ``vec_bytes`` (16, or
+    one element: the scalar width), ``lanes`` threads per (output pixel,
+    tap) each owning at most ``chunks_per_lane`` of the row's accesses,
+    ``pixels`` output pixels (all their taps) a block of ``threads``,
+    ``blocks`` blocks, ``smem_bytes`` of geometry a block."""
+    vec_bytes: int
+    lanes: int
+    chunks_per_lane: int
+    pixels: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def im2col_plan(B: int, H: int, W: int, Cin: int, Ho: int, Wo: int,
+                taps: int, itemsize: int, x_address: int = 0,
+                cols_address: int = 0) -> Im2colPlan:
+    """The launch plan of ``dcn_im2col`` (``csrc/deform_conv.cu``, which
+    refuses a plan that disagrees with its own check).
+
+    16-byte accesses where a row of Cin is a whole number of them and x and
+    cols are 16-byte aligned, else the scalar width (one element an
+    access); the row's accesses rounded up to a power of two threads per
+    (pixel, tap), at most a warp; as many output pixels a block as give
+    each thread about ``IM2COL_UNITS`` accesses, at most
+    ``IM2COL_MAX_PIXELS`` and what ``IM2COL_MAX_SMEM`` of geometry holds,
+    at least one.  ``H`` and ``W`` do not change the plan."""
+    del H, W
+    vec = 16 if (Cin * itemsize % 16 == 0 and x_address % 16 == 0
+                 and cols_address % 16 == 0) else itemsize
+    chunks = Cin * itemsize // vec
+    lanes = _build.group_lanes(chunks)
+    per_lane = -(-chunks // lanes)
+    pixels = max(1, min(IM2COL_UNITS * IM2COL_THREADS
+                        // (lanes * taps * per_lane), IM2COL_MAX_PIXELS,
+                        IM2COL_MAX_SMEM // (IM2COL_GEO_BYTES * taps)))
+    return Im2colPlan(vec_bytes=vec, lanes=lanes, chunks_per_lane=per_lane,
+                      pixels=pixels, threads=IM2COL_THREADS,
+                      blocks=-(-(B * Ho * Wo) // pixels),
+                      smem_bytes=pixels * taps * IM2COL_GEO_BYTES)
 
 
 def _im2col_f32(x, offset, mask, kernel_size, stride, padding, dilation):
@@ -224,9 +279,13 @@ def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
     Kh, Kw = kernel_size
     cols = torch.empty((B * Ho * Wo, Kh * Kw * Cin), dtype=x.dtype,
                        device=x.device)
+    size = x.element_size()
+    plan = im2col_plan(B, H, W, Cin, Ho, Wo, Kh * Kw, size, x.data_ptr(),
+                       cols.data_ptr())
     err = _build.lib().unibev_dcn_im2col(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
         B, H, W, Cin, Ho, Wo, Kh, Kw, stride, padding, dilation, code,
+        plan.vec_bytes // size, plan.lanes, plan.pixels,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "dcn_im2col")
     _build.launches["dcn_im2col"] += 1
