@@ -9,8 +9,8 @@ then, each phase printing one line (or a few) and raising on any failure:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
      kernel build time, and what ``nvcc -Xptxas -v`` reports for K1, K2
-     (dcn_fwd), the im2col, K3, K4, K7 and K9 (registers, static shared
-     memory, stack, spills);
+     (dcn_fwd), the im2col, K3, K4, K6, K7, K8 and K9 (registers, static
+     shared memory, stack, spills);
   2. kernel K1 (MSDA) against its plain PyTorch version at the five
      flagship call shapes, in f32 (TF32 off) and bf16, with both times,
      their ratio and the access width each site takes;
@@ -52,11 +52,14 @@ then, each phase printing one line (or a few) and raising on any failure:
      10 after 3 warm-ups), peak memory, finite losses and grad norm, SCA
      overflow, frozen parameters bit-identical after the steps;
  10. a torch.profiler breakdown of one train step by kernel;
- 11. the voxelizer's time on the synthetic batch's 300k points, and the
-     sparse-conv kernels against their plain versions at every flagship
-     LiDAR site, on the active sets and rulebooks of the voxelized synthetic
-     batch: K6 sparse_nbr exactly, K7 sparse_conv in f32 (TF32 off) and
-     bf16, with both times and their ratio;
+ 11. the voxelizer's time on the synthetic batch's 300k points; the device
+     time of the compact tables of one forward (build_table and the four
+     downsample_with_table calls: the active sets of the strided convs);
+     and the sparse-conv kernels against their plain versions at every
+     flagship LiDAR site, on the active sets and rulebooks of the voxelized
+     synthetic batch: K6 sparse_nbr exactly (its time beside K6_BEFORE_MS,
+     the kernel over a dense int32 table), K7 sparse_conv in f32 (TF32 off)
+     and bf16, with both times and their ratio;
  12. the tiny LC model in LC and L mode: CUDA with the kernels against the
      CPU with the plain versions, same weights and inputs;
  13. full-width flagship LC predict in bf16 (6 cameras at 928x1600 and 300k
@@ -71,7 +74,8 @@ then, each phase printing one line (or a few) and raising on any failure:
      the host's time in each (the traced wall less the time spent waiting
      in CUDA synchronizing calls);
  16. the sparse conv's backward against its plain versions at every
-     flagship LiDAR site: K8 sparse_inv_nbr exactly at its 4 sites, K9
+     flagship LiDAR site: K8 sparse_inv_nbr exactly at its 4 sites (beside
+     K8_BEFORE_MS), K9
      sparse_conv_wgrad at its 21 (f32 with TF32 off, and bf16; the 4
      submanifold convs of a resolution share a rulebook and take fresh
      data each; bf16 on the tensor cores, its time per site and over the
@@ -170,6 +174,15 @@ K9_BEFORE_MS = {"conv_input": 0.151, "subm0": 0.152, "down0": 0.302,
                 "subm1": 0.333, "down1": 0.223, "subm2": 0.324,
                 "down2": 0.539, "subm3": 1.533, "conv_out": 0.118}
 K9_BEFORE_STEP_MS = 10.702
+# K6's and K8's time a call at each site over the dense int32 table, before
+# the compact table (CUDA events on an NVIDIA H100 80GB HBM3 at 700.00 W;
+# PERF.md section 6 records their sums, 0.288 and 0.164 ms): phases 11 and
+# 16 print each site's new time beside it.
+K6_BEFORE_MS = {"subm0": 0.0384, "down0": 0.0272, "subm1": 0.0276,
+                "down1": 0.0271, "subm2": 0.0471, "down2": 0.0317,
+                "subm3": 0.0602, "conv_out": 0.0286}
+K8_BEFORE_MS = {"down0": 0.0380, "down1": 0.0414, "down2": 0.0398,
+                "conv_out": 0.0444}
 
 # The least time of a call: the larger of its bytes (each input read once,
 # each output written once) over the H100 SXM's HBM3 rate and its
@@ -294,7 +307,8 @@ def ratio_line(label, rec):
 
 
 def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "dcn_im2col", "msda_bwd",
-                          "dcn_bwd", "sparse_conv_kernel", "sparse_wgrad")):
+                          "dcn_bwd", "sparse_nbr", "sparse_conv_kernel",
+                          "sparse_inv_nbr", "sparse_wgrad")):
     """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
     entry functions whose names hold one of ``kernels``: one dict each."""
     log = _build.BUILD_DIR / "nvcc.log"
@@ -1001,7 +1015,7 @@ def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
     (name, calls per forward, Cin, Cout, rows of its input, rulebook, output
     mask); a K8 site is (name, sparse_inv_nbr arguments) of a strided conv.
     The counts are the voxels before the cap and each strided conv's
-    overflow.
+    overflow, and ``grid`` the res-0 active set.
     """
     mask = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
     vox = voxelize_and_encode(points, mask, *voxel, capacities[0])
@@ -1010,6 +1024,7 @@ def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
     grid = SparseGrid(coords.contiguous(), vox.mask, sparse_shape, 1)
     table = build_table(grid)
     k6, k7, k8, overflow = [], [], [], []
+    counts = dict(grid=grid)
 
     def subm(i, grid, table):
         args = (table, grid.coords.shape[0], grid.shape, grid.coords,
@@ -1021,7 +1036,7 @@ def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
         out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
                           zip(grid.shape, padding, kernel, stride))
         co, mo, table_out, over = downsample_with_table(
-            grid, table, kernel, stride, padding, out_shape, capacity)
+            grid, kernel, stride, padding, out_shape, capacity)
         args = (table, grid.coords.shape[0], grid.shape, co, mo, kernel,
                 stride, padding)
         k6.append((name, args))
@@ -1048,7 +1063,7 @@ def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
     grid, _, sidx = strided("conv_out", grid, table, (3, 1, 1), (2, 1, 1),
                             (0, 0, 0), capacities[-1])
     k7.append(("conv_out", 1, 128, 128, rows, sidx, grid.mask))
-    counts = dict(num_distinct_voxels=int(vox.num_distinct),
+    counts.update(num_distinct_voxels=int(vox.num_distinct),
                   num_voxels=int(vox.num_voxels), sparse_overflow=overflow)
     return k6, k7, k8, counts
 
@@ -1056,6 +1071,41 @@ def lidar_sites(points, voxel=(VOXEL_SIZE, PC_RANGE, VOXEL_GRID),
 def _live(idx, sentinel):
     """Rulebook entries that hold a row: the taps this run's data has."""
     return int((idx < sentinel).sum())
+
+
+# The strided convs of one SparseEncoder forward: (kernel, stride, padding,
+# capacity of the output rows)
+STRIDED_CONVS = [((3, 3, 3), (2, 2, 2), p, c)
+                 for p, c in zip(DOWN_PADDINGS, CAPACITIES[1:])] + [
+                     ((3, 1, 1), (2, 1, 1), (0, 0, 0), CAPACITIES[-1])]
+
+
+def _tables_of_a_forward(grid):
+    """The compact tables of one SparseEncoder forward: build_table at res 0
+    and the four downsample_with_table calls (the strided convs' active
+    sets)."""
+    build_table(grid)
+    for kernel, stride, padding, capacity in STRIDED_CONVS:
+        out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                          zip(grid.shape, padding, kernel, stride))
+        co, mo, _, _ = downsample_with_table(grid, kernel, stride, padding,
+                                             out_shape, capacity)
+        grid = SparseGrid(co, mo, out_shape, grid.batch)
+
+
+def _table_bytes(table, cells, ok):
+    """Bytes of a compact table that lookups of ``cells`` where ``ok`` must
+    read, each at most once: the word of every cell looked up, the count of
+    every word that holds a set one, and the map entry of every cell that
+    holds a row."""
+    # imported here: --compare runs this script in checkouts without it
+    from unibev_tpu_torch.ops.sparse_conv import table_lookup
+    cells = torch.unique(cells[ok])
+    words = cells >> 5
+    is_set = ((table.bits[words] >> (cells & 31)) & 1) == 1
+    rows = int((table_lookup(table, cells, -1) >= 0).sum())
+    return 4 * (torch.unique(words).numel()
+                + torch.unique(words[is_set]).numel() + rows)
 
 
 def phase_sparse(gen):
@@ -1070,7 +1120,15 @@ def phase_sparse(gen):
     P, F = points.shape
     counts["voxelizer_bound_ms"] = ((4 * F + 1) * P + (4 * F + 13)
                                     * CAPACITIES[0]) / HBM_BYTES_PER_S * 1e3
+    grid = counts.pop("grid")
     print(f"  voxelized synthetic batch: {counts}", flush=True)
+    counts["tables_device_ms"] = device_ms(lambda: _tables_of_a_forward(grid),
+                                           5)
+    counts["tables_ms"] = cuda_ms(lambda: _tables_of_a_forward(grid), 5)
+    print(f"  the compact tables of one forward (build_table and 4 "
+          f"downsample_with_table): device {counts['tables_device_ms']:.4f} "
+          f"ms, events {counts['tables_ms']:.4f} ms", flush=True)
+    from unibev_tpu_torch.ops.sparse_conv import rulebook_cells
     rec6 = new_rec()
     for name, args in k6:
         got, want = sparse_nbr(*args), sparse_nbr_reference(*args)
@@ -1078,16 +1136,24 @@ def phase_sparse(gen):
             raise AssertionError(f"K6 {name}: {int((got != want).sum())} "
                                  f"entries differ from the plain version")
         ms = cuda_ms(lambda: sparse_nbr(*args), 20)
+        dev = device_ms(lambda: sparse_nbr(*args), 20)
         plain = cuda_ms(lambda: sparse_nbr_reference(*args), 5)
         live = _live(want, args[1])
         Vout, K = want.shape
-        # coords, mask, the table entries that hold a row, the rulebook
+        table = _table_bytes(args[0], *rulebook_cells(*args[2:]))
+        # coords and mask in, the rulebook out, the table's bytes it reads
         bound = add_site(rec6, name, 1, ms, plain, 0.0,
-                         17 * Vout + 4 * live + 4 * Vout * K, 0,
-                         shape=[Vout, K], live=live)
-        print(f"  K6 {name}: {(Vout, K)} equal ({live} live entries); "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms",
-              flush=True)
+                         17 * Vout + 4 * Vout * K + table, 0,
+                         shape=[Vout, K], live=live, table_bytes=table,
+                         device_ms=dev, before_ms=K6_BEFORE_MS[name])
+        print(f"  K6 {name}: {(Vout, K)} equal ({live} live entries, "
+              f"{table} table bytes); kernel {ms:.4f} ms (device {dev:.4f}), "
+              f"plain {plain:.4f} ms, bound {bound:.4f} ms, before "
+              f"{K6_BEFORE_MS[name]:.4f} ms", flush=True)
+    rec6["device_ms"] = sum(v["device_ms"] for v in rec6["sites"].values())
+    ratio_line(f"K6 over the 8 launches of one forward (device "
+               f"{rec6['device_ms']:.4f} ms; before "
+               f"{sum(K6_BEFORE_MS.values()):.4f} ms)", rec6)
     rec7 = new_rec()
     for name, calls, cin, cout, rows, nidx, mask in k7:
         Vout, K = nidx.shape
@@ -1126,22 +1192,31 @@ def phase_sparse_backward(gen):
     _, k7, k8, _ = lidar_sites(points)
     rec8, rec9, rec_df = new_rec(), new_rec(), new_rec()
     inv = {}
+    from unibev_tpu_torch.ops.sparse_conv import inverse_cells
     for name, args in k8:
         got, want = sparse_inv_nbr(*args), sparse_inv_nbr_reference(*args)
         if not torch.equal(got, want):
             raise AssertionError(f"K8 {name}: {int((got != want).sum())} "
                                  f"entries differ from the plain version")
         ms = cuda_ms(lambda: sparse_inv_nbr(*args), 20)
+        dev = device_ms(lambda: sparse_inv_nbr(*args), 20)
         plain = cuda_ms(lambda: sparse_inv_nbr_reference(*args), 5)
         live = _live(want, args[1])
         Vin, K = want.shape
+        table = _table_bytes(args[0], *inverse_cells(*args[2:]))
         bound = add_site(rec8, name, 1, ms, plain, 0.0,
-                         17 * Vin + 4 * live + 4 * Vin * K, 0,
-                         shape=[Vin, K], live=live)
-        print(f"  K8 {name}: {(Vin, K)} equal ({live} live entries); kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms",
-              flush=True)
+                         17 * Vin + 4 * Vin * K + table, 0,
+                         shape=[Vin, K], live=live, table_bytes=table,
+                         device_ms=dev, before_ms=K8_BEFORE_MS[name])
+        print(f"  K8 {name}: {(Vin, K)} equal ({live} live entries, {table} "
+              f"table bytes); kernel {ms:.4f} ms (device {dev:.4f}), plain "
+              f"{plain:.4f} ms, bound {bound:.4f} ms, before "
+              f"{K8_BEFORE_MS[name]:.4f} ms", flush=True)
         inv[name] = want
+    rec8["device_ms"] = sum(v["device_ms"] for v in rec8["sites"].values())
+    ratio_line(f"K8 over the 4 launches of one step (device "
+               f"{rec8['device_ms']:.4f} ms; before "
+               f"{sum(K8_BEFORE_MS.values()):.4f} ms)", rec8)
     for name, calls, cin, cout, rows, nidx, mask in k7:
         Vout, K = nidx.shape
         live = _live(nidx, rows)
@@ -1287,7 +1362,8 @@ def _predict_run(model, batch, iters, expected, label):
                sparse_overflow=out["sparse_overflow"].tolist())
     print(f"  {label}: {ms:.2f} ms/sample (median of {iters}; min "
           f"{min(times):.2f}, max {max(times):.2f}); peak "
-          f"{peak / 2 ** 30:.2f} GiB; launches per forward {launches}; "
+          f"{peak / 2 ** 30:.2f} GiB ({peak} bytes); launches per forward "
+          f"{launches}; "
           f"sca_overflow {rec['sca_overflow']}; boxes finite {finite} "
           f"{tuple(boxes.shape)}; voxels before the cap "
           f"{rec['num_distinct_voxels']}, strided-conv overflow "
@@ -1342,7 +1418,7 @@ def _category(kernel_name):
     if "index" in n or "scatter" in n or "scan" in n or "cum" in n:
         return "index_add, index_copy, scatter, scans"
     if "pool" in n:
-        return "max pooling (ResNet stem, strided active sets)"
+        return "max pooling (ResNet stem)"
     if "fprop" in n or "dgrad" in n or "wgrad" in n or "conv" in n \
             or "addpadding" in n:
         return "convolution (cuDNN)"

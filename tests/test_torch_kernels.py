@@ -42,7 +42,8 @@ from unibev_tpu_torch.ops.scatter import (scatter_add_rows,
 from unibev_tpu_torch.ops.sparse_conv import (
     SparseGrid, build_table, downsample_with_table, sparse_conv,
     sparse_conv_reference, sparse_conv_wgrad, sparse_conv_wgrad_reference,
-    sparse_inv_nbr, sparse_inv_nbr_reference, sparse_nbr, sparse_nbr_reference)
+    sparse_inv_nbr, sparse_inv_nbr_reference, sparse_nbr, sparse_nbr_reference,
+    table_entries)
 
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
@@ -628,8 +629,8 @@ def test_sparse_nbr_kernel_matches_plain(cuda_device, kernel, stride, padding):
     else:
         out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
                           zip(grid.shape, padding, kernel, stride))
-        co, mo, _, _ = downsample_with_table(grid, table, kernel, stride,
-                                             padding, out_shape, 300)
+        co, mo, _, _ = downsample_with_table(grid, kernel, stride, padding,
+                                             out_shape, 300)
     before = _build.launches["sparse_nbr"]
     got = sparse_nbr(table, V, grid.shape, co, mo, kernel, stride, padding)
     torch.cuda.synchronize()
@@ -637,6 +638,53 @@ def test_sparse_nbr_kernel_matches_plain(cuda_device, kernel, stride, padding):
     want = sparse_nbr_reference(table, V, grid.shape, co, mo, kernel, stride,
                                 padding)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert bool((want < V).any()) and bool((want == V).any())
+
+
+def _word_edge_grid(device, B=2, shape=(9, 14, 13), V=700, seed=1):
+    """Every cell on either edge of a 32-cell word (1638 cells a sample, not
+    a multiple of 32, so words straddle the samples) and as many random
+    others, in V shuffled rows with padding."""
+    g = torch.Generator().manual_seed(seed)
+    D, H, W = shape
+    cells = torch.arange(B * D * H * W)
+    edge = cells[(cells % 32 == 0) | (cells % 32 == 31)]
+    rest = cells[(cells % 32 != 0) & (cells % 32 != 31)]
+    rest = rest[torch.randperm(rest.numel(), generator=g)[:edge.numel()]]
+    live = torch.cat([edge, rest])
+    coords = torch.stack([live // (D * H * W), (live // (H * W)) % D,
+                          (live // W) % H, live % W], 1).int()
+    coords = torch.cat([coords, torch.full((V - live.numel(), 4), -1,
+                                           dtype=torch.int32)])
+    coords = coords[torch.randperm(V, generator=g)].contiguous().to(device)
+    return SparseGrid(coords, coords[:, 0] >= 0, shape, B)
+
+
+@pytest.mark.parametrize("kernel,stride,padding", [
+    ((3, 3, 3), (1, 1, 1), (1, 1, 1)), ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ((3, 3, 3), (2, 2, 2), (0, 1, 1)), ((3, 1, 1), (2, 1, 1), (0, 0, 0))],
+    ids=["subm", "k3s2p1", "k3s2p011", "conv_out"])
+def test_rulebook_kernels_on_word_edges(cuda_device, kernel, stride, padding):
+    """K6 (and K8 for a strided conv) bit for bit against their plain
+    versions on compact tables at B = 2: shuffled rows, rows on the first
+    and last cell of words, x windows across two words, and a capacity 100
+    below the output sites (a dropped site reads the sentinel)."""
+    grid = _word_edge_grid(cuda_device)
+    table = build_table(grid)
+    V = grid.coords.shape[0]
+    co, mo = grid.coords, grid.mask
+    if stride != (1, 1, 1):
+        out_shape, co, mo, tab = _strided(grid, kernel, stride, padding)
+        inv_args = (tab, 100, out_shape, grid.coords, grid.mask, kernel,
+                    stride, padding)
+        got = sparse_inv_nbr(*inv_args)
+        want = sparse_inv_nbr_reference(*inv_args)
+        assert torch.equal(got, want)
+        assert bool((want < 100).any()) and bool((want == 100).any())
+    args = (table, V, grid.shape, co, mo, kernel, stride, padding)
+    got, want = sparse_nbr(*args), sparse_nbr_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
     assert bool((want < V).any()) and bool((want == V).any())
 
 
@@ -694,8 +742,12 @@ def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     grid = _sparse_grid(cuda_device)
     table = build_table(grid)
     args = (grid.shape, grid.coords, grid.mask, (3, 3, 3), (1, 1, 1), (1, 1, 1))
+    with pytest.raises(TypeError):          # the dense int32 table
+        sparse_nbr(table_entries(table), 500, *args)
     with pytest.raises(TypeError):
-        sparse_nbr(table.long(), 500, *args)
+        sparse_nbr(table._replace(bits=table.bits.long()), 500, *args)
+    with pytest.raises(ValueError):
+        sparse_nbr(table._replace(size=table.size + 32), 500, *args)
     with pytest.raises(ValueError):
         sparse_nbr(table, 500, grid.shape, grid.coords.t().contiguous(),
                    *args[2:])
@@ -714,21 +766,24 @@ def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         sparse_conv_wgrad(feats, nidx, g[:-1])
     with pytest.raises(TypeError):
-        sparse_inv_nbr(table.long(), 100, (5, 7, 7), *args[1:3], (3, 3, 3),
-                       (2, 2, 2), (1, 1, 1))
+        sparse_inv_nbr(table_entries(table), 100, (5, 7, 7), *args[1:3],
+                       (3, 3, 3), (2, 2, 2), (1, 1, 1))
+    with pytest.raises(TypeError):
+        sparse_inv_nbr(table._replace(rows=table.rows.long()), 100,
+                       (5, 7, 7), *args[1:3], (3, 3, 3), (2, 2, 2), (1, 1, 1))
 
 
 STRIDED = [((3, 3, 3), (2, 2, 2), (1, 1, 1)), ((3, 3, 3), (2, 2, 2), (0, 1, 1)),
            ((3, 1, 1), (2, 1, 1), (0, 0, 0))]
 
 
-def _strided(grid, table, kernel, stride, padding, cap=100):
+def _strided(grid, kernel, stride, padding, cap=100):
     """(out_shape, coords, mask, table) of a strided conv's output sites, the
     capacity below the site count."""
     out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
                       zip(grid.shape, padding, kernel, stride))
-    co, mo, tab, over = downsample_with_table(grid, table, kernel, stride,
-                                              padding, out_shape, cap)
+    co, mo, tab, over = downsample_with_table(grid, kernel, stride, padding,
+                                              out_shape, cap)
     assert int(over) > 0
     return out_shape, co, mo, tab
 
@@ -738,8 +793,7 @@ def _strided(grid, table, kernel, stride, padding, cap=100):
 def test_sparse_inv_nbr_kernel_matches_plain(cuda_device, kernel, stride,
                                              padding):
     grid = _sparse_grid(cuda_device)
-    out_shape, _, _, tab = _strided(grid, build_table(grid), kernel, stride,
-                                    padding)
+    out_shape, _, _, tab = _strided(grid, kernel, stride, padding)
     args = (tab, 100, out_shape, grid.coords, grid.mask, kernel, stride, padding)
     before = _build.launches["sparse_inv_nbr"]
     got = sparse_inv_nbr(*args)
@@ -896,7 +950,7 @@ def test_sparse_conv_backward_goes_through_the_kernels(cuda_device, case,
     else:
         kernel, stride, padding = STRIDED[["k3s2p1", "k3s2p011",
                                            "conv_out"].index(case)]
-        out_shape, co, mo, tab = _strided(grid, table, kernel, stride, padding)
+        out_shape, co, mo, tab = _strided(grid, kernel, stride, padding)
         nidx = sparse_nbr(table, V, grid.shape, co, mo, kernel, stride, padding)
         inv = sparse_inv_nbr(tab, 100, out_shape, grid.coords, grid.mask,
                              kernel, stride, padding)

@@ -71,9 +71,8 @@ def _strided(sparse, kernel, stride, padding, cap):
     """Both packages' (output mask, rulebook, inverse rulebook) of one
     strided conv: (port tensors, JAX arrays)."""
     out_shape = _out_shape(kernel, stride, padding)
-    co, mo, tab, _ = downsample_with_table(sparse["grid"], sparse["table"],
-                                           kernel, stride, padding, out_shape,
-                                           cap)
+    co, mo, tab, _ = downsample_with_table(sparse["grid"], kernel, stride,
+                                           padding, out_shape, cap)
     sidx = strided_neighbor_idx(sparse["grid"], sparse["table"], co, mo,
                                 kernel, stride, padding)
     inv = sparse_inv_nbr_reference(tab, cap, out_shape, sparse["grid"].coords,

@@ -13,12 +13,26 @@
 // for a strided conv, over the inverse rulebook K8 (inverse_strided_idx
 // :701); d_weight is K9 (_dw_dot :358).  No scatter anywhere.
 //
-// K6 unibev_sparse_nbr: nidx[o, k] = table[cell(o * stride - pad + tap_k)],
+// The tables (ops/sparse_conv.py::CompactTable): a bitmap of the occupied
+// cells of a resolution, 32 cells a word over the flat cell index (b, z, y,
+// x), the set bits before each word, and the row of each of the first
+// n_rows ranks.  Cell c's rank is base[c >> 5] + popc(bits[c >> 5] & ((1 <<
+// (c & 31)) - 1)); its row is rows[rank] if its bit is set and the rank is
+// below n_rows (past it: a site a downsample dropped for the capacity), else
+// the sentinel.  At res 0 that is 21 MB, where a dense int32 table takes
+// 340 MB: the whole table stays in the 50 MB L2.
+// The JAX package reads a dense table through its window3_lookup (:119).
+//
+// K6 unibev_sparse_nbr: nidx[o, k] = row(cell(o * stride - pad + tap_k)),
 // or the sentinel when the cell is outside the grid or the output row is
-// masked (an empty cell holds the sentinel in the table already).  Taps are
-// (dz, dy, dx) row-major with dx fastest, the weight layout.  One thread per
-// (row, tap): the kernel is bound by the table reads, one 4-byte load per
-// output, scattered over the 340 MB full-resolution table.
+// masked.  Taps are (dz, dy, dx) row-major with dx fastest, the weight
+// layout.  One thread per (output row, dz, dy) plane: the plane's kx cells
+// are consecutive flat cells, so the thread reads the one or two words that
+// hold them once (ld.global.nc: read-only, L2-resident), and a word's count
+// and a map entry per occupied cell, and writes the plane's kx entries.  It
+// is bound by the rulebook it writes and the latency of its dependent loads
+// (word, then map entry); at the flagship's sites it runs near the latency
+// of a launch.
 //
 // K7 unibev_sparse_conv: out[v, :] = mask[v] ? sum_k feats[nidx[v, k], :] @
 // W[k * Cin : (k + 1) * Cin, :] : 0, float32 sums, out in feats' dtype.  A
@@ -55,12 +69,13 @@
 // a strided conv that reads i through d: o = (i + p - d) / s on every axis
 // when the division is exact and o is inside the output grid, looked up in
 // the output resolution's table; else the sentinel (the output capacity,
-// passed in: an input whose output site was dropped by the capacity finds
-// the sentinel in the table, never a real row).  The numerator is shifted
-// by k * s so that it stays non-negative, as the JAX op does.  A masked
-// input row gets the sentinel in every tap.  One thread per (row, tap), like
-// K6: bound by writing the (Vin, K) int32 table, a few microseconds; it
-// runs at the latency of a launch.
+// passed in: a site dropped by the capacity is empty in the table, never a
+// real row).  The numerator is shifted by k * s so that it stays
+// non-negative, as the JAX op does.  A masked input row gets the sentinel
+// in every tap.  One thread per (input row, dz, dy) plane, like K6: the
+// parity test on z and y comes first, then on each x tap, and only the taps
+// that pass it touch the table (6-8 of the 27 taps of a k3 s2 row).  Bound
+// by writing the (Vin, K) int32 table, a few microseconds.
 //
 // K9 unibev_sparse_conv_wgrad: dW[k * Cin + c, n] = sum_v feats_pad[nidx[v,
 // k], c] * g[v, n], float32 sums, dW float32 whatever the inputs' dtype; a
@@ -112,32 +127,57 @@
 
 namespace {
 
-__global__ void sparse_nbr_kernel(const int* __restrict__ table,
+// The row of a cell of a compact table, or `sentinel`: `word` caches the
+// last word read (`w` its index, -1 before the first).
+struct TableReader {
+  const unsigned* bits;
+  const int* base;
+  const int* rows;
+  int n_rows;
+  long long w = -1;
+  unsigned word = 0;
+
+  __device__ __forceinline__ int row(long long cell, int sentinel) {
+    if (cell >> 5 != w) {
+      w = cell >> 5;
+      word = __ldg(bits + w);
+    }
+    const unsigned bit = (unsigned)cell & 31u;
+    if (!((word >> bit) & 1u)) return sentinel;
+    const int rank = __ldg(base + w) + __popc(word & ((1u << bit) - 1u));
+    return rank < n_rows ? __ldg(rows + rank) : sentinel;
+  }
+};
+
+__global__ void sparse_nbr_kernel(const unsigned* __restrict__ bits,
+                                  const int* __restrict__ base,
+                                  const int* __restrict__ rows, int n_rows,
                                   const int* __restrict__ coords,
                                   const unsigned char* __restrict__ mask,
-                                  int* __restrict__ out, long long n, int K,
-                                  int D, int H, int W, int kz, int ky, int kx,
+                                  int* __restrict__ out, long long n, int P,
+                                  int D, int H, int W, int ky, int kx,
                                   int sz, int sy, int sx, int pz, int py,
-                                  int px, int sentinel, long long table_size) {
+                                  int px, int sentinel, long long size) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long o = i / K;
-  const int k = (int)(i - o * K);
-  int row = sentinel;
-  if (mask[o]) {
-    const int dx = k % kx;
-    const int dy = (k / kx) % ky;
-    const int dz = k / (kx * ky);
-    const int* c = coords + 4 * o;  // (b, z, y, x)
-    const int z = c[1] * sz - pz + dz;
-    const int y = c[2] * sy - py + dy;
-    const int x = c[3] * sx - px + dx;
-    if (z >= 0 && z < D && y >= 0 && y < H && x >= 0 && x < W) {
-      const long long cell = (((long long)c[0] * D + z) * H + y) * W + x;
-      if (cell >= 0 && cell < table_size) row = table[cell];
-    }
+  const long long o = i / P;
+  const int plane = (int)(i - o * P);
+  int* dst = out + o * P * kx + plane * kx;
+  const int* c = coords + 4 * o;  // (b, z, y, x)
+  const int z = __ldg(c + 1) * sz - pz + plane / ky;
+  const int y = __ldg(c + 2) * sy - py + plane % ky;
+  const int x0 = __ldg(c + 3) * sx - px;
+  const long long row0 = (((long long)__ldg(c) * D + z) * H + y) * W;
+  const bool live = mask[o] && z >= 0 && z < D && y >= 0 && y < H;
+  TableReader t{bits, base, rows, n_rows};
+  for (int dx = 0; dx < kx; ++dx) {
+    const int x = x0 + dx;
+    const long long cell = row0 + x;
+    int r = sentinel;
+    if (live && x >= 0 && x < W && cell >= 0 && cell < size)
+      r = t.row(cell, sentinel);
+    dst[dx] = r;
   }
-  out[i] = row;
 }
 
 constexpr int kRows = 64;      // output rows per block
@@ -469,41 +509,45 @@ cudaError_t dispatch_conv(const void* feats, const int* nidx,
                              Cout, V, s);
 }
 
-__global__ void sparse_inv_nbr_kernel(const int* __restrict__ table,
+__global__ void sparse_inv_nbr_kernel(const unsigned* __restrict__ bits,
+                                      const int* __restrict__ base,
+                                      const int* __restrict__ rows,
+                                      int n_rows,
                                       const int* __restrict__ coords,
                                       const unsigned char* __restrict__ mask,
                                       int* __restrict__ out, long long n,
-                                      int K, int Do, int Ho, int Wo, int kz,
+                                      int P, int Do, int Ho, int Wo, int kz,
                                       int ky, int kx, int sz, int sy, int sx,
                                       int pz, int py, int px, int sentinel,
-                                      long long table_size) {
+                                      long long size) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long v = i / K;
-  const int k = (int)(i - v * K);
-  int row = sentinel;
-  if (mask[v]) {
-    const int dx = k % kx;
-    const int dy = (k / kx) % ky;
-    const int dz = k / (kx * ky);
-    const int* c = coords + 4 * v;  // (b, z, y, x)
-    const int vz = c[1] + pz + kz * sz - dz;
-    const int vy = c[2] + py + ky * sy - dy;
-    const int vx = c[3] + px + kx * sx - dx;
-    if (vz % sz == 0 && vy % sy == 0 && vx % sx == 0) {
-      const int qz = vz / sz - kz;
-      const int qy = vy / sy - ky;
-      const int qx = vx / sx - kx;
-      if (qz >= 0 && qz < Do && qy >= 0 && qy < Ho && qx >= 0 && qx < Wo) {
-        const long long cell = (((long long)c[0] * Do + qz) * Ho + qy) * Wo + qx;
-        if (cell >= 0 && cell < table_size) {
-          const int r = table[cell];
-          if (r >= 0 && r < sentinel) row = r;
-        }
-      }
+  const long long v = i / P;
+  const int plane = (int)(i - v * P);
+  int* dst = out + v * P * kx + plane * kx;
+  const int* c = coords + 4 * v;  // (b, z, y, x)
+  const int vz = __ldg(c + 1) + pz + kz * sz - plane / ky;
+  const int vy = __ldg(c + 2) + py + ky * sy - plane % ky;
+  const int qz = vz / sz - kz;
+  const int qy = vy / sy - ky;
+  // the plane's parity and bounds before any read of the table
+  const bool live = mask[v] && vz % sz == 0 && vy % sy == 0 && qz >= 0 &&
+                    qz < Do && qy >= 0 && qy < Ho;
+  const long long row0 = (((long long)__ldg(c) * Do + qz) * Ho + qy) * Wo;
+  const int vx0 = __ldg(c + 3) + px + kx * sx;
+  TableReader t{bits, base, rows, n_rows};
+  for (int dx = 0; dx < kx; ++dx) {
+    const int vx = vx0 - dx;
+    const int qx = vx / sx - kx;
+    const long long cell = row0 + qx;
+    int r = sentinel;
+    if (live && vx % sx == 0 && qx >= 0 && qx < Wo && cell >= 0 &&
+        cell < size) {
+      r = t.row(cell, sentinel);
+      if (r < 0 || r >= sentinel) r = sentinel;
     }
+    dst[dx] = r;
   }
-  out[i] = row;
 }
 
 constexpr int kWRows = 64;  // rows staged at a time by K9
@@ -941,25 +985,32 @@ cudaError_t dispatch_wgrad_f32(int to, const void* feats, const int* nidx,
 
 }  // namespace
 
-// coords (Vout, 4) int32 (b, z, y, x); mask (Vout,) bool; out (Vout, K)
-// int32 with K = kz * ky * kx.  Returns the cudaError_t of the launch.
-extern "C" int unibev_sparse_nbr(const void* table, const void* coords,
+// bits, base, rows (n_rows ranks): the input resolution's compact table of
+// `size` cells; coords (Vout, 4) int32 (b, z, y, x); mask (Vout,) bool; out
+// (Vout, K) int32 with K = kz * ky * kx.  Returns the cudaError_t of the
+// launch.
+extern "C" int unibev_sparse_nbr(const void* bits, const void* base,
+                                 const void* rows, int n_rows,
+                                 const void* coords,
                                  const void* mask, void* out, long long Vout,
                                  int D, int H, int W, int kz, int ky, int kx,
                                  int sz, int sy, int sx, int pz, int py,
-                                 int px, int sentinel, long long table_size,
+                                 int px, int sentinel, long long size,
                                  void* stream) {
-  if (Vout < 0 || kz < 1 || ky < 1 || kx < 1 || sz < 1 || sy < 1 || sx < 1)
+  if (Vout < 0 || n_rows < 0 || kz < 1 || ky < 1 || kx < 1 || sz < 1 ||
+      sy < 1 || sx < 1)
     return cudaErrorInvalidValue;
-  const int K = kz * ky * kx;
-  const long long n = Vout * K;
+  const int P = kz * ky;
+  const long long n = Vout * P;
   if (n == 0) return cudaSuccess;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   sparse_nbr_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(table), static_cast<const int*>(coords),
-      static_cast<const unsigned char*>(mask), static_cast<int*>(out), n, K,
-      D, H, W, kz, ky, kx, sz, sy, sx, pz, py, px, sentinel, table_size);
+      static_cast<const unsigned*>(bits), static_cast<const int*>(base),
+      static_cast<const int*>(rows), n_rows,
+      static_cast<const int*>(coords),
+      static_cast<const unsigned char*>(mask), static_cast<int*>(out), n, P,
+      D, H, W, ky, kx, sz, sy, sx, pz, py, px, sentinel, size);
   return cudaGetLastError();
 }
 
@@ -985,30 +1036,34 @@ extern "C" int unibev_sparse_conv(const void* feats, const void* nidx,
   return cudaErrorInvalidValue;
 }
 
-// coords_in (Vin, 4) int32 (b, z, y, x); mask_in (Vin,) bool; table (the
-// output resolution's cell -> row table, table_size cells); out (Vin, K)
-// int32 output rows, sentinel where no output row reads the input through
-// the tap.  Returns the cudaError_t of the launch.
-extern "C" int unibev_sparse_inv_nbr(const void* table, const void* coords,
+// bits, base, rows (n_rows ranks): the output resolution's compact table of
+// `size` cells; coords_in (Vin, 4) int32 (b, z, y, x); mask_in (Vin,) bool;
+// out (Vin, K) int32 output rows, sentinel where no output row reads the
+// input through the tap.  Returns the cudaError_t of the launch.
+extern "C" int unibev_sparse_inv_nbr(const void* bits, const void* base,
+                                     const void* rows, int n_rows,
+                                     const void* coords,
                                      const void* mask, void* out,
                                      long long Vin, int Do, int Ho, int Wo,
                                      int kz, int ky, int kx, int sz, int sy,
                                      int sx, int pz, int py, int px,
-                                     int sentinel, long long table_size,
+                                     int sentinel, long long size,
                                      void* stream) {
-  if (Vin < 0 || kz < 1 || ky < 1 || kx < 1 || sz < 1 || sy < 1 || sx < 1 ||
-      pz < 0 || py < 0 || px < 0)
+  if (Vin < 0 || n_rows < 0 || kz < 1 || ky < 1 || kx < 1 || sz < 1 ||
+      sy < 1 || sx < 1 || pz < 0 || py < 0 || px < 0)
     return cudaErrorInvalidValue;
-  const int K = kz * ky * kx;
-  const long long n = Vin * K;
+  const int P = kz * ky;
+  const long long n = Vin * P;
   if (n == 0) return cudaSuccess;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   sparse_inv_nbr_kernel<<<blocks, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(table), static_cast<const int*>(coords),
-      static_cast<const unsigned char*>(mask), static_cast<int*>(out), n, K,
-      Do, Ho, Wo, kz, ky, kx, sz, sy, sx, pz, py, px, sentinel, table_size);
+      static_cast<const unsigned*>(bits), static_cast<const int*>(base),
+      static_cast<const int*>(rows), n_rows,
+      static_cast<const int*>(coords),
+      static_cast<const unsigned char*>(mask), static_cast<int*>(out), n, P,
+      Do, Ho, Wo, kz, ky, kx, sz, sy, sx, pz, py, px, sentinel, size);
   return cudaGetLastError();
 }
 

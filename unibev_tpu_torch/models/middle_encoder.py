@@ -12,8 +12,9 @@ Counterpart of ``unibev_tpu/models/middle_encoder.py`` (mmdet3d v0.18
   to_dense: [41, 1440, 1440] -> (B, 2, 180, 180, 128) -> (B, 256, 180, 180)
 
 The active set of each resolution is a fixed-capacity row set with a mask
-(``ops/sparse_conv.py``); its submanifold rulebook (kernel K6) is built once
-and shared by every submanifold conv there, and every conv is kernel K7.
+and a compact cell -> row table (``ops/sparse_conv.py``); its submanifold
+rulebook (kernel K6) is built once and shared by every submanifold conv
+there, and every conv is kernel K7.
 Module names are the reference's, so ``pts_middle_encoder.*`` checkpoint
 keys load as they are; a conv weight keeps spconv's (kz, ky, kx, Cin, Cout).
 BatchNorm (eps 1e-3) leaves padding rows exactly 0; in ``train()`` mode it
@@ -205,7 +206,7 @@ class SparseEncoder(nn.Module):
         out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
                           zip(grid.shape, padding, kernel, stride))
         co, mo, new_table, overflow = downsample_with_table(
-            grid, table, kernel, stride, padding, out_shape, capacity)
+            grid, kernel, stride, padding, out_shape, capacity)
         sidx = strided_neighbor_idx(grid, table, co, mo, kernel, stride,
                                     padding)
         inv = None

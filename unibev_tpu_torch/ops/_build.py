@@ -71,16 +71,16 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # idx, contrib, table, M, L, tr, dtype, stream
     "unibev_scatter_add_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
-    # table, coords, mask, out, Vout, D, H, W, kz, ky, kx, sz, sy, sx, pz,
-    # py, px, sentinel, table_size, stream
-    "unibev_sparse_nbr": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _L, _P),
+    # bits, base, rows, n_rows, coords, mask, out, Vout, D, H, W, kz, ky, kx,
+    # sz, sy, sx, pz, py, px, sentinel, size, stream
+    "unibev_sparse_nbr": (_P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _L, _P),
     # feats, nidx, weight, mask, out, Vout, K, Cin, Cout, V, dtype, stream
     "unibev_sparse_conv": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
-    # table, coords, mask, out, Vin, Do, Ho, Wo, kz, ky, kx, sz, sy, sx, pz,
-    # py, px, sentinel, table_size, stream
-    "unibev_sparse_inv_nbr": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _L, _P),
+    # bits, base, rows, n_rows, coords, mask, out, Vin, Do, Ho, Wo, kz, ky,
+    # kx, sz, sy, sx, pz, py, px, sentinel, size, stream
+    "unibev_sparse_inv_nbr": (_P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P),
     # feats, nidx, g, dw, Vout, K, Cin, Cout, V, dtype, kc, bn, span, chunk,
     # smem_bytes, stream
     "unibev_sparse_conv_wgrad": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,

@@ -2,10 +2,13 @@
 
 Counterpart of ``unibev_tpu/ops/sparse_conv.py``.  The active voxels of one
 resolution are a fixed-capacity row set (``SparseGrid``: coords (V, 4) int32
-as (b, z, y, x), -1 on padding rows, and a mask).  A dense int32 table maps
-each flat cell ``((b * D + z) * H + y) * W + x`` to its row, with the row
-capacity V as the sentinel of an empty cell: the sentinel indexes the zero
-row that a gather appends to the features.
+as (b, z, y, x), -1 on padding rows, and a mask).  A compact table
+(``CompactTable``: a bitmap over the flat cells ``((b * D + z) * H + y) * W
++ x``, per-word counts and a rank -> row map) maps each cell to its row,
+with the row capacity V as the sentinel of an empty cell: the sentinel
+indexes the zero row that a gather appends to the features.  The JAX
+package keeps a dense int32 table; :func:`table_entries` decodes the
+compact one to that view, for tests.
 
 * The rulebook, kernel K6 (``csrc/sparse_conv.cu::unibev_sparse_nbr``): for
   each output row and tap (dz, dy, dx), row-major with dx fastest, the input
@@ -19,10 +22,12 @@ row that a gather appends to the features.
   x-pair / x-quad route of ``best_gather_conv`` compute, without writing the
   (V, K * Cin) columns.  The port drops those TPU gather-engine packings and
   the fp8 tables.
-* The active set of a strided conv (``downsample_with_table``): the strided
-  OR-pool of the input occupancy, its active cells in ascending flat order,
-  the first ``capacity`` kept.  Which rows exist after a saturated downsample
-  depends on that order, so it is exact, not approximate.
+* The active set of a strided conv (``downsample_with_table``): every output
+  site whose window covers a live row, in ascending flat order, the first
+  ``capacity`` kept, found from the rows' candidate sites (the JAX
+  ``downsample_active_set``), never from a pass over the input grid.  Which
+  rows exist after a saturated downsample depends on that order, so it is
+  exact, not approximate.
 
 * The backward (``SparseConvFn``), the JAX package's scatter-free VJPs
   (``_subm_gc_bwd``, ``_strided_xp_bwd``): d_feats is K7 again, over the
@@ -50,7 +55,6 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from unibev_tpu_torch.ops import _build
 
@@ -67,23 +71,108 @@ class SparseGrid(NamedTuple):
 
 def flat_index(coords: torch.Tensor, shape: Triple) -> torch.Tensor:
     """int64 flat cells ``((b * D + z) * H + y) * W + x`` of (V, 4) coords."""
+    steps = _grid_tables(tuple(shape), coords.device)[0]
+    return (coords.to(torch.int64) * steps).sum(1)
+
+
+class CompactTable(NamedTuple):
+    """The cell -> row table of one resolution, compact (the counterpart of
+    the JAX package's dense ``PackedTable``).
+
+    Cell ``c`` (the flat index of :func:`flat_index`) is set iff bit ``c &
+    31`` of ``bits[c >> 5]`` is; its rank, its place among the set cells in
+    ascending flat order, is ``base[c >> 5] + popcount(bits[c >> 5] & ((1
+    << (c & 31)) - 1))``, and its row ``rows[rank]``.  A cell that is not
+    set, or whose rank is past the map (a site a downsample dropped for the
+    capacity), reads ``sentinel``.  At the flagship's res 0 (B * 41 * 1440
+    * 1440 cells) that is 21 MB in all, where a dense int32 table took 340
+    MB: the whole table stays in the H100's 50 MB L2.
+    """
+    bits: torch.Tensor     # (words,) int32, words = ceil(size / 32)
+    base: torch.Tensor     # (words,) int32: set bits in the words before
+    rows: torch.Tensor     # (n,) int32: the row of each rank below n
+    size: int              # cells, B * D * H * W
+    sentinel: int          # the row capacity: what an empty cell reads
+
+
+@functools.lru_cache(maxsize=None)
+def _bit_tables(device: torch.device):
+    """Constant tables: (32,) int32 ``1 << j`` (bit 31 as its
+    two's-complement value); (8,) uint8 ``1 << j``; (256,) int32 set bits
+    of a byte; (256, 8) int64 the place of each byte's k-th set bit (0 past
+    its last)."""
+    bit = [1 << j for j in range(31)] + [-2 ** 31]
+    places = [[j for j in range(8) if v >> j & 1] for v in range(256)]
+    return (torch.tensor(bit, dtype=torch.int32, device=device),
+            torch.tensor([1 << j for j in range(8)], dtype=torch.uint8,
+                         device=device),
+            torch.tensor([len(p) for p in places], dtype=torch.int32,
+                         device=device),
+            torch.tensor([p + [0] * (8 - len(p)) for p in places],
+                         device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_tables(shape: Triple, device: torch.device):
+    """The flat steps (4,) of (b, z, y, x) in a grid of ``shape``, and the
+    moduli (4,) that recover them from a flat cell's quotients (b needs
+    none)."""
     D, H, W = shape
-    b, z, y, x = coords.to(torch.int64).unbind(1)
-    return ((b * D + z) * H + y) * W + x
+    return (torch.tensor([D * H * W, H * W, W, 1], device=device),
+            torch.tensor([2 ** 62, D, H, W], device=device))
 
 
-def build_table(grid: SparseGrid) -> torch.Tensor:
-    """(B * D * H * W,) int32 row of each cell; V (the sentinel) where empty."""
+def build_table(grid: SparseGrid) -> CompactTable:
+    """The compact table of an active set (sentinel V, the row capacity):
+    one sort of the live rows' flat cells gives the rank -> row map, and
+    the bits and each word's count come from the rows; nothing passes over
+    the grid's cells.  The live rows' cells are distinct, as the voxelizer
+    gives them."""
     D, H, W = grid.shape
     V = grid.coords.shape[0]
     size = grid.batch * D * H * W
-    table = torch.full((size + 1,), V, dtype=torch.int32,
-                       device=grid.coords.device)
-    flat = torch.where(grid.mask, flat_index(grid.coords, grid.shape), size)
-    rows = torch.arange(V, dtype=torch.int32, device=table.device)
-    # padding rows all write the trash cell at the end, which is dropped
-    table.index_copy_(0, flat, rows)
-    return table[:size]
+    words = -(-size // 32)
+    dev = grid.coords.device
+    bit = _bit_tables(dev)[0]
+    flat = torch.where(grid.mask, flat_index(grid.coords, grid.shape),
+                       32 * words)             # padding: past the words
+    keys, order = torch.sort(flat)
+    w = keys >> 5
+    bits = torch.zeros((words + 1,), dtype=torch.int32, device=dev)
+    bits.index_add_(0, w, bit[keys & 31])       # distinct bits: sums = ORs
+    count = torch.zeros((words + 2,), dtype=torch.int32, device=dev)
+    count.index_add_(0, w + 1, torch.ones_like(keys, dtype=torch.int32))
+    return CompactTable(bits[:words], count[:words].cumsum(0, dtype=torch.int32),
+                        order.to(torch.int32), size, V)
+
+
+def _popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 holding a 32-bit value (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x * 0x01010101 >> 24) & 0xFF
+
+
+def table_lookup(table: CompactTable, flat: torch.Tensor,
+                 sentinel: int) -> torch.Tensor:
+    """int64 rows of the cells ``flat`` (int64, each in [0, size)),
+    ``sentinel`` where a cell is not set or its rank is past the map: the
+    kernels' rank arithmetic."""
+    w = flat >> 5
+    word = table.bits[w].to(torch.int64) & 0xFFFFFFFF
+    bit = flat & 31
+    rank = table.base[w].to(torch.int64) + _popcount(word & ((1 << bit) - 1))
+    hit = (((word >> bit) & 1) == 1) & (rank < table.rows.numel())
+    rows = table.rows[torch.where(hit, rank, 0)].to(torch.int64)
+    return torch.where(hit, rows, sentinel)
+
+
+def table_entries(table: CompactTable) -> torch.Tensor:
+    """The dense (size,) int32 view of a compact table, the JAX
+    ``table_entries``: for tests only (it passes over every cell)."""
+    flat = torch.arange(table.size, device=table.bits.device)
+    return table_lookup(table, flat, table.sentinel).to(torch.int32)
 
 
 def _tap_offsets(kernel: Triple, device) -> torch.Tensor:
@@ -94,13 +183,12 @@ def _tap_offsets(kernel: Triple, device) -> torch.Tensor:
     return torch.tensor(taps, dtype=torch.int64, device=device)
 
 
-def sparse_nbr_reference(table: torch.Tensor, sentinel: int, in_shape: Triple,
-                         coords_out: torch.Tensor, mask_out: torch.Tensor,
-                         kernel: Triple, stride: Triple,
-                         padding: Triple) -> torch.Tensor:
-    """Plain version of K6: (Vout, K) int32 input rows, ``sentinel`` where
-    the tap falls outside the grid, on an empty cell, or the output row is
-    masked."""
+def rulebook_cells(in_shape: Triple, coords_out: torch.Tensor,
+                   mask_out: torch.Tensor, kernel: Triple, stride: Triple,
+                   padding: Triple):
+    """((Vout, K) int64 input cells that K6 looks up, (Vout, K) bool): the
+    cell at ``o * stride - padding + tap`` and whether it lies in the grid
+    and the output row is live (cell 0 where not)."""
     D, H, W = in_shape
     offs = _tap_offsets(kernel, coords_out.device)                # (K, 3)
     c = coords_out.to(torch.int64)
@@ -109,42 +197,70 @@ def sparse_nbr_reference(table: torch.Tensor, sentinel: int, in_shape: Triple,
     x = c[:, 3:4] * stride[2] - padding[2] + offs[:, 2]
     ok = (mask_out[:, None] & (z >= 0) & (z < D) & (y >= 0) & (y < H)
           & (x >= 0) & (x < W))
-    flat = torch.where(ok, ((c[:, 0:1] * D + z) * H + y) * W + x, 0)
-    return torch.where(ok, table[flat], sentinel).to(torch.int32)
+    return torch.where(ok, ((c[:, 0:1] * D + z) * H + y) * W + x, 0), ok
 
 
-def sparse_nbr(table: torch.Tensor, sentinel: int, in_shape: Triple,
+def sparse_nbr_reference(table: CompactTable, sentinel: int,
+                         in_shape: Triple, coords_out: torch.Tensor,
+                         mask_out: torch.Tensor, kernel: Triple,
+                         stride: Triple, padding: Triple) -> torch.Tensor:
+    """Plain version of K6: (Vout, K) int32 input rows, ``sentinel`` where
+    the tap falls outside the grid, on an empty cell, or the output row is
+    masked."""
+    flat, ok = rulebook_cells(in_shape, coords_out, mask_out, kernel, stride,
+                              padding)
+    rows = table_lookup(table, flat, sentinel)
+    return torch.where(ok, rows, sentinel).to(torch.int32)
+
+
+def _table_args(name: str, table, coords: torch.Tensor, mask: torch.Tensor):
+    """Check a rulebook kernel's inputs on CUDA; the table's pointers."""
+    tensors = (table.bits, table.base, table.rows, coords, mask)
+    _on_current_cuda_device(name, tensors)
+    V = coords.shape[0]
+    if coords.shape != (V, 4) or mask.shape != (V,):
+        raise ValueError(f"{name}: coords (V, 4) and mask (V,), got "
+                         f"{tuple(coords.shape)} and {tuple(mask.shape)}")
+    if table.bits.shape != (-(-table.size // 32),) \
+            or table.base.shape != table.bits.shape:
+        raise ValueError(f"{name}: the table's bits and counts must hold one "
+                         f"word per 32 of its {table.size} cells")
+    if any(t.dtype != torch.int32 for t in tensors[:4]) \
+            or mask.dtype != torch.bool:
+        raise TypeError(f"{name}: table and coords int32, mask bool")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    return (table.bits.data_ptr(), table.base.data_ptr(),
+            table.rows.data_ptr(), table.rows.numel())
+
+
+def sparse_nbr(table: CompactTable, sentinel: int, in_shape: Triple,
                coords_out: torch.Tensor, mask_out: torch.Tensor,
                kernel: Triple, stride: Triple, padding: Triple) -> torch.Tensor:
     """The rulebook of one conv; CPU tensors take the plain version, CUDA
     tensors kernel K6.  Arguments as :func:`sparse_nbr_reference`; on CUDA
-    the table and coords are int32, the mask bool, all contiguous."""
-    if table.device.type == "cpu":
+    the table's tensors and the coords are int32, the mask bool, all
+    contiguous."""
+    if not isinstance(table, CompactTable):
+        raise TypeError(f"sparse_nbr: the table must be a CompactTable, got "
+                        f"{type(table).__name__}")
+    if coords_out.device.type == "cpu":
         return sparse_nbr_reference(table, sentinel, in_shape, coords_out,
                                     mask_out, kernel, stride, padding)
-    tensors = (table, coords_out, mask_out)
-    _on_current_cuda_device("sparse_nbr", tensors)
+    ptrs = _table_args("sparse_nbr", table, coords_out, mask_out)
     Vout = coords_out.shape[0]
-    if coords_out.shape != (Vout, 4) or mask_out.shape != (Vout,):
-        raise ValueError(f"sparse_nbr: coords (V, 4) and mask (V,), got "
-                         f"{tuple(coords_out.shape)} and {tuple(mask_out.shape)}")
-    if table.dtype != torch.int32 or coords_out.dtype != torch.int32 \
-            or mask_out.dtype != torch.bool:
-        raise TypeError("sparse_nbr: table and coords int32, mask bool")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("sparse_nbr: the kernel takes contiguous tensors")
     K = kernel[0] * kernel[1] * kernel[2]
-    out = torch.empty((Vout, K), dtype=torch.int32, device=table.device)
+    out = torch.empty((Vout, K), dtype=torch.int32, device=coords_out.device)
     err = _build.lib().unibev_sparse_nbr(
-        table.data_ptr(), coords_out.data_ptr(), mask_out.data_ptr(),
-        out.data_ptr(), Vout, *in_shape, *kernel, *stride, *padding, sentinel,
-        table.numel(), torch.cuda.current_stream().cuda_stream)
+        *ptrs, coords_out.data_ptr(), mask_out.data_ptr(), out.data_ptr(),
+        Vout, *in_shape, *kernel, *stride, *padding, sentinel, table.size,
+        torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sparse_nbr")
     _build.launches["sparse_nbr"] += 1
     return out
 
 
-def subm_neighbor_idx(grid: SparseGrid, table: torch.Tensor,
+def subm_neighbor_idx(grid: SparseGrid, table: CompactTable,
                       kernel: Triple = (3, 3, 3)) -> torch.Tensor:
     """(V, K) rows of each active voxel's kernel-window neighbours."""
     pad = tuple(k // 2 for k in kernel)
@@ -152,7 +268,7 @@ def subm_neighbor_idx(grid: SparseGrid, table: torch.Tensor,
                       grid.mask, kernel, (1, 1, 1), pad)
 
 
-def strided_neighbor_idx(grid_in: SparseGrid, table_in: torch.Tensor,
+def strided_neighbor_idx(grid_in: SparseGrid, table_in: CompactTable,
                          coords_out: torch.Tensor, mask_out: torch.Tensor,
                          kernel: Triple, stride: Triple,
                          padding: Triple) -> torch.Tensor:
@@ -161,41 +277,97 @@ def strided_neighbor_idx(grid_in: SparseGrid, table_in: torch.Tensor,
                       coords_out, mask_out, kernel, stride, padding)
 
 
-def downsample_with_table(grid: SparseGrid, table: torch.Tensor,
-                          kernel: Triple, stride: Triple, padding: Triple,
-                          out_shape: Triple, capacity: int):
+@functools.lru_cache(maxsize=None)
+def _site_tables(in_shape: Triple, out_shape: Triple, batch: int,
+                 kernel: Triple, stride: Triple, padding: Triple,
+                 device: torch.device):
+    """The output sites of a strided conv whose window holds an input cell,
+    as tables of flat-index terms: (batch + 1,) ``b * Do * Ho * Wo`` with
+    the trash cell last (a padding row's b = -1 reads it), and per axis a
+    (ceil(k / s), size_in) table of ``o * step`` for each input coordinate,
+    the trash cell where it has fewer sites.  The trash cell is the first
+    past the output's 32-cell words, so any sum holding it lies past them."""
+    Do, Ho, Wo = out_shape
+    trash = -(-batch * Do * Ho * Wo // 32) * 32
+    tables = [torch.tensor([b * Do * Ho * Wo for b in range(batch)] + [trash])]
+    for size_in, size, k, s, p, step in zip(in_shape, out_shape, kernel,
+                                            stride, padding,
+                                            (Ho * Wo, Wo, 1)):
+        i = torch.arange(size_in)
+        # site o holds i in its window iff o * s - p <= i < o * s - p + k
+        o = torch.div(i + p, s, rounding_mode="floor") \
+            - torch.arange(-(-k // s))[:, None]
+        ok = (o >= 0) & (o < size) & (o * s - p + k > i)
+        tables.append(torch.where(ok, o * step, trash))
+    return [t.to(device) for t in tables]
+
+
+@functools.lru_cache(maxsize=None)
+def _ranks(capacity: int, device: torch.device) -> torch.Tensor:
+    """(capacity,) int32 0 .. capacity - 1: the ranks a downsample keeps and
+    its table's rank -> row map (read only)."""
+    return torch.arange(capacity, dtype=torch.int32, device=device)
+
+
+def downsample_with_table(grid: SparseGrid, kernel: Triple, stride: Triple,
+                          padding: Triple, out_shape: Triple, capacity: int):
     """spconv's output sites of a strided conv: every site whose window
     covers an active input cell, in ascending flat order, the first
-    ``capacity`` kept.
+    ``capacity`` kept.  What the JAX ``downsample_with_table`` computes with
+    an OR-pool of the dense occupancy, from the rows (its
+    ``downsample_active_set``):
+
+    * each live row names the at most ceil(k / s) sites per axis whose
+      window holds it (8 candidates for k3 s2, 2 for (3, 1, 1) s(2, 1, 1)),
+      read from small per-axis tables, and marks a byte per output cell;
+    * the bytes give the bitmap's words and an inclusive count of set bits
+      per byte of the bitmap;
+    * rank r's site lies in the first byte whose count exceeds r (a search
+      of the counts), at the place of that byte's (r - bits before it)-th
+      set bit: the coords of the first ``capacity`` ranks;
+    * the new table's bitmap holds every site and its rank -> row map the
+      first ``capacity`` ranks (the rank is the row), so a dropped site
+      reads the sentinel, as in the dense table.
+
+    Nothing passes over the input grid's cells; the output grid is passed
+    over as bytes (marking, packing) and as bytes of the bitmap (counts).
 
     Returns (coords_out (capacity, 4) int32, mask_out, table_out (the new
-    resolution's table, sentinel ``capacity``), overflow (0-dim int64: sites
-    beyond the capacity)).  No host synchronization.
+    resolution's :class:`CompactTable`, sentinel ``capacity``), overflow
+    (0-dim int64: sites beyond the capacity)).  No host synchronization.
     """
-    D, H, W = grid.shape
-    B = grid.batch
-    occ = (table != grid.coords.shape[0]).view(B, 1, D, H, W)
-    pooled = F.max_pool3d(occ.to(torch.float16), kernel, stride, padding)
-    if tuple(pooled.shape[2:]) != tuple(out_shape):
-        raise ValueError(f"pooled shape {tuple(pooled.shape[2:])} != {out_shape}")
-    bitmap = pooled.view(-1) > 0
-    rank = torch.cumsum(bitmap, 0) - 1
-    kept = bitmap & (rank < capacity)
-    dev = table.device
-    slot = torch.where(kept, rank, capacity)
-    cells = torch.arange(bitmap.numel(), dtype=torch.int64, device=dev)
-    table_out = slot.to(torch.int32)
-    flat = torch.zeros((capacity + 1,), dtype=torch.int64, device=dev)
-    flat.scatter_(0, slot, cells)       # the trash slot takes the rest
-    flat = flat[:capacity]
-    total = rank[-1] + 1
-    mask_out = torch.arange(capacity, device=dev) < total
-    Do, Ho, Wo = out_shape
-    coords = torch.stack([flat // (Do * Ho * Wo), (flat // (Ho * Wo)) % Do,
-                          (flat // Wo) % Ho, flat % Wo], 1)
+    size = grid.batch * out_shape[0] * out_shape[1] * out_shape[2]
+    words = -(-size // 32)
+    trash = 32 * words
+    dev = grid.coords.device
+    tb, tz, ty, tx = _site_tables(tuple(grid.shape), tuple(out_shape),
+                                  grid.batch, tuple(kernel), tuple(stride),
+                                  tuple(padding), dev)
+    steps, mods = _grid_tables(tuple(out_shape), dev)
+    _, pow2, pop8, place8 = _bit_tables(dev)
+    ranks = _ranks(capacity, dev)
+    c = torch.where(grid.mask[:, None], grid.coords, -1)
+    flat = (tb[c[:, 0]][:, None, None, None]
+            + tz[:, c[:, 1]].t()[:, :, None, None]
+            + ty[:, c[:, 2]].t()[:, None, :, None]
+            + tx[:, c[:, 3]].t()[:, None, None, :])
+    occ = torch.zeros((trash + 32,), dtype=torch.uint8, device=dev)
+    occ.index_put_((flat.clamp(max=trash),), pow2[0])     # a 1 on the card
+    packed = (occ[:trash].view(-1, 8) * pow2).sum(1, dtype=torch.uint8)
+    byte_bits = packed.to(torch.int32)
+    count = pop8[byte_bits]
+    seen = count.cumsum(0, dtype=torch.int32)  # set bits up to each byte
+    before = seen - count
+    total = seen[-1]
+    byte = torch.searchsorted(seen, ranks, right=True).clamp(max=4 * words - 1)
+    k = (ranks - before[byte]).clamp(0, 7)
+    cells = byte * 8 + place8[byte_bits[byte], k]
+    mask_out = ranks < total
+    coords = (cells[:, None] // steps) % mods
     coords = torch.where(mask_out[:, None], coords, -1).to(torch.int32)
-    overflow = (total - capacity).clamp(min=0)
-    return coords, mask_out, table_out, overflow
+    table = CompactTable(packed.view(torch.int32), before[::4].contiguous(),
+                         ranks, size, capacity)
+    return coords, mask_out, table, (total - capacity).clamp(min=0).long()
 
 
 def sparse_conv_reference(feats: torch.Tensor, nidx: torch.Tensor,
@@ -250,19 +422,13 @@ def gather_conv(feats: torch.Tensor, nidx: torch.Tensor, weight: torch.Tensor,
     return out
 
 
-def sparse_inv_nbr_reference(table_out: torch.Tensor, sentinel: int,
-                             out_shape: Triple, coords_in: torch.Tensor,
-                             mask_in: torch.Tensor, kernel: Triple,
-                             stride: Triple, padding: Triple) -> torch.Tensor:
-    """Plain version of K8: (Vin, K) int32 output rows of a strided conv.
-
-    Input row i feeds output o through tap d iff ``o = (i + p - d) / s``
-    exactly on every axis, o lies in ``out_shape``, and ``table_out`` (the
-    output resolution's cell -> row table) holds a row in [0, sentinel)
-    there; every other entry, and every tap of a masked input row, is
-    ``sentinel`` (the output capacity: a site dropped by the capacity reads
-    it, never a real row).  Taps (dz, dy, dx) row-major, dx fastest.
-    """
+def inverse_cells(out_shape: Triple, coords_in: torch.Tensor,
+                  mask_in: torch.Tensor, kernel: Triple, stride: Triple,
+                  padding: Triple):
+    """((Vin, K) int64 output cells that K8 looks up, (Vin, K) bool): the
+    cell ``o = (i + p - d) / s`` of input row i and tap d, and whether the
+    division is exact on every axis, o lies in ``out_shape`` and the row is
+    live (cell 0 where not)."""
     Do, Ho, Wo = out_shape
     offs = _tap_offsets(kernel, coords_in.device)                 # (K, 3)
     c = coords_in.to(torch.int64)
@@ -273,41 +439,53 @@ def sparse_inv_nbr_reference(table_out: torch.Tensor, sentinel: int,
         qa = torch.div(v, stride[a], rounding_mode="floor") - kernel[a]
         ok = ok & (v % stride[a] == 0) & (qa >= 0) & (qa < size)
         q.append(qa)
-    flat = torch.where(ok, ((c[:, 0:1] * Do + q[0]) * Ho + q[1]) * Wo + q[2], 0)
-    rows = table_out[flat]
+    flat = ((c[:, 0:1] * Do + q[0]) * Ho + q[1]) * Wo + q[2]
+    return torch.where(ok, flat, 0), ok
+
+
+def sparse_inv_nbr_reference(table_out: CompactTable, sentinel: int,
+                             out_shape: Triple, coords_in: torch.Tensor,
+                             mask_in: torch.Tensor, kernel: Triple,
+                             stride: Triple, padding: Triple) -> torch.Tensor:
+    """Plain version of K8: (Vin, K) int32 output rows of a strided conv.
+
+    Input row i feeds output o through tap d iff ``o = (i + p - d) / s``
+    exactly on every axis, o lies in ``out_shape``, and ``table_out`` (the
+    output resolution's table) holds a row in [0, sentinel) there; every
+    other entry, and every tap of a masked input row, is ``sentinel`` (the
+    output capacity: a site dropped by the capacity is empty in the table,
+    never a real row).  Taps (dz, dy, dx) row-major, dx fastest.
+    """
+    flat, ok = inverse_cells(out_shape, coords_in, mask_in, kernel, stride,
+                             padding)
+    rows = table_lookup(table_out, flat, sentinel)
     ok = ok & (rows >= 0) & (rows < sentinel)
     return torch.where(ok, rows, sentinel).to(torch.int32)
 
 
-def sparse_inv_nbr(table_out: torch.Tensor, sentinel: int, out_shape: Triple,
+def sparse_inv_nbr(table_out: CompactTable, sentinel: int, out_shape: Triple,
                    coords_in: torch.Tensor, mask_in: torch.Tensor,
                    kernel: Triple, stride: Triple,
                    padding: Triple) -> torch.Tensor:
     """The inverse rulebook of a strided conv; CPU tensors take the plain
     version, CUDA tensors kernel K8.  Arguments as
-    :func:`sparse_inv_nbr_reference`; on CUDA the table and coords are
-    int32, the mask bool, all contiguous."""
-    if table_out.device.type == "cpu":
+    :func:`sparse_inv_nbr_reference`; on CUDA the table's tensors and the
+    coords are int32, the mask bool, all contiguous."""
+    if not isinstance(table_out, CompactTable):
+        raise TypeError(f"sparse_inv_nbr: the table must be a CompactTable, "
+                        f"got {type(table_out).__name__}")
+    if coords_in.device.type == "cpu":
         return sparse_inv_nbr_reference(table_out, sentinel, out_shape,
                                         coords_in, mask_in, kernel, stride,
                                         padding)
-    tensors = (table_out, coords_in, mask_in)
-    _on_current_cuda_device("sparse_inv_nbr", tensors)
+    ptrs = _table_args("sparse_inv_nbr", table_out, coords_in, mask_in)
     Vin = coords_in.shape[0]
-    if coords_in.shape != (Vin, 4) or mask_in.shape != (Vin,):
-        raise ValueError(f"sparse_inv_nbr: coords (V, 4) and mask (V,), got "
-                         f"{tuple(coords_in.shape)} and {tuple(mask_in.shape)}")
-    if table_out.dtype != torch.int32 or coords_in.dtype != torch.int32 \
-            or mask_in.dtype != torch.bool:
-        raise TypeError("sparse_inv_nbr: table and coords int32, mask bool")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("sparse_inv_nbr: the kernel takes contiguous tensors")
     K = kernel[0] * kernel[1] * kernel[2]
-    out = torch.empty((Vin, K), dtype=torch.int32, device=table_out.device)
+    out = torch.empty((Vin, K), dtype=torch.int32, device=coords_in.device)
     err = _build.lib().unibev_sparse_inv_nbr(
-        table_out.data_ptr(), coords_in.data_ptr(), mask_in.data_ptr(),
-        out.data_ptr(), Vin, *out_shape, *kernel, *stride, *padding, sentinel,
-        table_out.numel(), torch.cuda.current_stream().cuda_stream)
+        *ptrs, coords_in.data_ptr(), mask_in.data_ptr(), out.data_ptr(), Vin,
+        *out_shape, *kernel, *stride, *padding, sentinel, table_out.size,
+        torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sparse_inv_nbr")
     _build.launches["sparse_inv_nbr"] += 1
     return out
