@@ -95,12 +95,31 @@ then, each phase printing one line (or a few) and raising on any failure:
      after 3 warm-ups) with the flags each step drew, peak memory, finite
      losses, SCA overflow on the camera-live steps, frozen parameters
      bit-identical, LiDAR running statistics moved;
- 19. a torch.profiler breakdown of one LC train step by kernel.
+ 19. a torch.profiler breakdown of one LC train step by kernel;
+ 20. K1 and K3 against their plain versions at the cat_128 config's sites
+     with 8 heads of D = 16 channels (both encoders' TSA, the dense camera
+     SCA over all 6 x 40,000 queries, the LiDAR SCA), f32 (TF32 off) and
+     bf16, with K1's access width, K3's launch plan, both times and the
+     bound per site;
+ 21. the tiny LC model with avg fusion, cat fusion (the decoder at twice the
+     width) and dual queries: CUDA with the kernels against the CPU with the
+     plain versions, same weights: predict, and the losses and every
+     gradient of one forward with the LiDAR modules in train mode;
+ 22. full-width LC predict of the avg_256, dual-queries and cat_128 configs,
+     each built from its file with ``build_model_from_config`` (cat_128 in
+     float32 with the dense camera SCA): launch counts (as phase 13), ms per
+     sample (median of 3 after 1 warm-up), peak memory, SCA overflow 0,
+     finite boxes and a profile of one forward; on the avg model also L and
+     C predict; cat_128 LC once more with cuDNN's TF32 on;
+ 23. one full-width LC train step of cat_128 built from its file (float32,
+     no autocast, modality dropout): launch counts (as phase 18), s/step
+     (median of 2 after 1 warm-up), peak memory, finite losses, grad norm.
 
 Each kernel's entry in the line before the last gives its launches on the
 path it serves (K1, K2, K6, K7: one LC predict; the im2col, K3, K4, K8,
 K9: one LC train step; K5, on no path, 0), its time summed over that path's
-call sites (CUDA events; K5 over the row chunks of SCATTER_SITES), its plain
+call sites (CUDA events; K5 over the row chunks of SCATTER_SITES; K1 and K3
+also ``d16_*``, summed over cat_128's D = 16 launches), its plain
 version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes each call must move over 3.35 TB/s
 and its operations over 989 TFLOP/s, the H100 SXM's HBM3 and dense bf16
@@ -130,8 +149,9 @@ sys.path.insert(0, ROOT)
 
 from unibev_tpu_torch.flagship import (PC_RANGE,  # noqa: E402
                                        VOXEL_SIZE, build_flagship,
-                                       build_model, synthetic_batch,
-                                       tiny_batch, tiny_model_cfg)
+                                       build_model, build_model_from_config,
+                                       synthetic_batch, tiny_batch,
+                                       tiny_model_cfg)
 from unibev_tpu_torch.ops import _build  # noqa: E402
 from unibev_tpu_torch.ops.deform_conv import (  # noqa: E402
     deform_im2col, deform_im2col_backward, deform_im2col_reference,
@@ -210,6 +230,25 @@ LIDAR_MSDA_SITES = [
     ("pts_tsa", 3, 1, 40000, 40000, 8, 32, ((200, 200),), 4),
     ("pts_sca", 3, 1, 32400, 40000, 8, 32, ((180, 180),), 8),
 ]
+# The cat_128 config's sites where its 128-wide encoders run K1 and K3 at
+# D = 16 (8 heads x 16 channels): both encoders' TSA, the dense camera SCA
+# (every one of the 40,000 queries of each camera: the file sets no
+# rebatch_k) and the LiDAR SCA.  Its decoder runs at 256 channels, D = 32:
+# the flagship's decoder_ca shape, held in phases 2 and 7.
+CAT_MSDA_SITES = [
+    ("cat_tsa", 6, 1, 40000, 40000, 8, 16, ((200, 200),), 4),
+    ("cat_camera_sca", 3, 6, 1450, 40000, 8, 16, ((29, 50),), 8),
+    ("cat_pts_sca", 3, 1, 32400, 40000, 8, 16, ((180, 180),), 8),
+]
+# The configurations phases 22 and 23 build from their files
+CONFIGS = {name: os.path.join(ROOT, "configs", "unibev", f"unibev_nus_LC_{name}"
+                              "_modality_dropout.py")
+           for name in ("avg_256", "cnw_dual_queries", "cat_128")}
+# the tiny LC model's fusion variants (phase 21)
+TINY_VARIANTS = {"avg": dict(fusion="avg", feature_norm=None),
+                 "cat": dict(fusion="cat", feature_norm=None),
+                 "dual_queries": dict(dual_queries=True)}
+
 # The flagship phases hold the launch counts to expected_*_launches; off in
 # --compare, which also runs other checkouts' packages.
 CHECK_LAUNCHES = True
@@ -931,12 +970,22 @@ def phase_flagship_train(iters=10, lidar=False):
     model = build_flagship(use_lidar=lidar, device="cuda", dtype=torch.bfloat16,
                            seed=0, train=True)
     batch = synthetic_batch(np.random.RandomState(0), device="cuda")
+    return _train_run(model, batch, expected_train_launches(lidar), iters, 3,
+                      lidar)
+
+
+def _train_run(model, batch, expected, iters, warmups, lidar):
+    """Train steps on ``model``: launch counts of one step (asserted against
+    ``expected``), s/step (median of ``iters`` after ``warmups``), peak
+    memory, finite losses, SCA overflow on the camera-live steps, frozen
+    parameters bit-identical and, with ``lidar``, every LiDAR running
+    statistic moved."""
     opt, sched = make_optimizer(model)
     gen = torch.Generator(device="cuda").manual_seed(0)
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if not p.requires_grad}
     stats0 = lidar_running_stats(model)
-    for _ in range(3):                                     # warm-up
+    for _ in range(warmups):
         train_step(model, opt, sched, batch, gen)
     torch.cuda.synchronize()
 
@@ -969,7 +1018,6 @@ def phase_flagship_train(iters=10, lidar=False):
                 if n in frozen)
     stats = lidar_running_stats(model)
     moved = [n for n in stats if not torch.equal(stats[n], stats0[n])]
-    expected = expected_train_launches(lidar)
     flags = [(st["l_flag"], st["c_flag"]) for st in steps]
     rec = dict(s_per_step=s_step, s_min=min(times), s_max=max(times),
                iters=iters, times=times, peak_bytes=peak, launches=launches,
@@ -1331,10 +1379,10 @@ def phase_tiny_lc():
     return rec
 
 
-def _predict_run(model, batch, iters, expected, label):
+def _predict_run(model, batch, iters, expected, label, warmups=3):
     """Launch counts of one predict (asserted against ``expected``), peak
-    memory, and ms per sample (median of ``iters`` after 3 warm-ups)."""
-    for _ in range(3):                                     # warm-up
+    memory, and ms per sample (median of ``iters`` after ``warmups``)."""
+    for _ in range(warmups):
         model.predict(batch)
     torch.cuda.synchronize()
     for k in list(_build.launches):
@@ -1345,21 +1393,24 @@ def _predict_run(model, batch, iters, expected, label):
     launches = {k: v for k, v in _build.launches.items() if v}
     peak = torch.cuda.max_memory_allocated()
     times = []
+    B = out["bboxes"].shape[0]
     for _ in range(iters):
         t0 = time.perf_counter()
         model.predict(batch)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1000
-                     / batch["points"].shape[0])
+        times.append((time.perf_counter() - t0) * 1000 / B)
     ms = float(np.median(times))
     boxes, scores = out["bboxes"], out["scores"]
     finite = bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all())
+    # without points (C predict) there are no voxel counts
     rec = dict(ms_per_sample=ms, ms_min=min(times), ms_max=max(times),
                iters=iters, peak_bytes=peak, launches=launches,
                sca_overflow=int(out["sca_overflow"]), boxes_finite=finite,
                boxes_shape=list(boxes.shape), n_valid=int(out["valid"].sum()),
-               num_distinct_voxels=out["num_distinct_voxels"].tolist(),
-               sparse_overflow=out["sparse_overflow"].tolist())
+               num_distinct_voxels=out.get("num_distinct_voxels",
+                                           torch.zeros(0)).tolist(),
+               sparse_overflow=out.get("sparse_overflow",
+                                       torch.zeros(0)).tolist())
     print(f"  {label}: {ms:.2f} ms/sample (median of {iters}; min "
           f"{min(times):.2f}, max {max(times):.2f}); peak "
           f"{peak / 2 ** 30:.2f} GiB ({peak} bytes); launches per forward "
@@ -1502,6 +1553,180 @@ def phase_profile_train(model, opt, sched, batch, gen, wall_ms, lidar=False):
     return rec
 
 
+def phase_msda_d16(gen):
+    # imported here: --compare also runs against checkouts that predate them
+    from unibev_tpu_torch.ops.msda import msda_bwd_plan, msda_fwd_route
+    print("phase 20: K1 msda_fwd and K3 msda_bwd vs their plain versions at "
+          "the cat_128 config's D = 16 sites", flush=True)
+    fwd, bwd = new_rec(), new_rec()
+    bwd["device_ms"] = 0.0
+    for name, calls, B, V, Q, heads, D, levels, P in CAT_MSDA_SITES:
+        pts = B * Q * heads * len(levels) * P
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name} {str(dtype)[6:]}"
+            value, loc, attn = _msda_inputs(gen, B, V, Q, heads, D, levels, P,
+                                            dtype)
+            err = check(f"{tag} K1", ms_deform_attn(value, levels, loc, attn),
+                        ms_deform_attn_reference(value, levels, loc, attn),
+                        REL_TOL[dtype])
+            vec = msda_fwd_route(D, value.element_size(), value.data_ptr())
+            g = torch.randn(B, Q, heads * D, device="cuda", generator=gen).to(dtype)
+            before = dict(_build.launches)
+            got = ms_deform_attn_backward(value, levels, loc, attn, g)
+            torch.cuda.synchronize()
+            grew = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                    if v != before.get(k, 0)}
+            if grew != {"msda_bwd": 1}:
+                raise AssertionError(f"one backward call launched {grew}")
+            plain = _plain_backward(
+                lambda v, l, a: ms_deform_attn_reference(v, levels, l, a),
+                (value, loc, attn), g)
+            interior = cell_interior(loc, levels)
+            errs = [check(f"{tag} K3 {n}", a * m, b * m, BWD_REL_TOL[dtype])
+                    for n, a, b, m in zip(("d_value", "d_loc", "d_attn"), got,
+                                          plain(), (1, interior, 1))]
+            plan = msda_bwd_plan(B, V, Q, heads, D, value.element_size(),
+                                 value.data_ptr(), g.data_ptr())
+            print(f"  {tag}: K1 {vec}-byte loads; K3 plan {plan._asdict()}",
+                  flush=True)
+            if dtype is torch.bfloat16:
+                # as phases 2 and 7 count them
+                gathered = min(2 * B * V * heads * D, 4 * pts * 2 * D)
+                ms = cuda_ms(lambda: ms_deform_attn(value, levels, loc, attn), 20)
+                pl = cuda_ms(lambda: ms_deform_attn_reference(value, levels, loc,
+                                                              attn), 5)
+                bound = add_site(fwd, name, calls, ms, pl, err,
+                                 gathered + 10 * pts + 2 * B * Q * heads * D,
+                                 8 * D * pts, vec_bytes=vec)
+                print(f"  {name} bf16 K1: kernel {ms:.4f} ms, plain {pl:.4f} ms, "
+                      f"bound {bound:.4f} ms (x{calls} per forward)", flush=True)
+                run = lambda: ms_deform_attn_backward(value, levels, loc, attn, g)  # noqa: E731
+                ms, pl, dev = cuda_ms(run, 10), cuda_ms(plain, 3), device_ms(run, 5)
+                bound = add_site(bwd, name, calls, ms, pl, max(errs),
+                                 4 * B * V * heads * D + 20 * pts
+                                 + 2 * B * Q * heads * D, 24 * D * pts,
+                                 device_ms=dev, plan=plan._asdict())
+                bwd["device_ms"] += calls * dev
+                print(f"  {name} bf16 K3: kernel {ms:.4f} ms (device {dev:.4f} "
+                      f"ms), plain {pl:.4f} ms, bound {bound:.4f} ms (x{calls} "
+                      f"per step)", flush=True)
+            del plain, got
+    ratio_line("K1 over cat_128's 12 D = 16 launches of one LC forward", fwd)
+    ratio_line("K3 over cat_128's 12 D = 16 launches of one LC step", bwd)
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_tiny_variants():
+    print("phase 21: the tiny LC model with avg fusion, cat fusion and dual "
+          "queries, CUDA kernels vs CPU plain versions: predict, and the "
+          "losses and gradients of one forward with the LiDAR modules in "
+          "train mode", flush=True)
+    forward = {"msda_fwd", "dcn_fwd", "sparse_nbr", "sparse_conv"}
+    backward = {"msda_bwd", "dcn_bwd", "dcn_im2col", "sparse_inv_nbr",
+                "sparse_conv_wgrad"}
+    batch = tiny_batch(np.random.RandomState(0))
+    gpu_batch = {k: v.to("cuda") for k, v in batch.items()}
+    rec = {}
+    for variant, kw in TINY_VARIANTS.items():
+        cfg = tiny_model_cfg(use_lidar=True, **kw)
+        cpu_model = build_model(cfg, "cpu", seed=0)
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        before = dict(_build.launches)
+        want, got = cpu_model.predict(batch), gpu_model.predict(gpu_batch)
+        launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
+        if not forward <= launched:
+            raise AssertionError(f"{variant} predict on CUDA launched only {launched}")
+        if not torch.equal(got["labels"].cpu(), want["labels"]):
+            raise AssertionError(f"{variant}: decoded labels differ")
+        for k in ("scores", "bboxes"):
+            rec[f"{variant} {k}"] = check(f"{variant} decoded {k}", got[k].cpu(),
+                                          want[k], TINY_REL_TOL)
+
+        models = [build_model(cfg, "cpu", seed=0, train=True).eval()]
+        for name in LIDAR_MODULES:
+            getattr(models[0], name).train()      # batch statistics; no draws
+        models.append(copy.deepcopy(models[0]).to("cuda"))
+        losses = []
+        before = dict(_build.launches)
+        for model, b in zip(models, (batch, gpu_batch)):
+            out = model.loss(b, model(b))
+            sum(out.values()).backward()
+            losses.append(out)
+        torch.cuda.synchronize()
+        launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
+        if not forward | backward <= launched:
+            raise AssertionError(f"{variant} step on CUDA launched only {launched}")
+        grads = {n: p.grad for n, p in models[0].named_parameters()
+                 if p.grad is not None}
+        rec[f"{variant} losses"] = check_each(f"{variant} losses", losses[1],
+                                              losses[0], TINY_REL_TOL)
+        rec[f"{variant} grads"] = check_each(
+            f"{variant} gradients",
+            {n: models[1].get_parameter(n).grad for n in grads}, grads,
+            TINY_REL_TOL)
+    return rec
+
+
+def phase_configs(iters=3):
+    print("phase 22: full-width LC predict of the avg_256, dual-queries and "
+          "cat_128 configs, each built from its file (cat_128: float32, dense "
+          "camera SCA); on the avg model also L and C predict", flush=True)
+    batch = synthetic_batch(np.random.RandomState(0), device="cuda")
+    rec = {}
+    for name, path in CONFIGS.items():
+        model = build_model_from_config(path, "cuda", seed=0)
+        t = model.pts_bbox_head.transformer
+        print(f"  {name}: {os.path.relpath(path, ROOT)}: {model.compute_dtype}, "
+              f"fusion {t.fusion_method}, feature_norm {t.feature_norm}, "
+              f"embed_dims {t.embed_dims}, decoder {t.dec_dims}, dual queries "
+              f"{t.dual_queries}, camera SCA rebatch_k "
+              f"{t.img_bev_encoder.rebatch_k}", flush=True)
+        modes = {"LC": (batch, expected_predict_launches())}
+        if name == "avg_256":
+            modes["L"] = ({k: v for k, v in batch.items() if k != "img"},
+                          expected_predict_launches(camera=False))
+            modes["C"] = ({k: v for k, v in batch.items()
+                           if k not in ("points", "points_mask")},
+                          expected_predict_launches(lidar=False))
+        for mode, (b, expected) in modes.items():
+            label = f"{name} {mode}"
+            run = _predict_run(model, b, iters, expected, label, warmups=1)
+            run["profile"] = _profile(lambda: model.predict(b),
+                                      run["ms_per_sample"])
+            rec[label] = run
+        if name == "cat_128":
+            # every run above convolves float32 with cuDNN's TF32 off, as
+            # all of this script's checks do; PyTorch's default turns it on
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                rec["cat_128 LC, cuDNN TF32"] = _predict_run(
+                    model, batch, iters, expected_predict_launches(),
+                    "cat_128 LC, cuDNN TF32 on", warmups=1)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        del model
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_cat_train(iters=2):
+    print("phase 23: one full-width LC train step of the cat_128 config built "
+          "from its file: float32 parameters and compute (no autocast), dense "
+          "camera SCA, modality dropout", flush=True)
+    model = build_model_from_config(CONFIGS["cat_128"], "cuda", seed=0,
+                                    train=True)
+    if model.compute_dtype != torch.float32:
+        raise AssertionError(f"cat_128 computes in {model.compute_dtype}")
+    batch = synthetic_batch(np.random.RandomState(0), device="cuda")
+    out = _train_run(model, batch, expected_train_launches(lidar=True), iters,
+                     1, lidar=True)
+    rec = out[-1]
+    del model, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def compare_only():
     """``--compare``: the flagship paths' walls and device profiles alone
     (phases 5-6, 9-10, 13-15, 18-19), with the launch counts printed but
@@ -1590,6 +1815,11 @@ def main(argv):
                                         lidar=True)
     lc_steps = lc_train["launches"]
     del model, opt, sched, batch, tgen
+    torch.cuda.empty_cache()
+    msda_d16, msda_bwd_d16 = phase_msda_d16(gen)
+    tiny_variants = phase_tiny_variants()
+    configs = phase_configs()
+    cat_train = phase_cat_train()
 
     sparse_cu = "unibev_tpu_torch/csrc/sparse_conv.cu"
     kernels = [
@@ -1624,6 +1854,12 @@ def main(argv):
                      "unibev_tpu/ops/sparse_conv.py:358",
                      lc_steps["sparse_conv_wgrad"], k9),
     ]
+    # K1 and K3 also carry cat_128's D = 16 sites (phase 20), summed over
+    # their launches in one cat_128 LC forward / step
+    for entry, rec in ((kernels[0], msda_d16), (kernels[3], msda_bwd_d16)):
+        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+        entry.update(d16_ms=rec["ms"], d16_plain_ms=rec["plain_ms"],
+                     d16_bound_ms=rec["bound_ms"])
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                   count=torch.cuda.device_count())
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1641,6 +1877,9 @@ def main(argv):
                        sparse_inv_nbr=k8, sparse_conv_wgrad=k9,
                        sparse_conv_bwd=k7_bwd, tiny_lc_train=tiny_lc_train,
                        lc_train=lc_train, profile_lc_train=prof_lc_train,
+                       msda_d16=msda_d16, msda_bwd_d16=msda_bwd_d16,
+                       tiny_variants=tiny_variants, configs=configs,
+                       cat_train=cat_train,
                        kernels=kernels, device=device), f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

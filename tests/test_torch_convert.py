@@ -9,7 +9,8 @@
 * The port's C-only UniBEV carries exactly those keys: the reference
   state_dict and the converted one both load with ``strict=True``.  The LC
   flagship carries exactly the reference flagship's keys and shapes.
-* Importing every module of the port imports no JAX, flax or unibev_tpu.
+* Importing every module of the port (its config loader included) imports
+  no JAX, flax or unibev_tpu.
 * A kernel wrapper given CPU tensors takes the plain version and does not
   count a launch.
 * The converter refuses a variable the slice has no key for.
@@ -105,7 +106,8 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'unibev_tpu'))\n"
         "print(len([n for n in sys.modules if n.startswith('unibev_tpu_torch')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "assert 'unibev_tpu_torch.config.config' in sys.modules\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -132,10 +134,11 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_converter_refuses_variables_outside_the_slice():
-    spatial = {"params": {"pts_bbox_head": {"transformer": {
-        "img_spatial_weights": np.zeros((64,))}}}}
-    with pytest.raises(KeyError, match="img_spatial_weights"):
-        jax_to_state_dict(spatial)
+    # the radar branch is not ported
+    radar = {"params": {"radar_voxel_encoder": {"fc0": {
+        "kernel": np.zeros((7, 64))}}}}
+    with pytest.raises(KeyError, match="radar_voxel_encoder/fc0/kernel"):
+        jax_to_state_dict(radar)
 
 
 def test_lidar_roundtrip_flips_only_the_deconv():

@@ -36,7 +36,7 @@ from unibev_tpu_torch.ops.msda import (cell_interior, ms_deform_attn,
                                        ms_deform_attn_backward,
                                        ms_deform_attn_backward_reference,
                                        ms_deform_attn_reference,
-                                       msda_fwd_route)
+                                       msda_bwd_plan, msda_fwd_route)
 from unibev_tpu_torch.ops.scatter import (scatter_add_rows,
                                           scatter_add_rows_reference)
 from unibev_tpu_torch.ops.sparse_conv import (
@@ -288,6 +288,76 @@ def test_msda_backward_kernel_matches_plain(cuda_device, levels, P, dtype):
     masks = (1, interior, 1)
     for a, b, m, dt in zip(got, want, masks, (dtype, torch.float32, dtype)):
         assert a.dtype == dt and a.shape == b.shape
+        _close(a * m, b * m, BWD_REL[dtype])
+
+
+# the cat_128 config's MSDA sites at its encoders' head width, D = 16
+# (8 heads x 16 channels): name: (levels, points)
+D16_SITES = {"tsa": (((200, 200),), 4), "camera_sca": (((29, 50),), 8),
+             "pts_sca": (((180, 180),), 8)}
+
+
+@pytest.mark.parametrize("site", list(D16_SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_msda_kernels_at_head_width_16(cuda_device, site, dtype):
+    """K1 and K3 at D = 16: 32-byte head rows in bf16, 64-byte in f32, both
+    read 16 bytes at a time by K1; K3 gives each item 2 lanes of 2 chunks."""
+    levels, P = D16_SITES[site]
+    value, loc, attn = _msda_inputs(cuda_device, dtype, levels, P, D=16)
+    size = value.element_size()
+    assert msda_fwd_route(16, size, value.data_ptr()) == 16
+    before = dict(_build.launches)
+    got = ms_deform_attn(value, levels, loc, attn)
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {"msda_fwd": 1}
+    assert got.shape == (2, 300, 8 * 16)
+    _close(got, ms_deform_attn_reference(value, levels, loc, attn),
+           1e-5 if dtype is torch.float32 else 2 ** -6)
+
+    g = torch.randn(2, 300, 8 * 16, device=cuda_device).to(dtype)
+    plan = msda_bwd_plan(2, value.shape[1], 300, 8, 16, size, value.data_ptr(),
+                         g.data_ptr())
+    assert (plan.vec_bytes, plan.lanes, plan.chunks_per_lane) == (
+        4 * size, 2, 2)
+    before = dict(_build.launches)
+    got = ms_deform_attn_backward(value, levels, loc, attn, g)
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {"msda_bwd": 1}
+    want = ms_deform_attn_backward_reference(value, levels, loc, attn, g)
+    masks = (1, cell_interior(loc, levels), 1)
+    for a, b, m in zip(got, want, masks):
+        assert a.shape == b.shape
+        _close(a * m, b * m, BWD_REL[dtype])
+
+
+@pytest.mark.parametrize("dtype,offset,vec", [
+    (torch.bfloat16, 2, 2), (torch.bfloat16, 4, 4), (torch.bfloat16, 8, 8),
+    (torch.float32, 4, 4), (torch.float32, 8, 8)])
+def test_msda_kernels_at_head_width_16_take_unaligned_value(cuda_device, dtype,
+                                                            offset, vec):
+    """A D = 16 value ``offset`` bytes past a 16-byte boundary: K1 and K3
+    take the narrower accesses (K3 at most 4 channels a chunk)."""
+    levels = ((29, 50),)
+    value, loc, attn = _msda_inputs(cuda_device, dtype, levels, 8, D=16)
+    skip = offset // value.element_size()
+    buf = torch.empty(value.numel() + skip, dtype=dtype, device=cuda_device)
+    view = buf[skip:].view(value.shape)
+    view.copy_(value)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    assert msda_fwd_route(16, view.element_size(), view.data_ptr()) == vec
+    rel = 1e-5 if dtype is torch.float32 else 2 ** -6
+    got = ms_deform_attn(view, levels, loc, attn)
+    torch.cuda.synchronize()
+    _close(got, ms_deform_attn_reference(value, levels, loc, attn), rel)
+    g = torch.randn(2, 300, 8 * 16, device=cuda_device).to(dtype)
+    plan = msda_bwd_plan(2, value.shape[1], 300, 8, 16, view.element_size(),
+                         view.data_ptr(), g.data_ptr())
+    assert plan.vec_bytes == min(vec, 4 * view.element_size())
+    got = ms_deform_attn_backward(view, levels, loc, attn, g)
+    want = ms_deform_attn_backward_reference(value, levels, loc, attn, g)
+    masks = (1, cell_interior(loc, levels), 1)
+    for a, b, m in zip(got, want, masks):
         _close(a * m, b * m, BWD_REL[dtype])
 
 

@@ -4,6 +4,8 @@ Counterpart of ``unibev_tpu/core/bbox/assigners.py::HungarianAssigner3D``
 with the same ``(gt_inds, pos_mask)`` contract: cost = focal class cost +
 L1 cost over the first 8 normalized box dims, NaN and inf mapped to +-1e4,
 solved exactly over the valid gt rows; padded gt rows receive no query.
+The reference configs carry an ``iou_cost`` at weight 0, a placeholder
+neither package computes; a nonzero weight raises.
 The solve is ``scipy.optimize.linear_sum_assignment`` on the host, which is
 the reference's own choice (the JAX package's in-graph Jonker-Volgenant
 stays JAX-only).  The costs of every problem in a batch are built on the
@@ -32,8 +34,11 @@ class HungarianAssigner3D:
 
     def __init__(self, cls_cost=None, reg_cost=None, iou_cost=None,
                  pc_range=None):
-        # iou_cost (a zero-weight placeholder in every reference config) and
-        # pc_range are accepted so the reference configs build; neither is read
+        # pc_range is accepted so the reference configs build, and not read;
+        # mmdet's IoUCost weighs 1.0 when the config names none
+        if iou_cost is not None and dict(iou_cost).get("weight", 1.0) != 0:
+            raise ValueError(f"iou_cost {dict(iou_cost)}: the IoU cost is not "
+                             f"computed; only weight 0 is accepted")
         self.cls_cost = _cost(cls_cost, dict(type="FocalLossCost", weight=2.0))
         self.reg_cost = _cost(reg_cost, dict(type="BBox3DL1CostBEVFormer",
                                              weight=0.25))

@@ -23,6 +23,13 @@ compute under autocast; ``use_lidar=False`` trains the camera-only model)::
     metrics = train_step(model, opt, sched, batch, gen)
     metrics["l_flag"], metrics["c_flag"]        # the modalities it kept
 
+Any config file of ``configs/`` builds the model it describes, as the JAX
+CLIs build it (its ``input_modality`` merged into the detector, its
+``dtype`` string a torch dtype, float32 where it names none)::
+
+    model = build_model_from_config(
+        "configs/unibev/unibev_nus_LC_cat_128_modality_dropout.py")
+
 ``tiny_model_cfg`` / ``tiny_batch`` are a scaled-down C or LC model and batch
 (2 cameras, 8x8 BEV, depth-50 backbone, [25, 32, 32] voxel grid) for parity
 and smoke checks.
@@ -30,9 +37,12 @@ and smoke checks.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from unibev_tpu_torch.config.config import Config
 from unibev_tpu_torch.models.detectors.unibev import UniBEV
 from unibev_tpu_torch.models.init import init_weights
 
@@ -144,12 +154,14 @@ def build_model(cfg: dict, device="cuda", seed: int = 0,
     Inference (``train=False``): parameters in cfg's dtype, eval mode,
     gradients off.  Training: parameters stay float32 (compute in cfg's dtype
     comes from autocast in the train step), train mode, gradients on except
-    for the backbone's frozen stages.
+    for the backbone's frozen stages.  On the ``meta`` device the model has
+    shapes and dtypes and no values.
     """
     with torch.device("meta"):
         model = UniBEV(**cfg)
-    model = model.to_empty(device=device)
-    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    if torch.device(device).type != "meta":
+        model = model.to_empty(device=device)
+        init_weights(model, torch.Generator(device=device).manual_seed(seed))
     if not train:
         model = model.to(dtype=cfg.get("dtype", torch.float32))
     for name in ("img_backbone", "pts_backbone", "pts_neck"):
@@ -158,6 +170,49 @@ def build_model(cfg: dict, device="cuda", seed: int = 0,
     if train:
         return model.requires_grad_(True).train()
     return model.eval().requires_grad_(False)
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _frozen(obj):
+    """A config value as plain dicts and tuples (lists become tuples, as the
+    flagship dict has them)."""
+    if isinstance(obj, dict):
+        return {k: _frozen(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return tuple(_frozen(v) for v in obj)
+    return obj
+
+
+def model_cfg_from_config(path_or_cfg) -> dict:
+    """The detector's arguments from a config file (a path, a loaded
+    ``Config`` or its dict), as the JAX CLIs and ``tests/test_configs.py``
+    take them: ``model`` without its ``type``, ``use_lidar`` / ``use_camera``
+    from ``input_modality`` where ``model`` does not set them, and the
+    ``dtype`` string as a torch dtype (float32 where the file gives none,
+    as the JAX package defaults)."""
+    cfg = (Config.fromfile(os.fspath(path_or_cfg))
+           if isinstance(path_or_cfg, (str, os.PathLike)) else path_or_cfg)
+    model = _frozen(dict(cfg["model"]))
+    kind = model.pop("type", "UniBEV")
+    if kind != "UniBEV":
+        raise ValueError(f"the port builds UniBEV detectors, not {kind!r}")
+    modality = cfg.get("input_modality") or {}
+    for key in ("use_lidar", "use_camera"):
+        if key in modality:
+            model.setdefault(key, modality[key])
+    dtype = model.get("dtype", torch.float32)
+    model["dtype"] = DTYPES[dtype] if isinstance(dtype, str) else dtype
+    return model
+
+
+def build_model_from_config(path_or_cfg, device="cuda", seed: int = 0,
+                            train: bool = False) -> UniBEV:
+    """The model a config file describes (:func:`model_cfg_from_config`),
+    with seeded random weights, through :func:`build_model`; the file alone
+    decides the model."""
+    return build_model(model_cfg_from_config(path_or_cfg), device, seed, train)
 
 
 def build_flagship(device="cuda", dtype=torch.bfloat16, seed: int = 0,
@@ -204,21 +259,25 @@ def synthetic_batch(rng: np.random.RandomState, B=1, N=6, H=928, W=1600,
 TINY_PC_RANGE = (-9.6, -9.6, -2.0, 9.6, 9.6, 2.0)
 
 
-def tiny_model_cfg(use_lidar=False):
+def tiny_model_cfg(use_lidar=False, fusion="linear",
+                   feature_norm="ChannelNormWeights", dual_queries=False):
     """The tests' tiny UniBEV (``tests/test_detector.py``: 2 cameras, 8x8
     BEV, depth-50 backbone with DCN in stage 4, dims 32; with ``use_lidar``
     the LiDAR branch on a [25, 32, 32] grid, capacities 2000 / 1500 / 1000 /
     800), float32, with the camera cross-attention rebatched to 16 queries
     per camera (:func:`tiny_batch` hits 12 per camera).  Camera-only by
-    default."""
+    default.  ``fusion`` / ``feature_norm`` as the tests' config takes them
+    (``cat`` runs the decoder at twice the width, as the cat_128 config
+    does); ``dual_queries`` gives each modality its BEV queries."""
     dim = 32
+    dec = dim * (2 if fusion == "cat" else 1)
     sub_attn = [dict(embed_dims=dim, num_levels=1),
                 dict(deformable_attention=dict(embed_dims=dim, num_points=4,
                                                num_levels=1))]
     img_attn = [sub_attn[0], dict(sub_attn[1], rebatch_k=16)]
     transformer = dict(
-        embed_dims=dim, fusion_method="linear",
-        feature_norm="ChannelNormWeights", drop_modality=0.5,
+        embed_dims=dim, fusion_method=fusion,
+        feature_norm=feature_norm, drop_modality=0.5,
         num_cams=2,
         img_encoder=dict(num_layers=1, pc_range=TINY_PC_RANGE,
                          num_points_in_pillar=2,
@@ -227,10 +286,12 @@ def tiny_model_cfg(use_lidar=False):
         decoder=dict(num_layers=2,
                      transformerlayers=dict(
                          attn_cfgs=[
-                             dict(embed_dims=dim, num_heads=4, dropout=0.1),
-                             dict(embed_dims=dim, num_levels=1),
+                             dict(embed_dims=dec, num_heads=4, dropout=0.1),
+                             dict(embed_dims=dec, num_levels=1),
                          ],
-                         feedforward_channels=dim * 2)))
+                         feedforward_channels=dec * 2)))
+    if dual_queries:
+        transformer["dual_queries"] = True
     cfg = dict(
         use_grid_mask=True, use_lidar=use_lidar, use_camera=True,
         img_shape=(64, 96),
@@ -251,6 +312,8 @@ def tiny_model_cfg(use_lidar=False):
             cls_cost=dict(type="FocalLossCost", weight=2.0),
             reg_cost=dict(type="BBox3DL1CostBEVFormer", weight=0.25)))),
     )
+    if dual_queries:
+        cfg["pts_bbox_head"]["dual_queries"] = True
     if use_lidar:
         transformer["pts_encoder"] = dict(
             num_layers=1, pc_range=TINY_PC_RANGE, num_points_in_pillar_lidar=2,

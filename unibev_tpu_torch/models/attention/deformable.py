@@ -142,12 +142,15 @@ class SpatialCrossAttentionImg(nn.Module):
     frustum holds the pillar (the hit mask), projected, dropped out and added
     to the query.
     ``rebatch_k`` > 0 runs only the top-K hit queries of each camera; 0 runs
-    the masked dense form.
+    the masked dense form.  ``pc_range`` is part of every config's SCA and
+    not read here, as in the JAX module: the encoder's ``pc_range`` places
+    the pillars.
     """
 
     def __init__(self, embed_dims: int = 256,
                  deformable_attention: Optional[dict] = None,
-                 rebatch_k: int = 0):
+                 rebatch_k: int = 0,
+                 pc_range: Optional[Sequence[float]] = None):
         super().__init__()
         da_cfg = {k: v for k, v in dict(deformable_attention or {}).items()
                   if k != "type"}
@@ -200,10 +203,12 @@ class SpatialCrossAttentionImg(nn.Module):
 class SpatialCrossAttentionPts(nn.Module):
     """BEV-query -> LiDAR BEV map cross attention: every query attends into
     the one map at its pillar anchors, then output projection, dropout and
-    the residual."""
+    the residual.  ``pc_range`` is accepted and not read, as in the camera
+    one."""
 
     def __init__(self, embed_dims: int = 256,
-                 deformable_attention: Optional[dict] = None):
+                 deformable_attention: Optional[dict] = None,
+                 pc_range: Optional[Sequence[float]] = None):
         super().__init__()
         da_cfg = {k: v for k, v in dict(deformable_attention or {}).items()
                   if k != "type"}

@@ -90,7 +90,11 @@ class UniBEV(nn.Module):
             self.img_neck = FPN(
                 in_channels=tuple(ncfg.get("in_channels", (2048,))),
                 out_channels=ncfg.get("out_channels", 256),
-                num_outs=ncfg.get("num_outs", 1))
+                num_outs=ncfg.get("num_outs", 1),
+                start_level=ncfg.get("start_level", 0),
+                add_extra_convs=ncfg.get("add_extra_convs", "on_output"),
+                relu_before_extra_convs=ncfg.get("relu_before_extra_convs",
+                                                 True))
         if use_lidar:
             self._build_lidar(pts_voxel_layer, pts_middle_encoder,
                               pts_backbone, pts_neck)
@@ -115,7 +119,9 @@ class UniBEV(nn.Module):
             positional_encoding=hcfg.get("positional_encoding"),
             loss_cls=hcfg.get("loss_cls"),
             loss_bbox=hcfg.get("loss_bbox"),
+            loss_iou=hcfg.get("loss_iou"),
             train_cfg=(train_cfg or {}).get("pts"),
+            dual_queries=hcfg.get("dual_queries", False),
             use_img=use_camera, use_pts=use_lidar)
 
     def _build_lidar(self, voxel_layer, middle_encoder, backbone, neck):

@@ -1,11 +1,18 @@
 """UniBEV detection head (DETR3D/BEVFormer-style, NMS-free).
 
 Counterpart of ``unibev_tpu/models/heads/unibev_head.py``: BEV query
-embedding, object query embedding, per-decoder-layer cls/reg branches
-(independent copies, box refinement), per-layer box decode against the
-layer's reference points, NMS-free top-k on the last layer with z moved from
-the gravity center to the box bottom, and the training loss (Hungarian
-assignment, sigmoid focal classification, L1 on normalized boxes).
+embedding (one per modality with ``dual_queries``: the reference's
+``bev_embedding_img`` / ``bev_embedding_pts``, the column halves of the JAX
+package's one (HW, 2C) embedding), object query embedding, per-decoder-layer
+cls/reg branches (independent copies, box refinement), per-layer box decode
+against the layer's reference points, NMS-free top-k on the last layer with
+z moved from the gravity center to the box bottom, and the training loss
+(Hungarian assignment, sigmoid focal classification, L1 on normalized
+boxes).  The decoder's width ``dec_dims`` is twice ``in_channels`` for the
+cat fusion, which sizes the object queries and the branches.
+
+The reference configs carry ``loss_iou`` (GIoU) at weight 0, a placeholder
+neither package computes; a nonzero weight raises.
 """
 
 from __future__ import annotations
@@ -57,28 +64,42 @@ class UniBEVHead(nn.Module):
                  loss_bbox: Optional[dict] = None,
                  train_cfg: Optional[dict] = None,
                  code_weights: Sequence[float] = (1.0,) * 8 + (0.2, 0.2),
+                 dual_queries: bool = False,
+                 loss_iou: Optional[dict] = None,
                  use_img: bool = True, use_pts: bool = False):
         super().__init__()
+        # mmdet's GIoULoss weighs 1.0 when the config names none
+        if loss_iou is not None and dict(loss_iou).get("loss_weight", 1.0) != 0:
+            raise ValueError(f"loss_iou {dict(loss_iou)}: the IoU loss is not "
+                             f"computed; only weight 0 is accepted")
         self.num_classes = num_classes
         tcfg = {k: v for k, v in dict(transformer or {}).items() if k != "type"}
         self.bev_h, self.bev_w = bev_h, bev_w
         self.pc_range = tuple(pc_range)
         self.transformer = UniBEVTransformer(
             **{**tcfg, "embed_dims": tcfg.get("embed_dims", in_channels),
+               "dual_queries": tcfg.get("dual_queries", dual_queries),
                "bev_h": bev_h, "bev_w": bev_w, "use_img": use_img,
                "use_pts": use_pts})
+        # the JAX head's width rule, from in_channels
+        dec_dims = in_channels * (2 if tcfg.get("fusion_method") == "cat" else 1)
         pe = {k: v for k, v in dict(positional_encoding or {}).items() if k != "type"}
         self.positional_encoding = LearnedPositionalEncoding(
             num_feats=pe.get("num_feats", in_channels // 2),
             row_num_embed=pe.get("row_num_embed", bev_h),
             col_num_embed=pe.get("col_num_embed", bev_w))
-        self.bev_embedding = nn.Embedding(bev_h * bev_w, in_channels)
-        self.query_embedding = nn.Embedding(num_query, in_channels * 2)
+        self.dual_queries = bool(dual_queries or tcfg.get("dual_queries"))
+        if self.dual_queries:
+            self.bev_embedding_img = nn.Embedding(bev_h * bev_w, in_channels)
+            self.bev_embedding_pts = nn.Embedding(bev_h * bev_w, in_channels)
+        else:
+            self.bev_embedding = nn.Embedding(bev_h * bev_w, in_channels)
+        self.query_embedding = nn.Embedding(num_query, dec_dims * 2)
         num_layers = (tcfg.get("decoder") or {}).get("num_layers", 6)
         self.cls_branches = nn.ModuleList(
-            [cls_branch(in_channels, num_classes) for _ in range(num_layers)])
+            [cls_branch(dec_dims, num_classes) for _ in range(num_layers)])
         self.reg_branches = nn.ModuleList(
-            [reg_branch(in_channels) for _ in range(num_layers)])
+            [reg_branch(dec_dims) for _ in range(num_layers)])
         coder_cfg = {k: v for k, v in dict(bbox_coder or {}).items() if k != "type"}
         coder_cfg.setdefault("pc_range", self.pc_range)
         coder_cfg.setdefault("num_classes", num_classes)
@@ -99,11 +120,16 @@ class UniBEVHead(nn.Module):
         None for an absent modality; l_flag / c_flag the modality flags
         (float32 0-dim; by default those of the modalities present).
         Returns all_cls_scores (L, B, Q, ncls), all_bbox_preds (L, B, Q,
-        10), bev_embed (B, HW, C) and sca_overflow (0-dim)."""
+        10), bev_embed (B, HW, dec_dims) and sca_overflow (0-dim)."""
         B = (img_feats if img_feats is not None else pts_feats)[0].shape[0]
         bev_pos = self.positional_encoding(B, self.bev_h, self.bev_w)
+        if self.dual_queries:
+            bev_queries = torch.cat([self.bev_embedding_img.weight,
+                                     self.bev_embedding_pts.weight], dim=1)
+        else:
+            bev_queries = self.bev_embedding.weight
         bev_embed, states, _, refs, sca_overflow = self.transformer(
-            img_feats, pts_feats, self.bev_embedding.weight,
+            img_feats, pts_feats, bev_queries,
             self.query_embedding.weight, bev_pos, lidar2img, img_shape,
             l_flag, c_flag, reg_branches=self.reg_branches)
 

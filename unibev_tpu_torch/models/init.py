@@ -24,6 +24,8 @@ from unibev_tpu_torch.models.layers import _InProjAttention
 from unibev_tpu_torch.models.middle_encoder import SparseConv3d
 
 _SMALL = {"conv_offset": 0.1, "sampling_offsets": 0.01, "attention_weights": 0.01}
+# free parameters whose flax initializer is not the unit normal
+_FREE_STD = {"modal_embbeding_C": 0.02, "modal_embbeding_L": 0.02}
 
 
 @torch.no_grad()
@@ -67,9 +69,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             normal_(m.in_proj_weight, m.in_proj_weight.shape[1] ** -0.5)
             m.in_proj_bias.zero_()
         else:
-            # free parameters: camera / level embeddings, CNW channel weights
-            for p in m.parameters(recurse=False):
-                normal_(p, 1.0)
+            # free parameters: camera / level embeddings, CNW and spatial
+            # weights, the fixed modal embeddings
+            for pname, p in m.named_parameters(recurse=False):
+                normal_(p, _FREE_STD.get(pname, 1.0))
     # after the pass above, which zeroed every Linear bias
     for m in model.modules():
         if isinstance(m, _SamplingHeads):

@@ -6,7 +6,16 @@ SECONDFPN, the head and the transformer's camera and LiDAR encoders and
 decoder.  Input is the JAX model's variables as numpy arrays (``params``,
 ``constants`` for the frozen BN, ``batch_stats`` for the LiDAR branch's BN);
 the output carries the reference checkpoint's key names, which are the
-port's.  Layouts converted back:
+port's.  That covers every fusion option of the transformer:
+``channel_weights_proj.0`` (MLP-CNW), ``modal_embbeding_mlp.0`` / ``.2`` and
+``modal_embbeding_C`` / ``_L`` (the reference's spelling; the JAX package's
+``modal_embed_fc1`` / ``fc2`` and ``modal_embedding_C`` / ``_L``),
+``img_spatial_weights`` / ``pts_spatial_weights``, and with dual queries
+the reference's ``bev_embedding_img`` / ``bev_embedding_pts``, the column
+halves of the JAX package's one (HW, 2C) ``bev_embedding``.  The reference
+names no ModalityProjection weights: they keep the JAX package's names,
+``l_modal_proj`` / ``c_modal_proj``.  The FPN's extra levels land after its
+level convs in ``fpn_convs``, as in mmdet.  Layouts converted back:
 
   * conv kernel (Kh, Kw, Cin, Cout)        -> (Cout, Cin, Kh, Kw)
   * transposed-conv kernel (Kh, Kw, Cin, Cout) -> (Cin, Cout, Kh, Kw), the
@@ -200,6 +209,11 @@ def _branch(m, w):
 
 _H = "pts_bbox_head"
 _T = f"{_H}/transformer"
+# the transformer's Linears whose port names differ from the JAX ones
+_TORCH_NAMES = {"channel_weights_proj": "channel_weights_proj.0",
+                "modal_embed_fc1": "modal_embbeding_mlp.0",
+                "modal_embed_fc2": "modal_embbeding_mlp.2",
+                "l_modal_proj": "l_modal_proj", "c_modal_proj": "c_modal_proj"}
 _RULES: List[Tuple[str, Callable]] = [
     (r"img_backbone/conv1/kernel",
      lambda m, w: [("img_backbone.conv1.weight", _conv(w))]),
@@ -208,14 +222,20 @@ _RULES: List[Tuple[str, Callable]] = [
     (r"img_neck/(lateral|fpn)(\d+)/(kernel|bias)",
      lambda m, w: [(f"img_neck.{m.group(1)}_convs.{m.group(2)}.conv.{_WB[m.group(3)]}",
                  _conv(w) if m.group(3) == "kernel" else w)]),
-    (rf"{_H}/(bev_embedding|query_embedding)",
-     lambda m, w: [(f"pts_bbox_head.{m.group(1)}.weight", w)]),
+    (rf"{_H}/query_embedding",
+     lambda m, w: [("pts_bbox_head.query_embedding.weight", w)]),
     (rf"{_H}/positional_encoding/(row|col)_embed/embedding",
      lambda m, w: [(f"pts_bbox_head.positional_encoding.{m.group(1)}_embed.weight", w)]),
     (rf"{_H}/(cls|reg)_branch(\d+)/(\w+)/(kernel|bias|scale)", _branch),
     (rf"{_T}/(img_channel_weights|pts_channel_weights|cams_embeds|img_level_embeds"
-     r"|pts_level_embeds)",
+     r"|pts_level_embeds|img_spatial_weights|pts_spatial_weights)",
      lambda m, w: [(f"pts_bbox_head.transformer.{m.group(1)}", w)]),
+    (rf"{_T}/modal_embedding_(C|L)",
+     lambda m, w: [(f"pts_bbox_head.transformer.modal_embbeding_{m.group(1)}", w)]),
+    (rf"{_T}/(channel_weights_proj|modal_embed_fc1|modal_embed_fc2|l_modal_proj"
+     r"|c_modal_proj)/(kernel|bias)",
+     lambda m, w: [(f"pts_bbox_head.transformer.{_TORCH_NAMES[m.group(1)]}."
+                    f"{_WB[m.group(2)]}", _dense(m.group(2), w))]),
     (rf"{_T}/reference_points/(kernel|bias)",
      lambda m, w: [(f"pts_bbox_head.transformer.reference_points.{_WB[m.group(1)]}",
                  _dense(m.group(1), w))]),
@@ -249,13 +269,46 @@ def _basic_blocks(variables) -> Dict[int, int]:
     return n
 
 
+def _bev_embedding(w, embed_dims):
+    """The BEV query embedding under its reference names: one (HW, C) table,
+    or with dual queries (a (HW, 2C) table) its camera and LiDAR halves."""
+    if embed_dims is not None and w.shape[1] == 2 * embed_dims:
+        return [("pts_bbox_head.bev_embedding_img.weight", w[:, :embed_dims]),
+                ("pts_bbox_head.bev_embedding_pts.weight", w[:, embed_dims:])]
+    return [("pts_bbox_head.bev_embedding.weight", w)]
+
+
+def _embed_dims(variables):
+    """The transformer's embed_dims, from its level embeddings (None when
+    ``variables`` holds neither)."""
+    t = variables.get("params", {}).get(_H, {}).get("transformer", {})
+    for name in ("img_level_embeds", "pts_level_embeds"):
+        if name in t:
+            return np.shape(t[name])[-1]
+    return None
+
+
+def _fpn_levels(variables) -> int:
+    """The FPN's level convs, after which its extra levels are numbered."""
+    neck = variables.get("params", {}).get("img_neck", {})
+    return sum(1 for k in neck if re.fullmatch(r"fpn\d+", k))
+
+
 def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
     """The port's state_dict from the JAX UniBEV's variables."""
     out: Dict[str, np.ndarray] = {}
     in_proj: Dict = {}
     unknown = []
     n_basic = _basic_blocks(variables)
-    rules = _RULES + [(_ME + r"/(.+)", lambda m, w: _middle(m, w, n_basic))]
+    dims, levels = _embed_dims(variables), _fpn_levels(variables)
+    rules = _RULES + [
+        (_ME + r"/(.+)", lambda m, w: _middle(m, w, n_basic)),
+        (rf"{_H}/bev_embedding", lambda m, w: _bev_embedding(w, dims)),
+        (r"img_neck/extra(\d+)/(kernel|bias)",
+         lambda m, w: [(f"img_neck.fpn_convs.{levels + int(m.group(1))}.conv."
+                        f"{_WB[m.group(2)]}",
+                        _conv(w) if m.group(2) == "kernel" else w)]),
+    ]
     for col in ("params", "constants", "batch_stats"):
         for path, w in _flatten(variables.get(col, {})):
             joined = "/".join(path)
