@@ -113,7 +113,28 @@ then, each phase printing one line (or a few) and raising on any failure:
      C predict; cat_128 LC once more with cuDNN's TF32 on;
  23. one full-width LC train step of cat_128 built from its file (float32,
      no autocast, modality dropout): launch counts (as phase 18), s/step
-     (median of 2 after 1 warm-up), peak memory, finite losses, grad norm.
+     (median of 2 after 1 warm-up), peak memory, finite losses, grad norm;
+ 24. the port's train CLI in process (``train_UniBEV.main``) on the
+     flagship config file with --synthetic-data for 4 steps (full width,
+     B=1, bf16, modality dropout, the config's 2 loader workers): 4 finite
+     losses in metrics.jsonl, a checkpoint, SCA overflow 0 on the
+     camera-live steps, launches 4 x phase 18's; s/step (median of steps
+     2-4), the loader's wait and the host-to-device copy per step, peak
+     memory, the idle share that phase 19's device time gives, and the
+     loader's own rate (12 batches, 2 workers, no training);
+ 25. the port's test CLI in process (``test_UniBEV.run``) on that
+     checkpoint with --synthetic-data for 4 samples: the flagship config
+     (4 results in the JAX schema, launches 4 x phase 13's, SCA overflow 0)
+     and the L-only inference config (the camera keys dropped by
+     load_params, launches 4 x phase 14's, SCA overflow -1); ms/sample
+     through the CLI beside phases 13 and 14;
+ 26. both CLIs on a nuScenes-shaped tree written to disk (3 samples: six
+     1600x900 JPEGs decoded by PIL and a 34,000-point sweep each, info
+     pickles) through the flagship config's own pipelines: 2 train steps
+     (launches 2 x phase 18's, finite losses, the loader's wait), the
+     train loader alone on those files for 2 epochs, then the test CLI on
+     2 val samples with the nuScenes metric (launches 2 x phase 13's, SCA
+     overflow 0, a finite mAP).
 
 Each kernel's entry in the line before the last gives its launches on the
 path it serves (K1, K2, K6, K7: one LC predict; the im2col, K3, K4, K8,
@@ -135,6 +156,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -1727,6 +1749,319 @@ def phase_cat_train(iters=2):
     return rec
 
 
+# The train / test CLI phases (24, 25): the flagship config file, the L-only
+# inference config that evaluates its checkpoint, and the CLIs' work dir
+# (under build/, which git ignores: a flagship checkpoint is large)
+FLAGSHIP_CONFIG = os.path.join(
+    ROOT, "configs", "unibev", "unibev_nus_LC_cnw_256_modality_dropout.py")
+L_CONFIG = os.path.join(ROOT, "configs", "unibev", "inference",
+                        "unibev_val_L_full.py")
+CLI_DIR = os.path.join(ROOT, "build", "cli_smoke")
+CLI_STEPS = 4
+
+
+def _counts_during(fn):
+    """(fn's result, the kernel launches it made): the counts are set to 0
+    just before and read just after."""
+    for k in list(_build.launches):
+        _build.launches[k] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _build.launches.items() if v}
+
+
+def _times(n, per):
+    return {k: n * v for k, v in per.items()}
+
+
+def _step_rows(steps, *keys):
+    """(loss, data_time, time, *keys) of each metrics.jsonl step."""
+    return [tuple(round(st[k], 4) for k in ("loss", "data_time", "time"))
+            + tuple(st[k] for k in keys) for st in steps]
+
+
+def phase_train_cli(step_launches, step_device_ms):
+    print(f"phase 24: the port's train CLI in process on the flagship config "
+          f"file, --synthetic-data, {CLI_STEPS} steps (6 cameras at 928x1600, "
+          f"300k points, B=1, bf16, modality dropout)", flush=True)
+    from unibev_tpu_torch.tools import train_UniBEV
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    work_dir = os.path.join(CLI_DIR, "train")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, launches = _counts_during(lambda: train_UniBEV.main([
+        FLAGSHIP_CONFIG, "--synthetic-data", "--max-steps", str(CLI_STEPS),
+        "--work-dir", work_dir, "--cfg-options", "log_config.interval=1"]))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    ckpt = os.path.join(work_dir, "checkpoints", f"{CLI_STEPS}.pth")
+    expected = _times(CLI_STEPS, step_launches)
+    # steps 2 to 4: the first includes the model's build and cuDNN's choices
+    s_step = float(np.median([st["time"] for st in steps[1:]]))
+    wait = float(np.median([st["data_time"] for st in steps[1:]]))
+    copy_ms = float(np.median([st["copy_ms"] for st in steps[1:]]))
+    overflow = max(int(st["sca_overflow"]) for st in steps
+                   if st["c_flag"] == 1.0) if any(
+        st["c_flag"] == 1.0 for st in steps) else 0
+    idle = 1.0 - step_device_ms / (1000 * s_step)
+    # 4 steps run on the batches the workers loaded during the first step;
+    # the loader's own rate, with no training beside it, says whether it
+    # keeps up with a longer run
+    from unibev_tpu_torch.data.loader import DataLoader
+    from unibev_tpu_torch.data.nuscenes_dataset import SyntheticNuScenes
+    loader = DataLoader(SyntheticNuScenes(length=12), batch_size=1,
+                        num_workers=2, pin_memory=True)
+    gaps, t0 = [], time.perf_counter()
+    for _ in loader:
+        gaps.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+    loader_s = float(np.median(gaps[-6:]))
+    rec = dict(rc=rc, wall_s=wall, steps=steps, s_per_step=s_step,
+               loader_wait_s=wait, loader_s_per_batch=loader_s,
+               copy_ms=copy_ms, peak_bytes=peak,
+               launches=launches, expected_launches=expected,
+               sca_overflow=overflow, idle_share_estimate=idle,
+               checkpoint_bytes=os.path.getsize(ckpt)
+               if os.path.exists(ckpt) else None)
+    print(f"  {s_step:.4f} s/step (median of steps 2-{CLI_STEPS}); loader "
+          f"wait {wait:.4f} s/step, host-to-device copy {copy_ms:.3f} "
+          f"ms/step; "
+          f"idle share ~{idle:.3f} (phase 19's {step_device_ms:.3f} ms of "
+          f"device a step over it); peak {peak / 2 ** 30:.2f} GiB ({peak} "
+          f"bytes); {wall:.1f} s for the whole CLI call; the loader alone "
+          f"(2 workers, pinned): {loader_s:.4f} s a batch (median of the "
+          f"last 6 of 12)", flush=True)
+    print(f"  steps (loss, data_time s, time s, l_flag, c_flag): "
+          f"{_step_rows(steps, 'l_flag', 'c_flag')}", flush=True)
+    print(f"  launches {launches} (expected {CLI_STEPS} x phase 18's: "
+          f"{expected}); checkpoint {ckpt} ({rec['checkpoint_bytes']} bytes)",
+          flush=True)
+    if rc != 0 or len(steps) != CLI_STEPS or not all(
+            np.isfinite(st["loss"]) for st in steps):
+        raise AssertionError(f"train CLI: rc {rc}, steps {steps}")
+    if not os.path.isfile(ckpt):
+        raise AssertionError(f"train CLI: no checkpoint at {ckpt}")
+    if overflow != 0:
+        raise AssertionError(f"train CLI: sca_overflow {overflow}")
+    if CHECK_LAUNCHES and launches != expected:
+        raise AssertionError(f"train CLI: launches {launches} != {expected}")
+    return rec, ckpt
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_test_cli(ckpt, lc_launches, l_launches, lc_device_ms, lc_ms, l_ms):
+    print(f"phase 25: the port's test CLI in process on phase 24's "
+          f"checkpoint: the flagship config (LC) and the L-only inference "
+          f"config, --synthetic-data, {CLI_STEPS} samples each", flush=True)
+    from unibev_tpu_torch.tools import test_UniBEV
+    rec = {}
+    runs = (("LC", FLAGSHIP_CONFIG, lc_launches, 0, lc_ms),
+            ("L", L_CONFIG, l_launches, -1, l_ms))
+    for mode, cfg, per_sample, want_overflow, phase_ms in runs:
+        out = os.path.join(CLI_DIR, f"results_{mode}.json")
+        logs = _Records()
+        logging.getLogger("unibev_tpu_torch").addHandler(logs)
+        try:
+            summary, launches = _counts_during(lambda: test_UniBEV.run(
+                test_UniBEV.parse_args([
+                    cfg, ckpt, "--synthetic-data", "--max-samples",
+                    str(CLI_STEPS), "--out", out])))
+        finally:
+            logging.getLogger("unibev_tpu_torch").removeHandler(logs)
+        with open(out) as f:
+            results = json.load(f)
+        expected = _times(CLI_STEPS, per_sample)
+        dropped = [m for m in logs.messages if "checkpoint subtree" in m]
+        r = dict(ms_per_sample=summary["ms_per_sample"],
+                 predict_ms=summary["predict_ms"], wait_ms=summary["wait_ms"],
+                 sca_overflow=summary["sca_overflow"], launches=launches,
+                 expected_launches=expected, results=len(results),
+                 dropped_subtrees=dropped)
+        rec[mode] = r
+        print(f"  {mode}: {summary['ms_per_sample']:.2f} ms/sample through "
+              f"the CLI (predict, copies and read-back "
+              f"{summary['predict_ms']:.2f}, "
+              f"loader wait {summary['wait_ms']:.2f}; medians after the "
+              f"first); phase {13 if mode == 'LC' else 14}'s predict alone "
+              f"{phase_ms:.2f}; sca_overflow {summary['sca_overflow']}; "
+              f"launches {launches} (expected {CLI_STEPS} x phase "
+              f"{13 if mode == 'LC' else 14}'s: {expected}); checkpoint "
+              f"subtrees dropped: {dropped}", flush=True)
+        finite = all(np.isfinite(x).all() for res in results
+                     for x in (np.asarray(res["boxes_3d"]),
+                               np.asarray(res["scores_3d"])))
+        if (len(results) != CLI_STEPS or not finite
+                or any(list(res) != ["sample_idx", "boxes_3d", "scores_3d",
+                                     "labels_3d", "valid"]
+                       or np.asarray(res["boxes_3d"]).shape != (300, 9)
+                       for res in results)):
+            raise AssertionError(f"test CLI {mode}: bad results in {out}")
+        if summary["sca_overflow"] != want_overflow:
+            raise AssertionError(f"test CLI {mode}: sca_overflow "
+                                 f"{summary['sca_overflow']} != "
+                                 f"{want_overflow}")
+        if CHECK_LAUNCHES and launches != expected:
+            raise AssertionError(f"test CLI {mode}: launches {launches} != "
+                                 f"{expected}")
+        if mode == "L" and not any("'img_backbone" in m for m in dropped):
+            raise AssertionError("the L config kept the camera keys: "
+                                 f"{dropped}")
+    rec["LC"]["idle_share_estimate"] = 1.0 - lc_device_ms / rec["LC"][
+        "ms_per_sample"]
+    print(f"  LC idle share ~{rec['LC']['idle_share_estimate']:.3f} (phase "
+          f"15's {lc_device_ms:.3f} ms of device a forward over the CLI's "
+          f"ms/sample)", flush=True)
+    return rec
+
+
+DISK_SAMPLES = 3        # phase 26's tree: 3 train samples, the first 2 for val
+DISK_CAMS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT", "CAM_BACK",
+             "CAM_BACK_LEFT", "CAM_BACK_RIGHT")
+DISK_POINTS = 34000     # about one nuScenes LiDAR sweep
+
+
+def write_disk_tree(root, rng):
+    """A nuScenes-shaped tree on disk (mmdet3d v0.18 info pickles with
+    absolute paths): per sample a float32 (34000, 5) LiDAR .bin and six
+    1600x900 JPEGs (cameras 60 degrees apart, f = 1266 px, the synthetic
+    batch's geometry), and 8 annotated boxes.  Returns the train and val
+    info files."""
+    import pickle
+
+    from PIL import Image
+    os.makedirs(root, exist_ok=True)
+    K = [[1266.0, 0.0, 800.0], [0.0, 1266.0, 450.0], [0.0, 0.0, 1.0]]
+    names = ("car", "pedestrian", "truck", "barrier")
+    infos = []
+    for s in range(DISK_SAMPLES):
+        pts = np.empty((DISK_POINTS, 5), np.float32)
+        pts[:, :2] = rng.uniform(-54, 54, (DISK_POINTS, 2))
+        pts[:, 2] = rng.uniform(-3, 1, DISK_POINTS)
+        pts[:, 3:] = rng.rand(DISK_POINTS, 2)
+        lidar = os.path.join(root, f"lidar_{s}.bin")
+        pts.tofile(lidar)
+        cams = {}
+        for n, cam in enumerate(DISK_CAMS):
+            th = n * np.pi / 3
+            # camera axes in the LiDAR frame: x right, y down, z forward
+            fwd = np.array([np.cos(th), np.sin(th), 0.0])
+            right = np.array([np.sin(th), -np.cos(th), 0.0])
+            down = np.array([0.0, 0.0, -1.0])
+            path = os.path.join(root, f"{cam}_{s}.jpg")
+            Image.fromarray(rng.randint(0, 256, (900, 1600, 3), np.uint8)
+                            ).save(path, quality=90)
+            cams[cam] = dict(data_path=path,
+                             sensor2lidar_rotation=np.stack(
+                                 [right, down, fwd], 1),
+                             sensor2lidar_translation=np.zeros(3),
+                             cam_intrinsic=np.array(K))
+        boxes = np.zeros((8, 7), np.float32)
+        boxes[:, :2] = rng.uniform(-40, 40, (8, 2))
+        boxes[:, 2] = rng.uniform(-2, 0, 8)
+        boxes[:, 3:6] = rng.uniform(0.5, 4.0, (8, 3))
+        boxes[:, 6] = rng.uniform(-np.pi, np.pi, 8)
+        infos.append(dict(
+            token=f"sample{s}", lidar_path=lidar, sweeps=[],
+            timestamp=1_000_000 * (s + 1), scene_token="scene0", cams=cams,
+            gt_boxes=boxes,
+            gt_names=np.array([names[i % 4] for i in range(8)]),
+            gt_velocity=rng.randn(8, 2).astype(np.float32),
+            num_lidar_pts=rng.randint(1, 50, 8),
+            valid_flag=np.ones(8, bool)))
+    paths = []
+    for split, rows in (("train", infos), ("val", infos[:2])):
+        paths.append(os.path.join(root, f"infos_{split}.pkl"))
+        with open(paths[-1], "wb") as f:
+            pickle.dump(dict(infos=rows, metadata=dict(version="fake")), f)
+    return paths
+
+
+def phase_disk_cli(ckpt, step_launches, lc_launches):
+    print(f"phase 26: both CLIs on a nuScenes-shaped tree on disk (the "
+          f"flagship config's own pipelines: 6 JPEGs at 1600x900 and a "
+          f"{DISK_POINTS}-point sweep a sample, PIL decoding): 2 train "
+          f"steps, then the test CLI with the metric on 2 val samples",
+          flush=True)
+    from unibev_tpu_torch.tools import test_UniBEV, train_UniBEV
+    t0 = time.perf_counter()
+    train_info, val_info = write_disk_tree(os.path.join(CLI_DIR, "nusc"),
+                                           np.random.RandomState(0))
+    write_s = time.perf_counter() - t0
+    work_dir = os.path.join(CLI_DIR, "disk_train")
+    t0 = time.perf_counter()
+    rc, launches = _counts_during(lambda: train_UniBEV.main([
+        FLAGSHIP_CONFIG, "--max-steps", "2", "--work-dir", work_dir,
+        "--no-validate", "--cfg-options", f"data.train.ann_file={train_info}",
+        "log_config.interval=1"]))
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    expected = _times(2, step_launches)
+    print(f"  tree written in {write_s:.1f} s; train CLI {train_s:.1f} s: "
+          f"steps (loss, data_time s, time s) "
+          f"{_step_rows(steps)}; "
+          f"launches {launches} (expected 2 x phase 18's)", flush=True)
+    if rc != 0 or len(steps) != 2 or not all(np.isfinite(st["loss"])
+                                              for st in steps):
+        raise AssertionError(f"train CLI on disk: rc {rc}, steps {steps}")
+    if CHECK_LAUNCHES and launches != expected:
+        raise AssertionError(f"train CLI on disk: launches {launches} != "
+                             f"{expected}")
+    # the train loader alone on these files (2 workers, as the config asks;
+    # 2 epochs of the 3 samples): the host's rate for real data
+    from unibev_tpu_torch.data.loader import DataLoader
+    from unibev_tpu_torch.registry import DATASETS
+    from unibev_tpu_torch.tools.cli_common import load_config
+    cfg = load_config(FLAGSHIP_CONFIG, [f"data.train.ann_file={train_info}"])
+    loader = DataLoader(DATASETS.build(dict(cfg.data["train"])), batch_size=1,
+                        num_workers=2, pin_memory=True)
+    gaps = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for _ in loader:
+            gaps.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+    loader_s = float(np.median(gaps[1:]))
+    print(f"  the train loader alone on the files (2 workers): "
+          f"{loader_s:.3f} s a batch (median of {len(gaps) - 1} after the "
+          f"first; gaps {[round(g, 3) for g in gaps]})", flush=True)
+    out = os.path.join(CLI_DIR, "results_disk.json")
+    summary, launches = _counts_during(lambda: test_UniBEV.run(
+        test_UniBEV.parse_args([FLAGSHIP_CONFIG, ckpt, "--out", out,
+                                "--cfg-options",
+                                f"data.test.ann_file={val_info}"])))
+    expected = _times(2, lc_launches)
+    metrics = summary["metrics"]
+    print(f"  test CLI: {summary['ms_per_sample']:.2f} ms/sample (predict "
+          f"{summary['predict_ms']:.2f}, loader wait "
+          f"{summary['wait_ms']:.2f}); "
+          f"sca_overflow {summary['sca_overflow']}; launches {launches} "
+          f"(expected 2 x phase 13's); metrics {metrics}", flush=True)
+    if (len(summary["results"]) != 2 or summary["sca_overflow"] != 0
+            or metrics is None or not np.isfinite(metrics["mAP"])):
+        raise AssertionError(f"test CLI on disk: {summary['sca_overflow']}, "
+                             f"{metrics}, {len(summary['results'])} results")
+    if CHECK_LAUNCHES and launches != expected:
+        raise AssertionError(f"test CLI on disk: launches {launches} != "
+                             f"{expected}")
+    return dict(write_s=write_s, train_s=train_s, steps=steps,
+                loader_s_per_batch=loader_s, loader_gaps=gaps,
+                ms_per_sample=summary["ms_per_sample"],
+                predict_ms=summary["predict_ms"], wait_ms=summary["wait_ms"],
+                metrics=metrics)
+
+
 def compare_only():
     """``--compare``: the flagship paths' walls and device profiles alone
     (phases 5-6, 9-10, 13-15, 18-19), with the launch counts printed but
@@ -1820,6 +2155,13 @@ def main(argv):
     tiny_variants = phase_tiny_variants()
     configs = phase_configs()
     cat_train = phase_cat_train()
+    train_cli, ckpt = phase_train_cli(lc_steps,
+                                      prof_lc_train["device_ms_total"])
+    test_cli = phase_test_cli(ckpt, lc["launches"], l_only["launches"],
+                              prof_lc["device_ms_total"], lc["ms_per_sample"],
+                              l_only["ms_per_sample"])
+    disk_cli = phase_disk_cli(ckpt, lc_steps, lc["launches"])
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
 
     sparse_cu = "unibev_tpu_torch/csrc/sparse_conv.cu"
     kernels = [
@@ -1879,7 +2221,8 @@ def main(argv):
                        lc_train=lc_train, profile_lc_train=prof_lc_train,
                        msda_d16=msda_d16, msda_bwd_d16=msda_bwd_d16,
                        tiny_variants=tiny_variants, configs=configs,
-                       cat_train=cat_train,
+                       cat_train=cat_train, train_cli=train_cli,
+                       test_cli=test_cli, disk_cli=disk_cli,
                        kernels=kernels, device=device), f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

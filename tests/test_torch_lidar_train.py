@@ -17,15 +17,19 @@ and the LC train step, the port against the JAX package.
 * modality dropout: the flag frequencies, their determinism, and the head
   under each forced pair of flags against the JAX head with the same flags
   (a dropped branch and both CNW weights get exactly zero gradient);
-* ``train_step`` on the tiny LC model, and on a batch without images.
+* ``train_step`` on the tiny LC model, and on a batch without images;
+* ``val_step`` and the Runner's val-loss pass on the tiny LC model against
+  the JAX ``make_val_step`` (one more jit, called on two batches).
 
 Tolerances: module outputs 1e-4 relative to their scale; gradients 1e-3 of
 each parameter's largest gradient (1e-4 for the single modules); running
 statistics 1e-5 relative; flags and counts exactly; flag frequencies
-within 5 sigma.
+within 5 sigma; val-step losses 1e-4 (PERF.md section 2).
 """
 
 import functools
+import logging
+import types
 
 import numpy as np
 import pytest
@@ -38,6 +42,7 @@ from unibev_tpu.models.detectors.unibev import UniBEV as JaxUniBEV
 from unibev_tpu.models.middle_encoder import MaskedBatchNorm as JaxMaskedBN
 from unibev_tpu.models.middle_encoder import SparseEncoder as JaxSparseEncoder
 from unibev_tpu.models.necks.fpn import SECONDFPN as JaxSECONDFPN
+from unibev_tpu.parallel.train_state import make_val_step
 
 from test_detector import tiny_batch as jax_tiny_batch
 from test_sparse_conv import make_sparse
@@ -48,7 +53,9 @@ from unibev_tpu_torch.models.middle_encoder import (MaskedBatchNorm,
                                                     SparseEncoder)
 from unibev_tpu_torch.models.necks.fpn import SECONDFPN
 from unibev_tpu_torch.models.transformer_fusion import sample_modality_flags
-from unibev_tpu_torch.parallel.train_state import make_optimizer, train_step
+from unibev_tpu_torch.parallel.train_state import (make_optimizer, train_step,
+                                                   val_step)
+from unibev_tpu_torch.runtime.train_loop import Runner
 from unibev_tpu_torch.utils.convert_jax import jax_to_state_dict
 
 KEY = jax.random.PRNGKey(0)
@@ -303,7 +310,7 @@ def lc_pair():
              for n, p in tm.named_parameters() if n.startswith("pts_bbox_head.")})
     return dict(jlosses=jlosses, jgrads=jgrads, jhead=jhead,
                 tlosses={k: v.detach() for k, v in tlosses.items()},
-                tgrads=tgrads, thead=thead)
+                tgrads=tgrads, thead=thead, jm=jm, variables=variables, tm=tm)
 
 
 def test_lc_model_every_loss_term_matches(lc_pair):
@@ -405,3 +412,72 @@ def test_lc_train_step():
     assert (float(metrics["l_flag"]), float(metrics["c_flag"])) == (1.0, 0.0)
     assert all(torch.isfinite(v) for v in metrics.values())
     assert {int(m.num_batches_tracked) for m in bns.values()} == {3}
+
+
+@pytest.fixture
+def one_thread():
+    """The port's tiny forwards on one intra-op thread: beside the other
+    test workers' processes, torch's thread pool waits on descheduled
+    threads at every small op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def val_pair(lc_pair):
+    """JAX make_val_step's losses on two tiny LC batches (seeds 0 and 1; one
+    jit) and the port's batches, as numpy samples without a batch axis."""
+    step = make_val_step(lc_pair["jm"])
+
+    @jax.jit
+    def jval(v, b):
+        return step(types.SimpleNamespace(**v), b)
+
+    samples, losses = [], []
+    for seed in (0, 1):
+        b = jax_tiny_batch(np.random.RandomState(seed))
+        b = {k: np.asarray(b[k]) for k in LC_KEYS}
+        losses.append({k: float(v) for k, v in
+                       jval(lc_pair["variables"], b).items()})
+        samples.append({k: v[0] for k, v in b.items()})
+    return samples, losses
+
+
+def test_val_step_matches_jax(lc_pair, val_pair, one_thread):
+    """The eval-mode losses and their sum under no_grad; the model's modes
+    (here mixed) come back as they were and no gradient moves."""
+    tm = lc_pair["tm"]
+    tm.train()
+    tm.pts_neck.eval()
+    modes = {n: m.training for n, m in tm.named_modules()}
+    grads = {n: None if p.grad is None else p.grad.clone()
+             for n, p in tm.named_parameters()}
+    for sample, want in zip(*val_pair):
+        got = val_step(tm, {k: t(v)[None] for k, v in sample.items()})
+        assert set(got) == set(want) and not got["loss"].requires_grad
+        for k in want:
+            np.testing.assert_allclose(float(got[k]), want[k], rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+    assert {n: m.training for n, m in tm.named_modules()} == modes
+    for n, p in tm.named_parameters():
+        assert (p.grad is None) == (grads[n] is None), n
+        assert p.grad is None or torch.equal(p.grad, grads[n]), n
+    tm.eval()
+
+
+def test_val_loss_pass_matches_jax(lc_pair, val_pair, one_thread, tmp_path):
+    """The Runner's val-loss pass (batches of one sample) against the mean
+    of make_val_step's losses over the same samples."""
+    samples, losses = val_pair
+    runner = Runner(dict(workflow=[("train", 1), ("val", 1)]), samples,
+                    str(tmp_path), logging.getLogger(__name__),
+                    val_dataset=samples, device="cpu")
+    assert runner.val_loss_epochs
+    runner.model = lc_pair["tm"]
+    got = runner._val_loss_pass()
+    assert set(got) == set(losses[0])
+    for k in got:
+        np.testing.assert_allclose(got[k], np.mean([l[k] for l in losses]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)

@@ -69,3 +69,50 @@ def port_state(variables, jax_path, torch_prefix):
 def t(a) -> torch.Tensor:
     """numpy / JAX array -> CPU torch tensor (a copy)."""
     return torch.from_numpy(np.array(a))
+
+
+def fake_nuscenes_tree(root: str):
+    """The on-disk fake nuScenes tree of tests/test_real_data_e2e.py (4
+    samples, 2 cameras at 64x96, 512 LiDAR points each), its info files from
+    tools/create_data.py (3 train samples, 1 val) and its config on
+    configs/smoke/tiny_lc.py; returns the config's path."""
+    import os.path as osp
+    import subprocess
+    import sys
+
+    from test_real_data_e2e import CONFIG_TMPL, REPO, build_tree
+
+    build_tree(root)
+    r = subprocess.run(
+        [sys.executable, osp.join(REPO, "tools/create_data.py"), "nuscenes",
+         "--root-path", root, "--version", "v1.0-mini"],
+        capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr[-2000:]
+    cfg_path = osp.join(root, "cfg_files.py")
+    with open(cfg_path, "w") as f:
+        f.write(CONFIG_TMPL.format(repo=REPO, root=root))
+    return cfg_path
+
+
+def assert_same(got, want, path="item"):
+    """``got`` equals ``want`` exactly, recursively: dicts with the same
+    keys, sequences of the same length, arrays of the same dtype and values
+    (NaN equal to NaN); numpy generators by their state."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), (
+            path, sorted(got), sorted(want))
+        for k in want:
+            assert_same(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray), (path, type(got))
+        assert got.dtype == want.dtype, (path, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    elif isinstance(want, np.random.Generator):
+        assert got.bit_generator.state == want.bit_generator.state, path
+    else:
+        assert type(got) is type(want) and (got == want or got != got), (
+            path, got, want)

@@ -1,11 +1,12 @@
-"""Optimizer and one training step.
+"""Optimizer, one training step and one validation step.
 
-Counterpart of ``unibev_tpu/parallel/train_state.py::make_optimizer`` and
-``make_train_step`` on one device (the data-parallel mesh is not ported).
-Optimizer parity with the reference config: AdamW lr 2e-4, weight decay
-0.01, gradient clipping at a global norm of 35, the cosine schedule with
-linear warm-up, and per-path learning-rate multipliers (lr 0 on the frozen
-stem and stage 1 of the image backbone, x0.1 on both backbones).
+Counterpart of ``unibev_tpu/parallel/train_state.py::make_optimizer``,
+``make_train_step`` and ``make_val_step`` on one device (the data-parallel
+mesh is not ported).  The defaults are the reference config's: AdamW lr
+2e-4, weight decay 0.01, gradient clipping at a global norm of 35, the
+cosine schedule with linear warm-up, and per-path learning-rate multipliers
+(lr 0 on the frozen stem and stage 1 of the image backbone, x0.1 on both
+backbones); ``make_optimizer`` takes each from a config as the JAX one does.
 
 optax applies the weight decay before the learning rate and the multiplier
 (``add_decayed_weights`` then ``scale_by_learning_rate`` then the path
@@ -18,8 +19,9 @@ weights) instead of letting AdamW skip it.
 
 from __future__ import annotations
 
+import contextlib
 import re
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -40,40 +42,73 @@ MIN_LR_RATIO = 1e-3
 GRAD_CLIP = 35.0
 
 
-def lr_mult(name: str) -> float:
-    """The multiplier of the first :data:`PARAMWISE` rule whose pattern is
-    found in ``name``."""
-    for pattern, mult in PARAMWISE:
+def lr_mult(name: str,
+            rules: Sequence[Tuple[str, float]] = PARAMWISE) -> float:
+    """The multiplier of the first rule whose pattern is found in ``name``."""
+    for pattern, mult in rules:
         if re.search(pattern, name):
             return mult
     return 1.0
 
 
-def make_optimizer(model: nn.Module):
+def make_optimizer(model: nn.Module, base_lr: float = BASE_LR,
+                   weight_decay: float = WEIGHT_DECAY,
+                   total_steps: int = TOTAL_STEPS,
+                   warmup_iters: int = WARMUP_ITERS,
+                   warmup_ratio: float = WARMUP_RATIO,
+                   min_lr_ratio: float = MIN_LR_RATIO,
+                   grad_clip: float = GRAD_CLIP,
+                   paramwise: Sequence[Tuple[str, float]] = PARAMWISE):
     """(AdamW with one parameter group per multiplier, its LambdaLR).
 
-    Clipping is the train step's (:data:`GRAD_CLIP`).  Returns the optimizer
-    and the scheduler; ``scheduler.step()`` after each optimizer step.
+    ``scheduler.step()`` after each optimizer step.  ``grad_clip`` is kept
+    in every parameter group (so the optimizer's state_dict carries it);
+    :func:`train_step` clips at it unless told otherwise.
     """
     groups: Dict[float, list] = {}
     for name, p in model.named_parameters():
-        groups.setdefault(lr_mult(name), []).append(p)
+        groups.setdefault(lr_mult(name, paramwise), []).append(p)
     opt = torch.optim.AdamW(
-        [dict(params=ps, lr=BASE_LR * m, lr_mult=m)
+        [dict(params=ps, lr=base_lr * m, lr_mult=m, grad_clip=grad_clip)
          for m, ps in sorted(groups.items())],
-        lr=BASE_LR, betas=(0.9, 0.999), eps=1e-8, weight_decay=WEIGHT_DECAY)
-    schedule = cosine_with_linear_warmup(BASE_LR, TOTAL_STEPS, WARMUP_ITERS,
-                                         WARMUP_RATIO, MIN_LR_RATIO)
+        lr=base_lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    schedule = cosine_with_linear_warmup(base_lr, total_steps, warmup_iters,
+                                         warmup_ratio, min_lr_ratio)
     sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda step: schedule(step) / BASE_LR)
+        opt, lambda step: schedule(step) / base_lr)
     return opt, sched
+
+
+def compute_autocast(model: nn.Module):
+    """``torch.autocast`` to the model's compute dtype where its parameters
+    are float32 and that dtype is not (a training build of a bf16 model);
+    a no-op otherwise (an inference build already holds bf16 parameters)."""
+    dtype = model.compute_dtype
+    p = next(model.parameters())
+    return torch.autocast(p.device.type, dtype=dtype,
+                          enabled=dtype != torch.float32
+                          and p.dtype == torch.float32)
+
+
+@contextlib.contextmanager
+def eval_mode(model: nn.Module):
+    """``model.eval()`` inside, each submodule's own mode restored after."""
+    modes = [(m, m.training) for m in model.modules()]
+    model.eval()
+    try:
+        yield model
+    finally:
+        for m, training in modes:
+            m.training = training
 
 
 def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
                batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator] = None,
+               grad_clip: Optional[float] = None) -> Dict[str, torch.Tensor]:
     """One step: forward (train mode draws GridMask and dropout from
-    ``generator``), the head loss, backward, clipping at :data:`GRAD_CLIP`,
+    ``generator``), the head loss, backward, clipping the global norm at
+    ``grad_clip`` (by default the optimizer's, :func:`make_optimizer`),
     AdamW and the schedule.
 
     A model whose compute dtype is not float32 (the flagship's bf16) runs
@@ -85,11 +120,8 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
     forward's ``sca_overflow`` and modality flags ``l_flag`` / ``c_flag``,
     detached, on the model's device.
     """
-    dtype = model.compute_dtype
-    device = next(model.parameters()).device
     opt.zero_grad(set_to_none=True)
-    with torch.autocast(device.type, dtype=dtype,
-                        enabled=dtype != torch.float32):
+    with compute_autocast(model):
         preds = model(batch, generator)
         losses = model.loss(batch, preds)
     total = sum(losses.values())
@@ -98,7 +130,9 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = torch.nn.utils.clip_grad_norm_(params, GRAD_CLIP)
+    if grad_clip is None:
+        grad_clip = opt.param_groups[0]["grad_clip"]
+    grad_norm = torch.nn.utils.clip_grad_norm_(params, grad_clip)
     opt.step()
     sched.step()
     metrics = {k: v.detach() for k, v in losses.items()}
@@ -107,3 +141,15 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
     for k in ("sca_overflow", "l_flag", "c_flag"):
         metrics[k] = preds[k]
     return metrics
+
+
+def val_step(model: nn.Module,
+             batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The losses of an eval-mode forward, and ``loss``, their sum: the val
+    workflow's step (no optimizer step, no gradients), in the model's compute
+    dtype.  The model is left in the mode it was found in."""
+    with eval_mode(model), torch.no_grad(), compute_autocast(model):
+        losses = model.loss(batch, model(batch))
+    losses = dict(losses)
+    losses["loss"] = sum(losses.values())
+    return losses

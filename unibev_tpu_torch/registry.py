@@ -44,7 +44,7 @@ class Registry:
         return obj_cls(**args)
 
 
-# The registries this slice of the port fills, under the reference's names.
+# The port's registries, under the reference's names.
 DETECTORS = Registry("detectors")
 HEADS = Registry("heads")
 BACKBONES = Registry("backbones")
@@ -59,3 +59,5 @@ BBOX_CODERS = Registry("bbox_coders")
 BBOX_ASSIGNERS = Registry("bbox_assigners")
 MATCH_COSTS = Registry("match_costs")
 LOSSES = Registry("losses")
+DATASETS = Registry("datasets")
+PIPELINES = Registry("pipelines")
