@@ -64,7 +64,7 @@ def test_train_cli_on_files(trained):
                        weights_only=True)
     assert state["step"] == 2 and state["epoch"] == 1
     assert set(state) == {"model", "optimizer", "scheduler", "step", "epoch",
-                          "generator"}
+                          "generator", "flag_generator"}
 
 
 def test_test_cli_on_the_checkpoint(trained, tmp_path):
@@ -92,11 +92,19 @@ def test_test_cli_on_the_checkpoint(trained, tmp_path):
 
 
 def test_clis_run_one_process_on_one_card(trained, monkeypatch):
+    """The launchers the port does not map raise, naming what it lacks (a
+    process drives one card; several cards take torch.distributed.run and
+    --launcher pytorch)."""
     cfg = trained[0]
     for main in (train_UniBEV.main, test_UniBEV.main):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            main([cfg, "--launcher", "pytorch", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        for launcher, lacks in (("slurm", "SLURM environment"),
+                                ("mpi", "MPI environment"),
+                                ("tpu", "no TPU runtime")):
+            with pytest.raises(NotImplementedError,
+                               match=f"--launcher {launcher}: the port does "
+                                     f"not map it: .*{lacks}"):
+                main([cfg, "--launcher", launcher, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="a process drives one card"):
         train_UniBEV.main([cfg, "--gpus", "2", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main in (train_UniBEV.main, test_UniBEV.main):

@@ -134,11 +134,21 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_converter_refuses_variables_outside_the_slice():
-    # the radar branch is not ported
-    radar = {"params": {"radar_voxel_encoder": {"fc0": {
-        "kernel": np.zeros((7, 64))}}}}
-    with pytest.raises(KeyError, match="radar_voxel_encoder/fc0/kernel"):
-        jax_to_state_dict(radar)
+    """A variable the port has no key for raises (the JAX PillarFeatureNet
+    has no BatchNorm); the radar branch's own variables map."""
+    bad = {"params": {"radar_voxel_encoder": {"bn0": {
+        "scale": np.zeros((64,))}}}}
+    with pytest.raises(KeyError, match="radar_voxel_encoder/bn0/scale"):
+        jax_to_state_dict(bad)
+    kernel = np.arange(9 * 64, dtype=np.float32).reshape(9, 64)
+    sd = jax_to_state_dict({"params": {"radar_voxel_encoder": {
+        "fc0": {"kernel": kernel}, "ln0": {"scale": np.ones(64),
+                                           "bias": np.zeros(64)}}}})
+    assert sorted(sd) == ["radar_voxel_encoder.fc0.weight",
+                          "radar_voxel_encoder.ln0.bias",
+                          "radar_voxel_encoder.ln0.weight"]
+    np.testing.assert_array_equal(sd["radar_voxel_encoder.fc0.weight"].numpy(),
+                                  kernel.T)
 
 
 def test_lidar_roundtrip_flips_only_the_deconv():

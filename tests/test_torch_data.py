@@ -28,6 +28,7 @@ from unibev_tpu.registry import DATASETS as JAX_DATASETS
 from unibev_tpu.registry import PIPELINES as JAX_PIPELINES
 from unibev_tpu.registry import build_from_cfg
 
+from test_radar import write_pcd
 from torch_port_utils import assert_same, fake_nuscenes_tree
 from unibev_tpu_torch.config.config import Config
 from unibev_tpu_torch.data import native
@@ -70,8 +71,20 @@ def raw(tmp_path_factory):
         files.append(str(d / f"cam{c}.jpg"))
     boxes = rng.randn(6, 9).astype(np.float32)
     boxes[:, :2] *= 8
+    radar_sweeps = []
+    for s in range(3):
+        pcd = np.zeros((30 + 20 * s, 18), np.float32)
+        pcd[:, :10] = rng.randn(len(pcd), 10) * 10
+        write_pcd(d / f"radar{s}.pcd", pcd)
+        radar_sweeps.append(dict(data_path=str(d / f"radar{s}.pcd"),
+                                 sensor2lidar_rotation=np.linalg.qr(
+                                     rng.randn(3, 3))[0].tolist(),
+                                 sensor2lidar_translation=rng.randn(3).tolist(),
+                                 timestamp=10.0 - 0.07 * s))
     return dict(
         pts_filename=str(d / "pts.bin"), sweeps=sweeps, timestamp=10.0,
+        radar_info=dict(RADAR_FRONT=radar_sweeps[:2],
+                        RADAR_BACK_LEFT=radar_sweeps[2:]),
         img_filename=files, sample_idx="tok0", box_type_3d="LiDAR",
         points=cloud.copy(),
         img=[(rng.rand(30, 44, 3) * 255).astype(np.float32) for _ in range(2)],
@@ -87,8 +100,8 @@ NORMALIZE = dict(type="NormalizeMultiviewImage",
 COLLECT = dict(type="CustomCollect3D",
                keys=["points", "img", "gt_bboxes_3d", "gt_labels_3d"])
 
-# every transform the JAX package registers but the radar loader (ROADMAP
-# A8c), with the keys of ``raw`` it reads
+# every transform the JAX package registers, with the keys of ``raw`` it
+# reads
 TRANSFORMS = {
     "LoadPointsFromFile": (dict(load_dim=5, use_dim=4), ("pts_filename",)),
     "LoadPointsFromMultiSweeps": (dict(sweeps_num=2),
@@ -124,13 +137,14 @@ TRANSFORMS = {
     "CustomCollect3D": (COLLECT, None),
     "PadShapes": (dict(max_points=256, max_gt=4),
                   ("points", "gt_bboxes_3d", "gt_labels_3d")),
+    "LoadRadarPointsFromMultiSweeps": (dict(sweeps_num=2, max_num=96),
+                                       ("radar_info", "timestamp")),
 }
 
 
 def test_every_jax_transform_is_ported():
     names = {n.split(",")[0] for n in TRANSFORMS}
-    assert set(JAX_PIPELINES._module_dict) - {"LoadRadarPointsFromMultiSweeps"} \
-        == names == set(PIPELINES._module_dict)
+    assert set(JAX_PIPELINES._module_dict) == names == set(PIPELINES._module_dict)
 
 
 @pytest.mark.parametrize("name", list(TRANSFORMS))

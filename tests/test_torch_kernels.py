@@ -11,8 +11,10 @@ DCN columns and the fused DCN forward ``dcn_fwd``, 1e-5 for MSDA (the same terms
 order, TF32 off); bf16 2^-6 (outputs rounded to bf16, relative 2^-8, with
 margin).  The backwards (K3, K4, one launch a call) add d_value / d_x into
 float32 tables with vector atomics in no fixed order: f32 1e-4, bf16 2^-6
-(bf16 inputs, outputs rounded to bf16).  The scatter-add K5, which no path
-launches, is held alone at 1e-5.  d_loc and
+(bf16 inputs, outputs rounded to bf16).  The scatter-add K5 is held alone at
+1e-5, and exactly at the radar pillar scatter's shapes (each canvas row
+takes at most one pillar; the masked pillars' index, one past the canvas,
+is skipped).  d_loc and
 d_offset jump across cell edges, where the kernels and grid_sample may round
 a position to different sides: they are compared at points 1e-3 pixels or
 more inside a cell (``cell_interior`` / ``tap_interior``).  The sparse-conv
@@ -267,6 +269,64 @@ def test_scatter_kernel_matches_plain(cuda_device, dtype):
     assert _build.launches["scatter_add_rows"] == before + 2
     want = scatter_add_rows_reference(idx, contrib, tr)
     _close(got, 2 * want, 1e-5)
+
+
+def _radar_site(device, dtype, live=2048, rows=40000, cells=32400, C=64):
+    """K5's inputs at the full-width RC model's pillar scatter: ``rows``
+    pillar rows of C channels, ``live`` of them at distinct canvas cells,
+    the rest masked (index ``cells``, past the canvas)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    idx = torch.full((rows,), cells, dtype=torch.int32, device=device)
+    idx[:live] = torch.randperm(cells, generator=g, device=device)[:live].int()
+    contrib = torch.randn(rows, C, device=device, generator=g).to(dtype)
+    contrib[live:] = 0          # the PFN zeroes masked pillars
+    return idx, contrib, cells
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scatter_kernel_at_the_radar_site_is_exact(cuda_device, dtype):
+    idx, contrib, cells = _radar_site(cuda_device, dtype)
+    before = _build.launches["scatter_add_rows"]
+    got = scatter_add_rows(idx, contrib, cells)
+    torch.cuda.synchronize()
+    assert _build.launches["scatter_add_rows"] == before + 1
+    assert torch.equal(got, scatter_add_rows_reference(idx, contrib, cells))
+    # masked rows with data are skipped, not added to any row
+    contrib[2048:] = 1.0
+    assert torch.equal(scatter_add_rows(idx, contrib, cells),
+                       scatter_add_rows_reference(idx, contrib, cells))
+
+
+def test_pillar_scatter_on_the_card_matches_the_cpu(cuda_device):
+    """PointPillarsScatter: one K5 launch forward, a gather backward (no
+    kernel), both exact against the CPU's plain version."""
+    from unibev_tpu_torch.models.radar import PointPillarsScatter
+    g = torch.Generator().manual_seed(1)
+    B, H, W, C, V = 2, 12, 20, 16, 150
+    cells = torch.stack([torch.randperm(H * W, generator=g)[:V]
+                         for _ in range(B)]).view(-1)
+    coords = torch.stack([torch.arange(B).repeat_interleave(V),
+                          torch.zeros(B * V, dtype=torch.long),
+                          cells // W, cells % W], 1).int()
+    mask = torch.rand(B * V, generator=g) > 0.3
+    coords[~mask] = -1
+    feats = torch.randn(B * V, C, generator=g)
+    cot = torch.randn(B, C, H, W, generator=g)
+    scatter = PointPillarsScatter(C, (H, W))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        x = feats.detach().to(dev).requires_grad_()
+        before = dict(_build.launches)
+        y = scatter(x, coords.to(dev), mask.to(dev), B)
+        (y * cot.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        grew = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                if v != before.get(k, 0)}
+        assert grew == ({} if dev == "cpu" else {"scatter_add_rows": 1})
+        outs.append((y.detach().cpu(), x.grad.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.parametrize("levels,P", [(((29, 50),), 8), (((29, 50), (7, 9)), 4),

@@ -19,7 +19,13 @@ and the LC train step, the port against the JAX package.
   (a dropped branch and both CNW weights get exactly zero gradient);
 * ``train_step`` on the tiny LC model, and on a batch without images;
 * ``val_step`` and the Runner's val-loss pass on the tiny LC model against
-  the JAX ``make_val_step`` (one more jit, called on two batches).
+  the JAX ``make_val_step`` (one more jit, called on two batches);
+* data parallel: two gloo ranks at batch 1 (the port's model in
+  ``DistributedDataParallel``, eval mode with gradients on) against the
+  JAX loss of the batch of both samples and its gradient; and with the
+  LiDAR modules in train mode (synchronized batch statistics) against the
+  JAX model at batch 2 with its LiDAR branch in train mode: losses,
+  gradients and the updated running statistics.
 
 Tolerances: module outputs 1e-4 relative to their scale; gradients 1e-3 of
 each parameter's largest gradient (1e-4 for the single modules); running
@@ -257,14 +263,16 @@ def lc_pair():
     variables = perturb(jax.jit(functools.partial(jm.init, train=False))(
         dict(params=KEY, gridmask=jax.random.PRNGKey(1)), jbatch), scale=0.01)
 
-    def loss_fn(params):
+    def loss_fn(params, b):
         v = {**variables, "params": params}
-        preds = jm.apply(v, jbatch, train=False)
-        losses = jm.apply(v, jbatch, preds, method=JaxUniBEV.loss)
+        preds = jm.apply(v, b, train=False)
+        losses = jm.apply(v, b, preds, method=JaxUniBEV.loss)
         return sum(losses.values()), losses
 
-    (_, jlosses), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        variables["params"])
+    # the batch is an argument, so that other batches of its shapes reuse
+    # the compiled function
+    loss_vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    (_, jlosses), jgrads = loss_vg(variables["params"], jbatch)
 
     @jax.jit
     def features(v, b):
@@ -310,7 +318,8 @@ def lc_pair():
              for n, p in tm.named_parameters() if n.startswith("pts_bbox_head.")})
     return dict(jlosses=jlosses, jgrads=jgrads, jhead=jhead,
                 tlosses={k: v.detach() for k, v in tlosses.items()},
-                tgrads=tgrads, thead=thead, jm=jm, variables=variables, tm=tm)
+                tgrads=tgrads, thead=thead, jm=jm, variables=variables, tm=tm,
+                loss_vg=loss_vg, jbatch=jbatch)
 
 
 def test_lc_model_every_loss_term_matches(lc_pair):
@@ -481,3 +490,114 @@ def test_val_loss_pass_matches_jax(lc_pair, val_pair, one_thread, tmp_path):
     for k in got:
         np.testing.assert_allclose(got[k], np.mean([l[k] for l in losses]),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+def test_lc_model_two_ranks_match_jax_at_batch_two(lc_pair, tmp_path):
+    """Two gloo ranks, rank r on the tiny batch of seed r: the ranks' losses
+    sum to the JAX loss of the batch of both samples, and DDP's mean
+    gradient is its gradient.  That loss is (S_0 + S_1) / (P_0 + P_1), each
+    sample's summed loss S over the boxes matched over the batch P (the
+    global average factor); the JAX function of ``lc_pair`` gives each
+    sample's S / P and gradient at batch 1 (no new compile), and P is its
+    valid boxes, all of which the Hungarian assignment matches (24 queries,
+    4 boxes).  A forward of both samples at once would agree where the
+    sparse encoder's capacities hold; they are per forward in both packages
+    (per rank under the port's data parallel), and the tiny batch overflows
+    the first strided conv at batch 1 already."""
+    from torch_dist_workers import lc_loss_rank
+    from unibev_tpu_torch.tools.ddp_check import spawn_ranks
+
+    params = lc_pair["variables"]["params"]
+    batches = [lc_pair["jbatch"]]
+    b1 = jax_tiny_batch(np.random.RandomState(1))
+    batches.append({k: b1[k] for k in LC_KEYS})
+    runs = [(lc_pair["jlosses"], lc_pair["jgrads"])]
+    (_, l1), g1 = lc_pair["loss_vg"](params, batches[1])
+    runs.append((l1, g1))
+    P = [float(np.asarray(b["gt_valid"]).sum()) for b in batches]
+    want_losses = {k: sum(p * float(r[0][k]) for p, r in zip(P, runs)) / sum(P)
+                   for k in runs[0][0]}
+    want_grads = jax_to_state_dict({"params": jax.tree_util.tree_map(
+        lambda a, b: (P[0] * np.asarray(a) + P[1] * np.asarray(b)) / sum(P),
+        runs[0][1], runs[1][1])})
+
+    path = str(tmp_path)
+    torch.save(lc_pair["tm"].state_dict(), f"{path}/lc_state.pt")
+    torch.save([{k: t(v) for k, v in b.items()} for b in batches],
+               f"{path}/lc_batches.pt")
+    spawn_ranks(lc_loss_rank, 2, path, path)
+    ranks = [torch.load(f"{path}/lc_rank{r}.pt") for r in range(2)]
+    for k, w in want_losses.items():
+        got = sum(float(r["losses"][k]) for r in ranks)
+        np.testing.assert_allclose(got, w, rtol=1e-5, err_msg=k)
+    got = ranks[0]["grads"]
+    for n, g in got.items():
+        assert (g is None) == (ranks[1]["grads"][n] is None), n
+        assert g is None or torch.equal(g, ranks[1]["grads"][n]), n
+    _close_grads(got, {n: want_grads[n] for n in got}, 1e-3)
+
+
+def test_lc_model_two_ranks_in_train_mode_match_jax_at_batch_two(lc_pair,
+                                                                 tmp_path):
+    """Two gloo ranks at batch 1 with the LiDAR modules in train mode (their
+    batch statistics synchronized over the ranks) against the JAX model at
+    batch 2 with its LiDAR branch in train mode and the rest deterministic
+    (no GridMask, no dropout, both flags 1, as the port's eval-mode top
+    level gives): the losses, every gradient and every updated LiDAR
+    running statistic.  The cloud is ``tools/ddp_check.py``'s, 256 points a
+    sample, which overflow no sparse capacity of a rank's forward; the
+    capacities are per forward, so the JAX model at batch 2 holds twice the
+    ranks' and both runs drop nothing."""
+    from torch_dist_workers import lc_loss_rank
+    from unibev_tpu_torch.tools.ddp_check import POINTS, spawn_ranks
+
+    cfg = tiny_model_cfg(use_lidar=True)
+    me = cfg["pts_middle_encoder"]
+    me["capacities"] = tuple(2 * c for c in me["capacities"])
+    jm = JaxUniBEV(**cfg)
+    variables = lc_pair["variables"]
+    batch = {k: v for k, v in tiny_batch(np.random.RandomState(0), B=2,
+                                         P=POINTS).items() if k in LC_KEYS}
+
+    def forward(m, b):
+        img = m.extract_img_feat(b["img"], train=False)
+        pts = m.extract_pts_feat(b["points"], b["points_mask"], train=True)
+        return m.head(img, pts, b["lidar2img"], m.img_shape, jnp.float32(1.0),
+                      jnp.float32(1.0), deterministic=True)
+
+    def loss_fn(params, b):
+        v = {**variables, "params": params}
+        preds, state = jm.apply(v, b, method=forward, mutable=["batch_stats"])
+        losses = jm.apply(v, b, preds, method=JaxUniBEV.loss)
+        return sum(losses.values()), (losses, state["batch_stats"])
+
+    (_, (jlosses, jstats)), jgrads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(variables["params"],
+                                {k: jnp.asarray(v.numpy())
+                                 for k, v in batch.items()})
+    want_grads = jax_to_state_dict({"params": jgrads})
+    want_stats = jax_to_state_dict({**variables, "batch_stats": jstats})
+
+    path = str(tmp_path)
+    torch.save(lc_pair["tm"].state_dict(), f"{path}/lc_state.pt")
+    torch.save([{k: v[r:r + 1] for k, v in batch.items()} for r in range(2)],
+               f"{path}/lc_batches.pt")
+    spawn_ranks(lc_loss_rank, 2, path, path, True)
+    ranks = [torch.load(f"{path}/lc_rank{r}.pt") for r in range(2)]
+    assert set(ranks[0]["losses"]) == set(jlosses)
+    for k, w in jlosses.items():
+        got = sum(float(r["losses"][k]) for r in ranks)
+        np.testing.assert_allclose(got, float(w), rtol=1e-5, err_msg=k)
+    got = ranks[0]["grads"]
+    for n, g in got.items():
+        assert (g is None) == (ranks[1]["grads"][n] is None), n
+        assert g is None or torch.equal(g, ranks[1]["grads"][n]), n
+    _close_grads(got, {n: want_grads[n] for n in got}, 1e-3)
+    stats = ranks[0]["stats"]
+    assert len(stats) == 2 * 27          # 21 masked BatchNorms, 6 flax ones
+    for n, s in stats.items():
+        assert torch.equal(s, ranks[1]["stats"][n]), n
+        w = want_stats[n].numpy()
+        assert not np.array_equal(w, lc_pair["tm"].state_dict()[n].numpy()), n
+        np.testing.assert_allclose(s.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=n)

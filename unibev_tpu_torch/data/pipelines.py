@@ -482,3 +482,7 @@ class Compose:
             if results is None:
                 return None
         return results
+
+
+# the radar loader registers itself in PIPELINES (it draws from _rng above)
+from unibev_tpu_torch.data import radar as _radar  # noqa: E402,F401

@@ -48,15 +48,30 @@ from unibev_tpu_torch.models.init import init_weights
 
 PC_RANGE = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
 VOXEL_SIZE = (0.075, 0.075, 0.2)
+RADAR_VOXEL_SIZE = (0.6, 0.6, 8.0)
+# the radar loader's point budget (LoadRadarPointsFromMultiSweeps.max_num)
+RADAR_POINTS = 2048
 DIM = 256
 
 
-def flagship_model_cfg(use_lidar=True, use_camera=True, dtype=torch.bfloat16):
+def flagship_model_cfg(use_lidar=True, use_camera=True, dtype=torch.bfloat16,
+                       use_radar=False):
     """The JAX package's flagship dict (``unibev_tpu/flagship.py``) at its
     defaults (``fp8_tables=False``), with a torch dtype.
 
     Keys the port does not read (query_chunk, the DCN table dtype,
-    drop_modality) are kept so the two dicts stay the same."""
+    drop_modality) are kept so the two dicts stay the same.
+
+    ``use_radar=True`` (with ``use_lidar=False``) is the full-width RC
+    model, which no published config describes: radar in LiDAR's slot,
+    0.6 m pillars over the flagship range (a 180x180 grid, the map the
+    flagship's SECOND / SECONDFPN and LiDAR SCA take; the JAX defaults'
+    0.8 m pillars give 135x135, on which SECONDFPN's two branches come
+    back 135 and 136 wide), at most 20 points a pillar and 40,000 pillars,
+    a 64-wide ``PillarFeatureNet`` and SECOND on 64 channels."""
+    if use_radar and use_lidar:
+        raise ValueError("the RC model takes use_lidar=False: LiDAR and "
+                         "radar fill the same slot")
     dim = DIM
     max_voxels = 120000
     img_attn = [
@@ -72,7 +87,7 @@ def flagship_model_cfg(use_lidar=True, use_camera=True, dtype=torch.bfloat16):
         dict(deformable_attention=dict(embed_dims=dim, num_points=8,
                                        num_levels=1)),
     ]
-    return dict(
+    cfg = dict(
         use_grid_mask=True,
         use_lidar=use_lidar,
         use_camera=use_camera,
@@ -144,6 +159,17 @@ def flagship_model_cfg(use_lidar=True, use_camera=True, dtype=torch.bfloat16):
             cls_cost=dict(type="FocalLossCost", weight=2.0),
             reg_cost=dict(type="BBox3DL1CostBEVFormer", weight=0.25)))),
     )
+    if use_radar:
+        cfg.update(
+            use_radar=True,
+            radar_voxel_layer=dict(max_num_points=20,
+                                   voxel_size=RADAR_VOXEL_SIZE,
+                                   point_cloud_range=PC_RANGE,
+                                   max_voxels=(30000, 40000)),
+            radar_voxel_encoder=dict(in_channels=7, feat_channels=(64,)),
+            radar_middle_encoder=dict(in_channels=64, output_shape=(180, 180)))
+        cfg["pts_backbone"] = dict(cfg["pts_backbone"], in_channels=64)
+    return cfg
 
 
 def build_model(cfg: dict, device="cuda", seed: int = 0,
@@ -218,15 +244,23 @@ def build_model_from_config(path_or_cfg, device="cuda", seed: int = 0,
 def build_flagship(device="cuda", dtype=torch.bfloat16, seed: int = 0,
                    train: bool = False, **kwargs) -> UniBEV:
     """The flagship model with seeded random weights: LC by default,
-    ``use_lidar=False`` for the camera-only model."""
+    ``use_lidar=False`` for the camera-only model, ``use_lidar=False,
+    use_radar=True`` for the RC model."""
     return build_model(flagship_model_cfg(dtype=dtype, **kwargs), device, seed,
                        train)
 
 
 def synthetic_batch(rng: np.random.RandomState, B=1, N=6, H=928, W=1600,
-                    P=300000, G=64, img_hw=(900, 1600), device="cuda"):
+                    P=300000, G=64, img_hw=(900, 1600), device="cuda", R=0):
     """Realistic-scale synthetic batch (nuScenes geometry), the JAX package's
-    draws from the same ``rng``, as torch tensors on ``device``."""
+    draws from the same ``rng``, as torch tensors on ``device``.
+
+    ``R`` > 0 adds a radar cloud drawn after everything else (so the other
+    keys keep their draws): ``radar`` (B, R, 7) with columns (x, y, z, vx,
+    vy, rcs, time lag), positions uniform over the flagship range,
+    velocities within +-20 m/s, rcs in [-10, 40] dBsm and lags in [0, 0.3]
+    s (four sweeps at ~13 Hz), and an all-True ``radar_mask``; the RC
+    model takes ``R=RADAR_POINTS``."""
     img = rng.randn(B, N, H, W, 3).astype(np.float32)
     points = np.empty((B, P, 5), np.float32)
     points[..., 0] = rng.uniform(-54, 54, (B, P))
@@ -239,11 +273,11 @@ def synthetic_batch(rng: np.random.RandomState, B=1, N=6, H=928, W=1600,
         K = np.array([[f, 0., img_hw[1] / 2, 0.], [0., f, img_hw[0] / 2, 0.],
                       [0., 0., 1., 0.], [0., 0., 0., 1.]], np.float32)
         th = n * np.pi / 3
-        R = np.eye(4, dtype=np.float32)
-        R[:3, :3] = np.array([[np.cos(th), -np.sin(th), 0.],
-                              [0., 0., -1.],
-                              [np.sin(th), np.cos(th), 0.]], np.float32)
-        l2i[:, n] = K @ R
+        rot = np.eye(4, dtype=np.float32)
+        rot[:3, :3] = np.array([[np.cos(th), -np.sin(th), 0.],
+                                [0., 0., -1.],
+                                [np.sin(th), np.cos(th), 0.]], np.float32)
+        l2i[:, n] = K @ rot
     gt = np.zeros((B, G, 9), np.float32)
     gt[..., 0:2] = rng.uniform(-50, 50, (B, G, 2))
     gt[..., 2] = rng.uniform(-2, 0, (B, G))
@@ -253,6 +287,14 @@ def synthetic_batch(rng: np.random.RandomState, B=1, N=6, H=928, W=1600,
     valid = np.broadcast_to(np.arange(G)[None, :] < 40, (B, G)).copy()
     arrays = dict(img=img, points=points, points_mask=np.ones((B, P), bool),
                   lidar2img=l2i, gt_bboxes=gt, gt_labels=labels, gt_valid=valid)
+    if R:
+        radar = np.empty((B, R, 7), np.float32)
+        for col, (lo, hi) in enumerate(zip(PC_RANGE[:3], PC_RANGE[3:])):
+            radar[..., col] = rng.uniform(lo, hi, (B, R))
+        radar[..., 3:5] = rng.uniform(-20, 20, (B, R, 2))
+        radar[..., 5] = rng.uniform(-10, 40, (B, R))
+        radar[..., 6] = rng.uniform(0, 0.3, (B, R))
+        arrays.update(radar=radar, radar_mask=np.ones((B, R), bool))
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
@@ -260,7 +302,8 @@ TINY_PC_RANGE = (-9.6, -9.6, -2.0, 9.6, 9.6, 2.0)
 
 
 def tiny_model_cfg(use_lidar=False, fusion="linear",
-                   feature_norm="ChannelNormWeights", dual_queries=False):
+                   feature_norm="ChannelNormWeights", dual_queries=False,
+                   use_radar=False):
     """The tests' tiny UniBEV (``tests/test_detector.py``: 2 cameras, 8x8
     BEV, depth-50 backbone with DCN in stage 4, dims 32; with ``use_lidar``
     the LiDAR branch on a [25, 32, 32] grid, capacities 2000 / 1500 / 1000 /
@@ -268,7 +311,11 @@ def tiny_model_cfg(use_lidar=False, fusion="linear",
     per camera (:func:`tiny_batch` hits 12 per camera).  Camera-only by
     default.  ``fusion`` / ``feature_norm`` as the tests' config takes them
     (``cat`` runs the decoder at twice the width, as the cat_128 config
-    does); ``dual_queries`` gives each modality its BEV queries."""
+    does); ``dual_queries`` gives each modality its BEV queries.
+    ``use_radar`` (without ``use_lidar``) is the tests' RC model
+    (``tests/test_radar.py``): 1.2 m pillars on a 16x16 grid, at most 8
+    points a pillar and 256 pillars, a 32-wide pillar feature net, and the
+    LiDAR model's SECOND and SECONDFPN."""
     dim = 32
     dec = dim * (2 if fusion == "cat" else 1)
     sub_attn = [dict(embed_dims=dim, num_levels=1),
@@ -314,7 +361,7 @@ def tiny_model_cfg(use_lidar=False, fusion="linear",
     )
     if dual_queries:
         cfg["pts_bbox_head"]["dual_queries"] = True
-    if use_lidar:
+    if use_lidar or use_radar:
         transformer["pts_encoder"] = dict(
             num_layers=1, pc_range=TINY_PC_RANGE, num_points_in_pillar_lidar=2,
             transformerlayers=dict(attn_cfgs=sub_attn,
@@ -337,15 +384,30 @@ def tiny_model_cfg(use_lidar=False, fusion="linear",
                               layer_nums=(1, 1), layer_strides=(1, 2)),
             pts_neck=dict(in_channels=(32, 64), out_channels=(16, 16),
                           upsample_strides=(1, 2)))
+    if use_radar:
+        cfg.update(
+            use_radar=True,
+            radar_voxel_layer=dict(max_num_points=8, voxel_size=(1.2, 1.2, 4.0),
+                                   point_cloud_range=TINY_PC_RANGE,
+                                   max_voxels=(256, 256)),
+            radar_voxel_encoder=dict(in_channels=7, feat_channels=(32,)),
+            radar_middle_encoder=dict(in_channels=32, output_shape=(16, 16)),
+            pts_backbone=dict(in_channels=32, out_channels=(32, 64),
+                              layer_nums=(1, 1), layer_strides=(1, 2)),
+            pts_neck=dict(in_channels=(32, 64), out_channels=(16, 16),
+                          upsample_strides=(1, 2)))
     return cfg
 
 
-def tiny_batch(rng: np.random.RandomState, B=1, N=2, P=1024, G=6, device="cpu"):
+def tiny_batch(rng: np.random.RandomState, B=1, N=2, P=1024, G=6, device="cpu",
+               R=0):
     """The tests' tiny batch: images (B, N, 64, 96, 3), P LiDAR points
     (x, y, intensity-like extras uniform in +-9 m, z in +-1.8 m) with their
     mask, the pinhole ``lidar2img`` (cameras 90 degrees apart) and G
     ground-truth boxes, the last two padding.  The same draws from ``rng``
-    as the JAX package's tests."""
+    as the JAX package's tests; ``R`` > 0 then draws ``radar`` (B, R, 7)
+    uniform in +-9 with an all-True ``radar_mask``, as
+    ``tests/test_radar.py`` does after its tiny batch."""
     img = rng.randn(B, N, 64, 96, 3).astype(np.float32)
     points = rng.uniform(-9, 9, (B, P, 5)).astype(np.float32)
     points[..., 2] = rng.uniform(-1.8, 1.8, (B, P))
@@ -353,12 +415,12 @@ def tiny_batch(rng: np.random.RandomState, B=1, N=2, P=1024, G=6, device="cpu"):
     for n in range(N):
         K = np.array([[60., 0., 48., 0.], [0., 60., 32., 0.],
                       [0., 0., 1., 0.], [0., 0., 0., 1.]], np.float32)
-        R = np.eye(4, dtype=np.float32)
+        rot = np.eye(4, dtype=np.float32)
         th = n * np.pi / 2
-        R[:3, :3] = np.array([[np.cos(th), -np.sin(th), 0],
-                              [0, 0, -1],
-                              [np.sin(th), np.cos(th), 0]], np.float32)
-        l2i[:, n] = K @ R
+        rot[:3, :3] = np.array([[np.cos(th), -np.sin(th), 0],
+                                [0, 0, -1],
+                                [np.sin(th), np.cos(th), 0]], np.float32)
+        l2i[:, n] = K @ rot
     gt = rng.randn(B, G, 9).astype(np.float32)
     gt[..., :2] *= 5
     gt[..., 3:6] = np.abs(gt[..., 3:6]) + 0.5
@@ -368,4 +430,7 @@ def tiny_batch(rng: np.random.RandomState, B=1, N=2, P=1024, G=6, device="cpu"):
     arrays = dict(img=img, points=points, points_mask=np.ones((B, P), bool),
                   lidar2img=l2i, gt_bboxes=gt, gt_labels=labels,
                   gt_valid=valid)
+    if R:
+        arrays.update(radar=rng.uniform(-9, 9, (B, R, 7)).astype(np.float32),
+                      radar_mask=np.ones((B, R), bool))
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}

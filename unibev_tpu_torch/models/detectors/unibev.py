@@ -1,21 +1,28 @@
-"""UniBEV detector: camera and LiDAR branches -> fused BEV head.
+"""UniBEV detector: camera and LiDAR or radar branches -> fused BEV head.
 
 Counterpart of ``unibev_tpu/models/detectors/unibev.py``.  The camera branch
 is images -> ResNet -> FPN; the LiDAR branch is voxelize + mean VFE ->
-SparseEncoder -> SECOND -> SECONDFPN.  The batch keeps the JAX package's
-static-shape contract: ``img`` (B, N, H, W, 3) float, ``points`` (B, P, 5)
-with ``points_mask`` (B, P), ``lidar2img`` (B, N, 4, 4), and for the loss
-``gt_bboxes`` (B, G, 9), ``gt_labels`` (B, G) and ``gt_valid`` (B, G); other
-keys are ignored.  An LC model runs LC, L (no ``img`` in the batch) or C (no
-``points``), as in the JAX package: the modality flags follow from which
-inputs are present.
+SparseEncoder -> SECOND -> SECONDFPN; the radar branch is pillar voxelize +
+mean -> PillarFeatureNet -> PointPillarsScatter (kernel K5) -> SECOND ->
+SECONDFPN.  LiDAR and radar share SECOND and SECONDFPN and fill the same
+("pts") slot of the head, so one batch holds one of them: both raise, as
+in the JAX package.  The batch keeps the JAX package's static-shape
+contract: ``img`` (B, N, H, W, 3) float, ``points`` (B, P, 5) with
+``points_mask`` (B, P), ``radar`` (B, R, 7) with ``radar_mask`` (B, R),
+``lidar2img`` (B, N, 4, 4), and for the loss ``gt_bboxes`` (B, G, 9),
+``gt_labels`` (B, G) and ``gt_valid`` (B, G); other keys are ignored.  An
+LC model runs LC, L (no ``img`` in the batch) or C (no ``points``), an RC
+model RC, R or C, as in the JAX package: the modality flags follow from
+which inputs are present.
 
 ``train()`` mode is the JAX package's ``train=True``: GridMask on the images,
 dropout in the transformer and, with both inputs and the config's
 ``drop_modality``, modality dropout, all drawn from the ``generator`` handed
-to ``forward``; the LiDAR branch's BatchNorms use and update their batch
-statistics.  Both branches run whatever the flags say, and the fusion
-multiplies a dropped one by 0.  ``use_radar=True`` raises (not ported).
+to ``forward`` (the flags from ``flag_generator`` where one is given: data
+parallel ranks draw them from generators seeded alike, so that every rank
+drops the same modality); the LiDAR branch's BatchNorms use and update their
+batch statistics.  Both branches run whatever the flags say, and the
+fusion multiplies a dropped one by 0.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from unibev_tpu_torch.models.heads.unibev_head import UniBEVHead
 from unibev_tpu_torch.models.layers import rng
 from unibev_tpu_torch.models.middle_encoder import SparseEncoder
 from unibev_tpu_torch.models.necks.fpn import FPN, SECONDFPN
+from unibev_tpu_torch.models.radar import PillarFeatureNet, PointPillarsScatter
 from unibev_tpu_torch.models.transformer_fusion import (present_flags,
                                                         sample_modality_flags)
 from unibev_tpu_torch.ops.voxelize import voxelize_and_encode
@@ -63,15 +71,12 @@ class UniBEV(nn.Module):
                  img_shape: Tuple[int, int] = (900, 1600),
                  dtype: torch.dtype = torch.float32):
         # pts_voxel_encoder (HardSimpleVFE: the mean is part of the
-        # voxelizer) and the radar_* configs are accepted so that the JAX
-        # config dicts build.
+        # voxelizer) is accepted so that the JAX config dicts build.
         super().__init__()
-        if use_radar:
-            raise NotImplementedError("the radar branch is not ported yet: "
-                                      "build with use_radar=False")
-        if not (use_camera or use_lidar):
-            raise ValueError("UniBEV needs use_camera or use_lidar")
+        if not (use_camera or use_lidar or use_radar):
+            raise ValueError("UniBEV needs use_camera, use_lidar or use_radar")
         self.use_camera, self.use_lidar = use_camera, use_lidar
+        self.use_radar = use_radar
         self.img_shape = tuple(img_shape)
         self.compute_dtype = dtype
         self.use_grid_mask = use_grid_mask
@@ -96,8 +101,12 @@ class UniBEV(nn.Module):
                 relu_before_extra_convs=ncfg.get("relu_before_extra_convs",
                                                  True))
         if use_lidar:
-            self._build_lidar(pts_voxel_layer, pts_middle_encoder,
-                              pts_backbone, pts_neck)
+            self._build_lidar(pts_voxel_layer, pts_middle_encoder)
+        if use_radar:
+            self._build_radar(radar_voxel_layer, radar_voxel_encoder,
+                              radar_middle_encoder)
+        if use_lidar or use_radar:
+            self._build_bev_backbone(pts_backbone, pts_neck)
         hcfg = _clean(pts_bbox_head)
         # modality dropout: (dropout probability, LiDAR-survives
         # probability), or None
@@ -122,9 +131,9 @@ class UniBEV(nn.Module):
             loss_iou=hcfg.get("loss_iou"),
             train_cfg=(train_cfg or {}).get("pts"),
             dual_queries=hcfg.get("dual_queries", False),
-            use_img=use_camera, use_pts=use_lidar)
+            use_img=use_camera, use_pts=use_lidar or use_radar)
 
-    def _build_lidar(self, voxel_layer, middle_encoder, backbone, neck):
+    def _build_lidar(self, voxel_layer, middle_encoder):
         vcfg = dict(voxel_layer or {})
         self.voxel_size = tuple(vcfg.get("voxel_size", (0.075, 0.075, 0.2)))
         self.pc_range = tuple(vcfg.get("point_cloud_range",
@@ -149,6 +158,34 @@ class UniBEV(nn.Module):
             capacities=tuple(mcfg.get("capacities",
                                       (120000, 90000, 60000, 40000))),
             table_dtype=mcfg.get("table_dtype", "bf16"))
+
+    def _build_radar(self, voxel_layer, voxel_encoder, middle_encoder):
+        """The pillar grid (z collapsed) from the range, as the JAX
+        detector reads it: ``max_voxels[1]`` pillars of at most
+        ``max_num_points`` points."""
+        rv = dict(voxel_layer or {})
+        self.radar_voxel_size = tuple(rv.get("voxel_size", (0.8, 0.8, 8.0)))
+        self.radar_pc_range = tuple(rv.get("point_cloud_range",
+                                           (-54, -54, -5, 54, 54, 3)))
+        mv = rv.get("max_voxels", (30000, 40000))
+        self.radar_max_voxels = mv[1] if isinstance(mv, (tuple, list)) else mv
+        self.radar_max_points = rv.get("max_num_points", 20)
+        gx, gy = (int(round((self.radar_pc_range[i + 3] - self.radar_pc_range[i])
+                            / self.radar_voxel_size[i])) for i in range(2))
+        self.radar_grid = (gx, gy, 1)
+        ve = _clean(voxel_encoder)
+        self.radar_voxel_encoder = PillarFeatureNet(
+            in_channels=ve.get("in_channels", 7),
+            feat_channels=tuple(ve.get("feat_channels", (64,))),
+            voxel_size=self.radar_voxel_size,
+            point_cloud_range=self.radar_pc_range)
+        me = _clean(middle_encoder)
+        self.radar_middle_encoder = PointPillarsScatter(
+            in_channels=me.get("in_channels", 64),
+            output_shape=tuple(me.get("output_shape", (gy, gx))))
+
+    def _build_bev_backbone(self, backbone, neck):
+        """SECOND and SECONDFPN, which LiDAR and radar share."""
         bcfg = _clean(backbone)
         self.pts_backbone = SECOND(
             in_channels=bcfg.get("in_channels", 256),
@@ -176,43 +213,76 @@ class UniBEV(nn.Module):
         return [f.permute(0, 2, 3, 1).reshape(B, N, f.shape[2], f.shape[3], -1)
                 for f in feats]
 
+    @staticmethod
+    def _voxelize(points, mask, voxel_size, pc_range, grid, max_voxels,
+                  max_points):
+        """Each sample's voxels, folded over the batch: (feats (B*V, F),
+        coords (B*V, 4) (b, z, y, x), -1 on padding, mask (B*V,), the
+        per-sample results)."""
+        B = points.shape[0]
+        res = [voxelize_and_encode(points[b], mask[b], voxel_size, pc_range,
+                                   grid, max_voxels, max_points)
+               for b in range(B)]
+        vmask = torch.cat([r.mask for r in res])
+        batch_idx = torch.arange(B, dtype=torch.int32, device=points.device)
+        coords = torch.cat([batch_idx.repeat_interleave(max_voxels)[:, None],
+                            torch.cat([r.coords for r in res])], dim=1)
+        coords = torch.where(vmask[:, None], coords, -1)
+        return torch.cat([r.feats for r in res]), coords, vmask, res
+
     def extract_pts_feat(self, points: torch.Tensor, points_mask: torch.Tensor):
         """points (B, P, 5), points_mask (B, P) -> (list of one (B, h, w, C)
         BEV map, stats): ``num_distinct_voxels`` (B,) occupied voxels before
         the ``max_voxels`` cap and ``sparse_overflow`` (4,) active sites each
         strided conv found beyond its capacity."""
         B = points.shape[0]
-        res = [voxelize_and_encode(points[b], points_mask[b], self.voxel_size,
-                                   self.pc_range, self.grid_size,
-                                   self.max_voxels, self.max_points_per_voxel)
-               for b in range(B)]
-        V = self.max_voxels
-        mask = torch.cat([r.mask for r in res])
-        batch_idx = torch.arange(B, dtype=torch.int32, device=points.device)
-        coords = torch.cat([batch_idx.repeat_interleave(V)[:, None],
-                            torch.cat([r.coords for r in res])], dim=1)
-        coords = torch.where(mask[:, None], coords, -1)
-        feats = torch.cat([r.feats for r in res]).to(self.compute_dtype)
-        bev, overflow = self.pts_middle_encoder(feats, coords, mask, B)
+        feats, coords, mask, res = self._voxelize(
+            points, points_mask, self.voxel_size, self.pc_range,
+            self.grid_size, self.max_voxels, self.max_points_per_voxel)
+        bev, overflow = self.pts_middle_encoder(feats.to(self.compute_dtype),
+                                                coords, mask, B)
         bev = self.pts_neck(self.pts_backbone(bev))           # (B, C, h, w)
         stats = dict(num_distinct_voxels=torch.stack([r.num_distinct for r in res]),
                      sparse_overflow=overflow)
         return [bev.permute(0, 2, 3, 1)], stats
 
+    def extract_radar_feat(self, radar: torch.Tensor,
+                           radar_mask: torch.Tensor):
+        """radar (B, R, F), radar_mask (B, R) -> list of one (B, h, w, C) BEV
+        map: pillars (the mean of at most ``max_num_points`` points each),
+        the pillar feature net, the scatter to the (B, H, W) canvas (K5),
+        SECOND and SECONDFPN."""
+        B = radar.shape[0]
+        feats, coords, mask, _ = self._voxelize(
+            radar, radar_mask, self.radar_voxel_size, self.radar_pc_range,
+            self.radar_grid, self.radar_max_voxels, self.radar_max_points)
+        pillars = self.radar_voxel_encoder(feats.to(self.compute_dtype),
+                                           coords[:, 1:], mask)
+        bev = self.radar_middle_encoder(pillars, coords, mask, B)
+        bev = self.pts_neck(self.pts_backbone(bev))           # (B, C, h, w)
+        return [bev.permute(0, 2, 3, 1)]
+
     def forward(self, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                flag_generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """The head's outputs, the modality flags ``l_flag`` / ``c_flag``
-        (float32 0-dim) and with LiDAR the branch's capacity counts
-        (``num_distinct_voxels``, ``sparse_overflow``).  Modalities follow
-        from the batch: ``img`` and ``points`` are each used when present and
-        built.  In ``train()`` mode GridMask, dropout and, with both inputs,
-        modality dropout draw from ``generator`` (on the batch's device),
-        which is then required."""
+        (float32 0-dim; ``l_flag`` is LiDAR's or radar's) and with LiDAR the
+        branch's capacity counts (``num_distinct_voxels``,
+        ``sparse_overflow``).  Modalities follow from the batch: ``img``,
+        ``points`` and ``radar`` are each used when present and built; a
+        batch with both ``points`` and ``radar`` raises.  In ``train()``
+        mode GridMask, dropout and, with both inputs, modality dropout draw
+        from ``generator`` (on the batch's device), which is then required;
+        the flags draw from ``flag_generator`` instead where it is given."""
         img = batch.get("img") if self.use_camera else None
         points = batch.get("points") if self.use_lidar else None
-        if img is None and points is None:
+        radar = batch.get("radar") if self.use_radar else None
+        if img is None and points is None and radar is None:
             raise ValueError("the batch holds no input of a built modality")
+        if points is not None and radar is not None:
+            raise ValueError("LiDAR and radar are mutually exclusive: both "
+                             "fill the head's pts input")
         with rng(generator):
             img_feats = pts_feats = None
             stats = {}
@@ -224,16 +294,24 @@ class UniBEV(nn.Module):
                     mask = torch.ones(points.shape[:2], dtype=torch.bool,
                                       device=points.device)
                 pts_feats, stats = self.extract_pts_feat(points, mask)
+            if radar is not None:
+                mask = batch.get("radar_mask")
+                if mask is None:
+                    mask = torch.ones(radar.shape[:2], dtype=torch.bool,
+                                      device=radar.device)
+                pts_feats = self.extract_radar_feat(radar, mask)
             if (self.training and self.drop_modality
                     and img_feats is not None and pts_feats is not None):
-                if generator is None:
+                if flag_generator is None:
+                    flag_generator = generator
+                if flag_generator is None:
                     raise RuntimeError("a train-mode forward needs a generator")
-                l_flag, c_flag = sample_modality_flags(generator,
+                l_flag, c_flag = sample_modality_flags(flag_generator,
                                                        *self.drop_modality)
             else:
-                l_flag, c_flag = present_flags(
-                    img_feats, pts_feats,
-                    (img if img is not None else points).device)
+                device = next(x for x in (img, points, radar)
+                              if x is not None).device
+                l_flag, c_flag = present_flags(img_feats, pts_feats, device)
             preds = self.pts_bbox_head(img_feats, pts_feats,
                                        batch.get("lidar2img"), self.img_shape,
                                        l_flag, c_flag)

@@ -29,6 +29,7 @@ from unibev_tpu_torch.models.layers import (LearnedPositionalEncoding,
                                             inverse_sigmoid, layer_norm)
 from unibev_tpu_torch.models.transformer_fusion import UniBEVTransformer
 from unibev_tpu_torch.ops.losses import l1_loss, sigmoid_focal_loss
+from unibev_tpu_torch.parallel.dist import sum_over_ranks
 from unibev_tpu_torch.registry import HEADS
 
 
@@ -156,8 +157,11 @@ class UniBEVHead(nn.Module):
 
         Every decoder layer is assigned at once (L * B problems, one host
         transfer).  The average factor is the layer's matched count over the
-        batch, clamped at 1.  Keys: ``loss_cls`` / ``loss_bbox`` for the last
-        layer and ``d{l}.loss_cls`` / ``d{l}.loss_bbox`` for the others.
+        batch, clamped at 1; under a process group, over the global batch
+        (summed over the ranks, as the JAX mesh's global batch has it), so
+        that the ranks' losses sum to the global batch's and every rank must
+        call this.  Keys: ``loss_cls`` / ``loss_bbox`` for the last layer and
+        ``d{l}.loss_cls`` / ``d{l}.loss_bbox`` for the others.
         """
         all_cls = preds["all_cls_scores"].float()
         all_bbox = preds["all_bbox_preds"].float()
@@ -176,7 +180,8 @@ class UniBEVHead(nn.Module):
         norm_gt = normalize_bbox(gt_b)                          # (LB, G, 10)
         targets = torch.gather(norm_gt, 1, gt_inds[..., None].expand(
             L * B, Q, norm_gt.shape[-1]))
-        total_pos = pos.reshape(L, B * Q).sum(1).float().clamp(min=1.0)   # (L,)
+        total_pos = sum_over_ranks(
+            pos.reshape(L, B * Q).sum(1).float()).clamp(min=1.0)      # (L,)
 
         cls_loss = sigmoid_focal_loss(flat_cls, labels, self.num_classes,
                                       alpha=self.focal_alpha,

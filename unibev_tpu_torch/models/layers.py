@@ -20,6 +20,7 @@ import contextvars
 import torch
 from torch import nn
 
+from unibev_tpu_torch.parallel.dist import get_world_size, sum_over_ranks
 from unibev_tpu_torch.registry import POSITIONAL_ENCODINGS
 
 # flax's LayerNorm epsilon, which every LayerNorm of the JAX package uses.
@@ -65,11 +66,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics by ``(1 - momentum) * running + momentum * batch`` with the
     *biased* variance, as flax does; ``nn.BatchNorm2d`` would use the
     unbiased one, n / (n - 1) larger.  The ``state_dict`` keys are
-    ``nn.BatchNorm2d``'s."""
+    ``nn.BatchNorm2d``'s.
+
+    Under a process group of more than one rank (data parallel) the batch
+    statistics are those of the global batch, as the JAX mesh computes
+    them: the per-channel sums and counts, then the squared deviations, are
+    summed over the ranks (differentiably), so every rank normalizes alike
+    and keeps the same running statistics.  At one rank the batch's own
+    statistics are the global ones, and cuDNN's batch_norm runs: the
+    elementwise path costs ~2.5 ms more device time a flagship LC train
+    step on an H100 (PERF.md section 6)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if get_world_size() > 1:
+            return self._synced(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        unbiased=False)
@@ -79,6 +91,23 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked += 1
         return nn.functional.batch_norm(x, None, None, self.weight, self.bias,
                                         True, 0.0, self.eps)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        count = torch.full((1,), x.numel() / x.shape[1], device=x.device)
+        s = sum_over_ranks(torch.cat([xf.sum((0, 2, 3)), count]))
+        mean = s[:-1] / s[-1]
+        dev = xf - mean[None, :, None, None]
+        var = sum_over_ranks((dev * dev).sum((0, 2, 3))) / s[-1]
+        with torch.no_grad():
+            for running, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                running.mul_(1 - self.momentum).add_(self.momentum * batch)
+            self.num_batches_tracked += 1
+        scale = self.weight.float() * torch.rsqrt(var + self.eps)
+        bias = self.bias.float()
+        out = dev * scale[None, :, None, None] + bias[None, :, None, None]
+        return out.to(x.dtype)
 
 
 class FFN(nn.Module):

@@ -35,6 +35,7 @@ from unibev_tpu_torch.ops.sparse_conv import (SparseGrid, build_table,
                                               sparse_conv, sparse_inv_nbr,
                                               strided_neighbor_idx,
                                               subm_neighbor_idx, to_dense)
+from unibev_tpu_torch.parallel.dist import sum_over_ranks
 from unibev_tpu_torch.registry import MIDDLE_ENCODERS, VOXEL_ENCODERS
 
 Triple = Tuple[int, int, int]
@@ -59,7 +60,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     of the live rows (``mask``), in float32 over ``n = max(live, 1)`` rows,
     with gradients through both; the running statistics move by
     ``(1 - momentum) * running + momentum * batch``, the biased variance
-    included, as the JAX package's ``MaskedBatchNorm`` does.
+    included, as the JAX package's ``MaskedBatchNorm`` does.  Under a process
+    group the sums and the live count are summed over the ranks
+    (differentiably): the statistics of the global batch, as the JAX mesh
+    computes them.
     """
 
     def __init__(self, features: int):
@@ -68,10 +72,11 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             m = mask[:, None].float()
-            n = m.sum().clamp(min=1.0)
             xf = x.float()
-            mean = (xf * m).sum(0) / n
-            var = ((xf - mean) ** 2 * m).sum(0) / n
+            s = sum_over_ranks(torch.cat([(xf * m).sum(0), m.sum()[None]]))
+            n = s[-1].clamp(min=1.0)
+            mean = s[:-1] / n
+            var = sum_over_ranks(((xf - mean) ** 2 * m).sum(0)) / n
             with torch.no_grad():
                 for running, batch in ((self.running_mean, mean),
                                        (self.running_var, var)):

@@ -1,8 +1,16 @@
-"""Optimizer, one training step and one validation step.
+"""Optimizer, one training step and one validation step, data parallel.
 
 Counterpart of ``unibev_tpu/parallel/train_state.py::make_optimizer``,
-``make_train_step`` and ``make_val_step`` on one device (the data-parallel
-mesh is not ported).  The defaults are the reference config's: AdamW lr
+``make_train_step``, ``make_val_step`` and ``make_sharded_train_step``.
+The JAX step shards the global batch over a ``data`` mesh axis with the
+parameters replicated; the port runs one process per card, each on its
+share of the global batch, with the model in ``DistributedDataParallel``
+(:func:`data_parallel`), which averages the gradients over the ranks.  What
+the mesh reduces over the global batch is reduced over the ranks here too:
+the LiDAR branch's batch statistics (``layers.BatchNorm2d``,
+``middle_encoder.MaskedBatchNorm``) and the losses' average factors (the
+head), so N ranks at batch B step as one process at batch N * B (up to
+the order of float sums).  The defaults are the reference config's: AdamW lr
 2e-4, weight decay 0.01, gradient clipping at a global norm of 35, the
 cosine schedule with linear warm-up, and per-path learning-rate multipliers
 (lr 0 on the frozen stem and stage 1 of the image backbone, x0.1 on both
@@ -24,8 +32,11 @@ import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
+from unibev_tpu_torch.parallel.dist import get_world_size, is_distributed
 from unibev_tpu_torch.runtime.lr_schedule import cosine_with_linear_warmup
 
 PARAMWISE = (
@@ -79,6 +90,25 @@ def make_optimizer(model: nn.Module, base_lr: float = BASE_LR,
     return opt, sched
 
 
+def data_parallel(model: nn.Module, device) -> nn.Module:
+    """``model`` in ``DistributedDataParallel`` under a process group (on
+    ``device``, the rank's card or the CPU), else ``model`` itself.  Buffers
+    are not broadcast at each forward: the synchronized batch statistics
+    keep them equal on every rank.  No parameter goes unused: a branch that
+    modality dropout drops still runs and gets zero gradients."""
+    if not is_distributed():
+        return model
+    device = torch.device(device)
+    return DistributedDataParallel(
+        model, device_ids=[device] if device.type == "cuda" else None,
+        broadcast_buffers=False)
+
+
+def unwrap(model: nn.Module) -> nn.Module:
+    """The module inside a ``DistributedDataParallel`` (or ``model``)."""
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
 def compute_autocast(model: nn.Module):
     """``torch.autocast`` to the model's compute dtype where its parameters
     are float32 and that dtype is not (a training build of a bf16 model);
@@ -105,11 +135,21 @@ def eval_mode(model: nn.Module):
 def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
                batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               grad_clip: Optional[float] = None) -> Dict[str, torch.Tensor]:
+               grad_clip: Optional[float] = None,
+               flag_generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
     """One step: forward (train mode draws GridMask and dropout from
-    ``generator``), the head loss, backward, clipping the global norm at
-    ``grad_clip`` (by default the optimizer's, :func:`make_optimizer`),
-    AdamW and the schedule.
+    ``generator``, the modality flags from ``flag_generator`` where given),
+    the head loss, backward, clipping the global norm at ``grad_clip`` (by
+    default the optimizer's, :func:`make_optimizer`), AdamW and the
+    schedule.
+
+    ``model`` may be a :func:`data_parallel` one: each rank then runs its
+    share of the global batch, its losses are its part of the global
+    batch's (the average factors are global), and it back-propagates
+    world size x its loss, so that DDP's mean of the ranks' gradients is the
+    gradient of the global batch's loss; the metrics are summed (the
+    losses) or maxed (``sca_overflow``) over the ranks.
 
     A model whose compute dtype is not float32 (the flagship's bf16) runs
     the forward and the loss under ``torch.autocast`` in that dtype, on the
@@ -120,13 +160,15 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
     forward's ``sca_overflow`` and modality flags ``l_flag`` / ``c_flag``,
     detached, on the model's device.
     """
+    net = unwrap(model)
+    world = get_world_size()
     opt.zero_grad(set_to_none=True)
-    with compute_autocast(model):
-        preds = model(batch, generator)
-        losses = model.loss(batch, preds)
+    with compute_autocast(net):
+        preds = model(batch, generator, flag_generator)
+        losses = net.loss(batch, preds)
     total = sum(losses.values())
-    total.backward()
-    params = [p for p in model.parameters() if p.requires_grad]
+    (total * world).backward()
+    params = [p for p in net.parameters() if p.requires_grad]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -137,8 +179,18 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, sched,
     sched.step()
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["loss"] = total.detach()
+    overflow = preds["sca_overflow"]
+    if is_distributed():
+        # the ranks' losses summed (each is its part of the global batch's),
+        # the overflow maxed; on the device, no host sync
+        summed = torch.stack([v.float() for v in metrics.values()])
+        dist.all_reduce(summed)
+        metrics = dict(zip(metrics, summed.unbind()))
+        overflow = overflow.clone()
+        dist.all_reduce(overflow, op=dist.ReduceOp.MAX)
     metrics["grad_norm"] = grad_norm.detach()
-    for k in ("sca_overflow", "l_flag", "c_flag"):
+    metrics["sca_overflow"] = overflow
+    for k in ("l_flag", "c_flag"):
         metrics[k] = preds[k]
     return metrics
 
@@ -147,7 +199,9 @@ def val_step(model: nn.Module,
              batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The losses of an eval-mode forward, and ``loss``, their sum: the val
     workflow's step (no optimizer step, no gradients), in the model's compute
-    dtype.  The model is left in the mode it was found in."""
+    dtype.  The model is left in the mode it was found in.  Under a process
+    group each rank's losses are its part of the global batch's (every rank
+    must call it)."""
     with eval_mode(model), torch.no_grad(), compute_autocast(model):
         losses = model.loss(batch, model(batch))
     losses = dict(losses)

@@ -1,13 +1,15 @@
 """What the port's train and test CLIs share: the config with its
-``--cfg-options``, the device, and the refusal of a multi-process launch."""
+``--cfg-options``, the device, and the launcher."""
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
 
 from unibev_tpu_torch.config.config import Config, parse_cfg_option_value
+from unibev_tpu_torch.parallel.dist import get_rank, init_dist
 
 
 def load_config(path: str, cfg_options: Sequence[str] = ()) -> Config:
@@ -32,10 +34,42 @@ def cli_device(name: str) -> torch.device:
     return device
 
 
-def single_process(launcher: str, gpus: int = 1) -> None:
-    """The port runs one process on one card: a launcher or several GPUs
-    raise, naming the roadmap item that brings them."""
-    if launcher != "none" or gpus > 1:
+# what the port would need to map each of the JAX CLI's other launchers
+UNMAPPED_LAUNCHERS = {
+    "slurm": "it reads no SLURM environment (SLURM_PROCID, SLURM_NTASKS, "
+             "the node list) into a rendezvous",
+    "mpi": "it reads no MPI environment (OMPI_COMM_WORLD_RANK / SIZE, "
+           "PMI_RANK) into a rendezvous",
+    "tpu": "it runs on CUDA cards or the CPU, with no TPU runtime",
+}
+
+
+def launch(launcher: str, device: torch.device, gpus: int = 1) -> torch.device:
+    """``--launcher``: ``none`` runs one process on ``device``;
+    ``pytorch`` joins the process group that ``python -m
+    torch.distributed.run`` describes (one process per card, NCCL; gloo with
+    ``--device cpu``) and returns the rank's device.  The other launchers
+    of the JAX CLI raise, naming what the port lacks for them, and so does
+    more than one GPU in one process."""
+    if launcher in UNMAPPED_LAUNCHERS:
         raise NotImplementedError(
-            f"--launcher {launcher} / {gpus} GPUs: the port runs one process "
-            f"on one card; data-parallel training is ROADMAP A7 (not ported)")
+            f"--launcher {launcher}: the port does not map it: "
+            f"{UNMAPPED_LAUNCHERS[launcher]}; run one process per card under "
+            f"python -m torch.distributed.run with --launcher pytorch")
+    if gpus > 1:
+        raise NotImplementedError(
+            f"{gpus} GPUs: a process drives one card; run one process per "
+            f"card under python -m torch.distributed.run with --launcher "
+            f"pytorch")
+    if launcher == "none":
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise RuntimeError("started by a launcher with WORLD_SIZE > 1: "
+                               "pass --launcher pytorch")
+        return device
+    return init_dist(device.type)
+
+
+def log_level(level: str = "INFO") -> str:
+    """``level`` on rank 0; WARNING on the others, so that one rank speaks
+    for the group."""
+    return level if get_rank() == 0 else "WARNING"

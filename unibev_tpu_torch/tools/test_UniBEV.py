@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Evaluate UniBEV with the PyTorch port, on one CUDA card (or the CPU).
+"""Evaluate UniBEV with the PyTorch port, on CUDA cards (or the CPU).
 
     python -m unibev_tpu_torch.tools.test_UniBEV CONFIG [CHECKPOINT]
         [--out results.json] [--format-only] [--show-dir DIR]
         [--cfg-options key=value ...] [--synthetic-data] [--max-samples N]
         [--device cuda|cpu]
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m unibev_tpu_torch.tools.test_UniBEV CONFIG CKPT --launcher pytorch ...
 
 The counterpart of ``tools/test_UniBEV.py`` (the JAX package's test CLI)
 with its flags.  The model is ``build_model_from_config`` of the config
@@ -16,6 +18,10 @@ key, so an LC checkpoint serves the L and C inference configs.
 without ``--format-only`` the nuScenes metrics are printed as one JSON line.
 Exits 1 when the camera cross-attention dropped hits beyond its top-K
 capacity (``sca_overflow`` > 0): those predictions are not the reference's.
+Under ``--launcher pytorch`` each rank predicts its share of the samples
+and the results are gathered in dataset order on every rank (the JAX CLI's
+fixed-shape gather, padded duplicates dropped); rank 0 writes ``--out``
+and prints the metrics.
 ``main(argv)`` runs it in process and returns the exit code; ``run(args)``
 returns the results and the loop's times.
 """
@@ -33,13 +39,14 @@ import numpy as np
 
 from unibev_tpu_torch.data.nuscenes_dataset import SyntheticNuScenes, collate
 from unibev_tpu_torch.flagship import build_model_from_config
-from unibev_tpu_torch.parallel.dist import shard_indices
+from unibev_tpu_torch.parallel.dist import (get_rank, is_distributed,
+                                            process_allgather, shard_indices)
 from unibev_tpu_torch.registry import DATASETS
 from unibev_tpu_torch.runtime.checkpoints import load_params
 from unibev_tpu_torch.runtime.logging_utils import get_root_logger
 from unibev_tpu_torch.runtime.predict import predict_dataset
-from unibev_tpu_torch.tools.cli_common import (cli_device, load_config,
-                                               single_process)
+from unibev_tpu_torch.tools.cli_common import (cli_device, launch, load_config,
+                                               log_level)
 
 SYNTHETIC_KEYS = ("num_cams", "img_hw", "max_points", "max_gt", "seed")
 
@@ -59,10 +66,12 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="+", default=[])
     p.add_argument("--fuse-conv-bn", action="store_true",
                    help="accepted; the frozen BNs are already affine")
-    p.add_argument("--tmpdir", help="accepted; one process gathers nothing")
+    p.add_argument("--tmpdir", help="accepted; results are gathered in "
+                                     "memory")
     p.add_argument("--gpu-collect", action="store_true",
-                   help="accepted; one process gathers nothing")
-    p.add_argument("--launcher", default="none")
+                   help="accepted; results are gathered on the host")
+    p.add_argument("--launcher", default="none",
+                   choices=["none", "pytorch", "slurm", "mpi", "tpu"])
     p.add_argument("--synthetic-data", action="store_true")
     p.add_argument("--max-samples", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -76,10 +85,9 @@ def run(args) -> dict:
     (the host's wall between batches, after the first), ``predict_ms`` and
     ``wait_ms`` (per sample, medians after the first batch: copy, predict
     and read-back; the wait for the loader)."""
-    single_process(args.launcher)
-    device = cli_device(args.device)
+    device = launch(args.launcher, cli_device(args.device))
     cfg = load_config(args.config, args.cfg_options)
-    logger = get_root_logger()
+    logger = get_root_logger(log_level=log_level(cfg.get("log_level", "INFO")))
 
     model = build_model_from_config(cfg, device, seed=args.seed)
     if args.checkpoint:
@@ -129,6 +137,9 @@ def run(args) -> dict:
         if len(results) % 10 < len(chunk):
             logger.info(f"[{len(results)}/{len(idxs)}] samples done")
 
+    if is_distributed():
+        results, sca_overflow = _gather_results(results, idxs, sca_overflow)
+
     def ms(times):
         return 1000 * float(np.median(times[1:] or times))
 
@@ -140,7 +151,7 @@ def run(args) -> dict:
                 f"wait {summary['wait_ms']:.2f}; medians after the first "
                 f"batch), sca_overflow {sca_overflow}")
 
-    if args.out:
+    if args.out and get_rank() == 0:
         os.makedirs(osp.dirname(osp.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f)
@@ -152,9 +163,42 @@ def run(args) -> dict:
         metrics = nuscenes_eval(results, dataset)
         metrics["sca_overflow"] = sca_overflow
         logger.info(f"Evaluation: {json.dumps(metrics, indent=2)}")
-        print(json.dumps(metrics))
+        if get_rank() == 0:
+            print(json.dumps(metrics))
         summary["metrics"] = metrics
     return summary
+
+
+def _gather_results(results, idxs, sca_overflow):
+    """Every rank's result dicts in dataset order, each sample once (the
+    first of the shards' padded repeats), and the largest ``sca_overflow``:
+    fixed-shape arrays gathered by ``process_allgather``, the sample names
+    as rows of bytes."""
+    names = [r["sample_idx"].encode() for r in results]
+    width = int(np.max(process_allgather(
+        np.asarray([max(map(len, names), default=1)], np.int32))))
+    packed = dict(
+        idx=np.asarray(idxs[:len(results)], np.int32),
+        name=np.array([list(n.ljust(width, b"\0")) for n in names], np.uint8)
+        .reshape(len(names), width),
+        boxes=np.asarray([r["boxes_3d"] for r in results], np.float32),
+        scores=np.asarray([r["scores_3d"] for r in results], np.float32),
+        labels=np.asarray([r["labels_3d"] for r in results], np.int64),
+        valid=np.asarray([r["valid"] for r in results], bool),
+        overflow=np.asarray([sca_overflow], np.int64))
+    g = {k: v.reshape((-1,) + v.shape[2:])
+         for k, v in process_allgather(packed).items()}
+    seen, merged = set(), []
+    for j in np.argsort(g["idx"], kind="stable"):
+        i = int(g["idx"][j])
+        if i in seen:
+            continue
+        seen.add(i)
+        merged.append(dict(
+            sample_idx=bytes(g["name"][j]).rstrip(b"\0").decode(),
+            boxes_3d=g["boxes"][j].tolist(), scores_3d=g["scores"][j].tolist(),
+            labels_3d=g["labels"][j].tolist(), valid=g["valid"][j].tolist()))
+    return merged, int(g["overflow"].max())
 
 
 def main(argv=None) -> int:
@@ -169,4 +213,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    import torch
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    sys.exit(code)

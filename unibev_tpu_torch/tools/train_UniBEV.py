@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Train UniBEV with the PyTorch port, on one CUDA card (or the CPU).
+"""Train UniBEV with the PyTorch port, on CUDA cards (or the CPU).
 
     python -m unibev_tpu_torch.tools.train_UniBEV CONFIG [--work-dir DIR]
         [--resume-from CKPT] [--load-from CKPT] [--seed N]
         [--cfg-options key=value ...] [--synthetic-data] [--max-steps N]
         [--device cuda|cpu]
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m unibev_tpu_torch.tools.train_UniBEV CONFIG --launcher pytorch ...
 
 The counterpart of ``tools/train_UniBEV.py`` (the JAX package's train CLI)
 with its flags: the work dir is ``--work-dir``, else the config's
@@ -12,10 +14,14 @@ with its flags: the work dir is ``--work-dir``, else the config's
 config, a timestamped ``.log``, ``metrics.jsonl`` and ``checkpoints/`` (the
 final one at the last step).  ``--synthetic-data`` trains on
 ``SyntheticNuScenes``; ``--max-steps`` caps the steps of one epoch.  The
-model is ``build_model_from_config`` of the config.  ``--launcher`` other
-than ``none`` and more than one GPU raise: the port runs one process on one
-card (ROADMAP A7).  ``main(argv)`` runs it in process and returns the exit
-code.
+model is ``build_model_from_config`` of the config.  ``--launcher pytorch``
+under ``torch.distributed.run`` trains data parallel, one process per card
+(gloo ranks with ``--device cpu``): the global batch is N x
+``samples_per_gpu``, each rank loads its share, and rank 0 alone logs,
+dumps the config and writes checkpoints; ``slurm``, ``mpi`` and ``tpu``
+raise (``tools/cli_common.py``).  ``--autoscale-lr`` scales the lr by the
+world size over the reference's 8 GPUs.  ``main(argv)`` runs it in process
+and returns the exit code.
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ from unibev_tpu_torch.registry import DATASETS
 from unibev_tpu_torch.runtime.eval_hook import make_eval_fn
 from unibev_tpu_torch.runtime.logging_utils import collect_env, get_root_logger
 from unibev_tpu_torch.runtime.train_loop import Runner
-from unibev_tpu_torch.tools.cli_common import (cli_device, load_config,
-                                               single_process)
+from unibev_tpu_torch.parallel.dist import get_rank, get_world_size
+from unibev_tpu_torch.tools.cli_common import (cli_device, launch, load_config,
+                                               log_level)
 
 SYNTHETIC_KEYS = ("length", "num_cams", "img_hw", "max_points", "max_gt",
                   "seed")
@@ -50,9 +57,10 @@ def parse_args(argv=None):
     p.add_argument("--no-validate", action="store_true")
     group_gpus = p.add_mutually_exclusive_group()
     group_gpus.add_argument("--gpus", type=int,
-                            help="number of GPUs (the port runs on one)")
+                            help="GPUs of this process (one; more cards "
+                                 "take one process each, --launcher pytorch)")
     group_gpus.add_argument("--gpu-ids", type=int, nargs="+",
-                            help="GPU ids (the port runs on one)")
+                            help="GPU ids of this process (one)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--deterministic", action="store_true",
                    help="deterministic cuDNN algorithms")
@@ -74,8 +82,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    single_process(args.launcher, args.gpus or len(args.gpu_ids or [0]))
-    device = cli_device(args.device)
+    device = launch(args.launcher, cli_device(args.device),
+                    args.gpus or len(args.gpu_ids or [0]))
+    rank, world = get_rank(), get_world_size()
     if args.deterministic:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
@@ -90,16 +99,21 @@ def main(argv=None) -> int:
         work_dir = osp.join("./work_dirs",
                             osp.splitext(osp.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    if args.autoscale_lr:            # one device against the 8-device base
-        cfg.optimizer["lr"] = cfg.optimizer["lr"] / 8
+    if args.autoscale_lr:            # the world's cards against the 8-GPU base
+        cfg.optimizer["lr"] = cfg.optimizer["lr"] * world / 8
 
     timestamp = time.strftime("%Y%m%d_%H%M%S", time.localtime())
-    logger = get_root_logger(osp.join(work_dir, f"{timestamp}.log"),
-                             cfg.get("log_level", "INFO"))
-    cfg.dump(osp.join(work_dir, osp.basename(args.config)))
+    logger = get_root_logger(
+        osp.join(work_dir, f"{timestamp}.log") if rank == 0 else None,
+        log_level(cfg.get("log_level", "INFO")))
+    if rank == 0:
+        cfg.dump(osp.join(work_dir, osp.basename(args.config)))
     logger.info(f"Environment: {collect_env()}")
     logger.info(f"Config:\n{cfg.pretty_text}")
-    logger.info(f"Set random seed to {args.seed}, device {device}")
+    backend = (torch.distributed.get_backend()
+               if torch.distributed.is_initialized() else "none")
+    logger.info(f"Set random seed to {args.seed}, device {device}, "
+                f"{world} rank(s), process group backend {backend}")
 
     train_cfg = dict(cfg.data["train"]) if cfg.get("data") else {}
     val_ds = None
@@ -116,7 +130,7 @@ def main(argv=None) -> int:
                     seed=args.seed, device=device)
     workers = dict(cfg.get("data") or {}).get(
         "workers_per_gpu", cfg.get("workers_per_gpu", 2))
-    loader = DataLoader(train_ds, batch_size=runner.samples_per_step,
+    loader = DataLoader(train_ds, batch_size=runner.samples_per_gpu,
                         shuffle=True, num_workers=int(workers),
                         seed=args.seed, pin_memory=device.type == "cuda")
     runner.init_state(load_from=args.load_from or cfg.get("load_from"),
@@ -128,8 +142,13 @@ def main(argv=None) -> int:
     path = runner.save()
     runner.metrics.close()
     logger.info(f"training finished at step {runner.step}: {path}")
+    if world > 1:
+        torch.distributed.barrier()      # the checkpoint is written
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    sys.exit(code)

@@ -14,7 +14,9 @@ port's.  That covers every fusion option of the transformer:
 the reference's ``bev_embedding_img`` / ``bev_embedding_pts``, the column
 halves of the JAX package's one (HW, 2C) ``bev_embedding``.  The reference
 names no ModalityProjection weights: they keep the JAX package's names,
-``l_modal_proj`` / ``c_modal_proj``.  The FPN's extra levels land after its
+``l_modal_proj`` / ``c_modal_proj``; nor are its radar keys known to this
+repo, so the radar branch's ``PillarFeatureNet`` keeps the JAX names too,
+``radar_voxel_encoder.fc{i}`` / ``ln{i}``.  The FPN's extra levels land after its
 level convs in ``fpn_convs``, as in mmdet.  Layouts converted back:
 
   * conv kernel (Kh, Kw, Cin, Cout)        -> (Cout, Cin, Kh, Kw)
@@ -242,6 +244,9 @@ _RULES: List[Tuple[str, Callable]] = [
     (rf"{_T}/(img|pts)_encoder/layer(\d+)/(.+)", _encoder),
     (r"pts_backbone/block(\d+)_(conv|bn)(\d+)/(kernel|\w+)", _second),
     (r"pts_neck/deblock(\d+)_(conv|bn)/(\w+)", _secondfpn),
+    (r"radar_voxel_encoder/(fc|ln)(\d+)/(kernel|scale|bias)",
+     lambda m, w: [(f"radar_voxel_encoder.{m.group(1)}{m.group(2)}."
+                    f"{_WB[m.group(3)]}", _dense(m.group(3), w))]),
     (rf"{_T}/decoder/layer(\d+)/(.+)", _decoder),
 ]
 
