@@ -11,8 +11,8 @@ then, each phase printing one line (or a few) and raising on any failure:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
      kernel build time, and what ``nvcc -Xptxas -v`` reports for K1, K2
-     (dcn_fwd), the im2col, K3, K4, K6, K7, K8 and K9 (registers, static
-     shared memory, stack, spills);
+     (dcn_fwd), the im2col, K3, K4, K6, K7, K8, K9, K10 and K11 (registers,
+     static shared memory, stack, spills);
   2. kernel K1 (MSDA) against its plain PyTorch version at the five
      flagship call shapes, in f32 (TF32 off) and bf16, with both times,
      their ratio and the access width each site takes;
@@ -54,24 +54,32 @@ then, each phase printing one line (or a few) and raising on any failure:
      10 after 3 warm-ups), peak memory, finite losses and grad norm, SCA
      overflow, frozen parameters bit-identical after the steps;
  10. a torch.profiler breakdown of one train step by kernel;
- 11. the voxelizer's time on the synthetic batch's 300k points; the device
-     time of the compact tables of one forward (build_table and the four
-     downsample_with_table calls: the active sets of the strided convs);
-     and the sparse-conv kernels against their plain versions at every
-     flagship LiDAR site, on the active sets and rulebooks of the voxelized
-     synthetic batch: K6 sparse_nbr exactly (its time beside K6_BEFORE_MS,
-     the kernel over a dense int32 table), K7 sparse_conv in f32 (TF32 off)
-     and bf16, with both times and their ratio;
+ 11. kernel K10 (voxelize) against its plain version on the synthetic
+     batch's 300k points and on the same cloud with 1,000 voxels of 20
+     points each (over the 10-point cap, among more voxels than the
+     120,000 kept): coords, mask, counts and caps equal, the means within
+     1e-6; kernel K11 (active_set) against its plain versions at the 5
+     table calls of one forward (build_table at res 0, the four
+     downsample_with_table calls: the active sets of the strided convs):
+     bitmaps, counts, coords, masks and overflows equal, the rank -> row
+     maps on the live ranks; each with its time (CUDA events and the
+     profiler's device time), its plain version's and its bound; the
+     device time of the 5 table calls; and the sparse-conv kernels against
+     their plain versions at every flagship LiDAR site, on the active sets
+     and rulebooks of the voxelized synthetic batch: K6 sparse_nbr exactly
+     (its time beside K6_BEFORE_MS, the kernel over a dense int32 table),
+     K7 sparse_conv in f32 (TF32 off) and bf16, with both times and their
+     ratio;
  12. the tiny LC model in LC and L mode: CUDA with the kernels against the
      CPU with the plain versions, same weights and inputs;
  13. full-width flagship LC predict in bf16 (6 cameras at 928x1600 and 300k
-     points): launch counts of one forward (18 K1, 26 K2, 8 K6, 21 K7, no
-     im2col), ms
+     points): launch counts of one forward (18 K1, 26 K2, 1 K10, 5 K11,
+     8 K6, 21 K7, no im2col), ms
      per sample (median of 10 after 3 warm-ups), peak memory, SCA overflow,
      finite boxes, and, printed, the voxels before the cap and each strided
      conv's overflow;
  14. L predict on the same model (the batch without images): launch counts
-     (12 K1, 0 K2, 8 K6, 21 K7) and ms per sample;
+     (12 K1, 0 K2, 1 K10, 5 K11, 8 K6, 21 K7) and ms per sample;
  15. torch.profiler breakdowns of one LC and one L forward by kernel, and
      the host's time in each (the traced wall less the time spent waiting
      in CUDA synchronizing calls);
@@ -92,11 +100,12 @@ then, each phase printing one line (or a few) and raising on any failure:
      and the LiDAR running statistics;
  18. the full-width flagship LC train step (float32 parameters, bf16
      autocast, modality dropout, GridMask and dropout on): launch counts of
-     one step against the counts derived from the call sites (K6 8, K7 41,
-     K8 4, K9 21 and K1-K4 with the LiDAR MSDA sites), s/step (median of 10
-     after 3 warm-ups) with the flags each step drew, peak memory, finite
-     losses, SCA overflow on the camera-live steps, frozen parameters
-     bit-identical, LiDAR running statistics moved;
+     one step against the counts derived from the call sites (K10 1, K11
+     5, K6 8, K7 41, K8 4, K9 21 and K1-K4 with the LiDAR MSDA sites),
+     s/step (median of 10 after 3 warm-ups) with the flags each step
+     drew, peak memory, finite losses, SCA overflow on the camera-live
+     steps, frozen parameters bit-identical, LiDAR running statistics
+     moved;
  19. a torch.profiler breakdown of one LC train step by kernel;
  20. K1 and K3 against their plain versions at the cat_128 config's sites
      with 8 heads of D = 16 channels (both encoders' TSA, the dense camera
@@ -142,17 +151,21 @@ then, each phase printing one line (or a few) and raising on any failure:
      40,000 rows x 64, ~2,000 live, into the 180 x 180 canvas; the masked
      rows hold data and must be skipped), exactly against its plain
      version in f32 and bf16; its time beside the plain version's,
-     ``index_add_`` (with the JAX package's drop row) and the bound, and
-     the radar voxelizer's time;
+     ``index_add_`` (with the JAX package's drop row) and the bound; and
+     K10 at the radar voxelizer against its plain version, on the batch's
+     cloud and with 30 points in one pillar (over the 20-point cap), as in
+     phase 11;
  28. the tiny RC model in RC, R and C mode (launching K5 where radar
      runs) and one train step, CUDA against the CPU as phases 12 and 17;
  29. full-width RC predict (the flagship with radar in LiDAR's slot,
      ``flagship_model_cfg(use_lidar=False, use_radar=True)``) in RC, R and
-     C mode from one model: launch counts (RC 18 K1, 26 K2, 1 K5; R 12 K1,
-     1 K5; C phase 5's), ms per sample (median of 10 after 3 warm-ups),
-     peak memory, SCA overflow 0, and profiles of RC and R;
+     C mode from one model: launch counts (RC 18 K1, 26 K2, 1 K10, 1 K5;
+     R 12 K1, 1 K10, 1 K5; C phase 5's), ms per sample (median of 10
+     after 3 warm-ups), peak memory, SCA overflow 0, and profiles of RC
+     and R;
  30. the full-width RC train step with modality dropout: launch counts
-     per step (18 K1, 52 K2, 26 im2col, 18 K3, 26 K4, 1 K5), s/step,
+     per step (18 K1, 52 K2, 26 im2col, 18 K3, 26 K4, 1 K10, 1 K5),
+     s/step,
      peak memory, the profile;
  31. data parallel: (a) the train CLI under ``torch.distributed.run
      --standalone --nproc_per_node=1 --launcher pytorch`` (NCCL,
@@ -173,10 +186,11 @@ then, each phase printing one line (or a few) and raising on any failure:
      held), (b) with N NCCL ranks against one process at B=N.
 
 Each kernel's entry in the line before the last gives its launches on the
-path it serves (K1, K2, K6, K7: one LC predict; the im2col, K3, K4, K8,
-K9: one LC train step; K5: one RC predict), its time summed over that
-path's call sites (CUDA events; K5 at the radar pillar scatter, phase 27;
-K1 and K3 also ``d16_*``, summed over cat_128's D = 16 launches), its plain
+path it serves (K1, K2, K6, K7, K10, K11: one LC predict; the im2col, K3,
+K4, K8, K9: one LC train step; K5: one RC predict), its time summed over
+that path's call sites (CUDA events; K5 at the radar pillar scatter, phase
+27; K1 and K3 also ``d16_*``, summed over cat_128's D = 16 launches; K10
+also ``radar_*``, its launch a forward at the radar site), its plain
 version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes each call must move over 3.35 TB/s
 and its operations over 989 TFLOP/s, the H100 SXM's HBM3 and dense bf16
@@ -407,7 +421,11 @@ def ratio_line(label, rec):
 
 def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "dcn_im2col", "msda_bwd",
                           "dcn_bwd", "sparse_nbr", "sparse_conv_kernel",
-                          "sparse_inv_nbr", "sparse_wgrad")):
+                          "sparse_inv_nbr", "sparse_wgrad", "fill_words",
+                          "tile_counts", "scan_tile_sums", "tile_bases",
+                          "mark_points", "slot_points", "emit_voxels",
+                          "mark_rows", "mark_sites", "build_rows",
+                          "emit_sites")):
     """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
     entry functions whose names hold one of ``kernels``: one dict each."""
     log = _build.BUILD_DIR / "nvcc.log"
@@ -858,22 +876,31 @@ def _sparse_launches():
     return len(ENCODER_CHANNELS) + strided, convs, strided
 
 
+# the synthetic flagship batch's samples: the voxelizer runs once a sample
+BATCH = 1
+
+
 def expected_predict_launches(camera=True, lidar=True, radar=False):
     """Kernel launches of one flagship predict, LC, C (``lidar`` False) or
     L (``camera`` False), or of the RC model (``lidar`` False, ``radar``)
     in RC or R mode, from the call sites: K1 once per MSDA call (the
     decoder's, the camera encoder's and the LiDAR encoder's, which the
     radar map feeds as the LiDAR map does), K2 (dcn_fwd) once per DCN
-    call, the sparse encoder's K6 and K7, and the radar pillar scatter's K5
-    once.  No im2col: only the DCN backward builds columns."""
+    call, the voxelizer K10 once per sample of the LiDAR or radar cloud
+    (``UniBEV._voxelize``), the sparse encoder's K11 once per table (its
+    res-0 table and the active sets of its strided convs), K6 and K7, and
+    the radar pillar scatter's K5 once.  No im2col: only the DCN backward
+    builds columns."""
     sites = [s for s in MSDA_SITES if camera or s[0] == "decoder_ca"]
     sites += LIDAR_MSDA_SITES if lidar or radar else []
     out = dict(msda_fwd=sum(s[1] for s in sites))
     if camera:
         out["dcn_fwd"] = sum(s[1] for s in DCN_SITES)
+    if lidar or radar:
+        out["voxelize"] = BATCH
     if lidar:
-        nbr, convs, _ = _sparse_launches()
-        out.update(sparse_nbr=nbr, sparse_conv=convs)
+        nbr, convs, strided = _sparse_launches()
+        out.update(sparse_nbr=nbr, sparse_conv=convs, active_set=1 + strided)
     if radar:
         out["scatter_add_rows"] = 1
     return out
@@ -890,16 +917,20 @@ def expected_train_launches(lidar=False, radar=False):
     backward (d_feats; the voxel features need none), K8 once per strided
     conv, K9 once per conv.  The RC model (``radar``) adds the LiDAR
     encoder's MSDA sites and one K5, the pillar scatter's forward (its
-    backward is a gather, no kernel)."""
+    backward is a gather, no kernel).  Both add K10 once per sample, and
+    LC K11 once per table: the forward's, which the backward reuses."""
     sites = MSDA_SITES + (LIDAR_MSDA_SITES if lidar or radar else [])
     msda = sum(s[1] for s in sites)
     dcn = sum(s[1] for s in DCN_SITES)
     out = dict(msda_fwd=msda, msda_bwd=msda, dcn_fwd=2 * dcn, dcn_im2col=dcn,
                dcn_bwd=dcn)
+    if lidar or radar:
+        out["voxelize"] = BATCH
     if lidar:
         nbr, convs, strided = _sparse_launches()
         out.update(sparse_nbr=nbr, sparse_conv=2 * convs - 1,
-                   sparse_inv_nbr=strided, sparse_conv_wgrad=convs)
+                   sparse_inv_nbr=strided, sparse_conv_wgrad=convs,
+                   active_set=1 + strided)
     if radar:
         out["scatter_add_rows"] = 1
     return out
@@ -962,7 +993,9 @@ def phase_tiny_train(lidar=False, radar=False):
     need = {"msda_bwd", "dcn_bwd"}
     if lidar:
         need |= {"sparse_nbr", "sparse_conv", "sparse_inv_nbr",
-                 "sparse_conv_wgrad"}
+                 "sparse_conv_wgrad", "active_set"}
+    if lidar or radar:
+        need.add("voxelize")
     if radar:
         need.add("scatter_add_rows")
     if not need <= launched:
@@ -1229,26 +1262,146 @@ def _table_bytes(table, cells, ok):
                 + torch.unique(words[is_set]).numel() + rows)
 
 
-def phase_sparse(gen):
-    print("phase 11: K6 sparse_nbr and K7 sparse_conv vs their plain versions "
-          "at the flagship LiDAR sites", flush=True)
-    points = synthetic_batch(np.random.RandomState(0), device="cuda")["points"][0]
-    k6, k7, _, counts = lidar_sites(points)
-    mask = torch.ones(points.shape[0], dtype=torch.bool, device="cuda")
-    counts["voxelizer_ms"] = cuda_ms(lambda: voxelize_and_encode(
-        points, mask, VOXEL_SIZE, PC_RANGE, VOXEL_GRID, CAPACITIES[0]), 10)
-    # points and mask in; per voxel f32 features, int32 coords and mask out
+def hold_voxelizer(rec, site, calls, points, mask, args):
+    """K10 against its plain version on one cloud: coords, mask, counts and
+    caps equal, the means within 1e-6 of the largest; both timed (CUDA
+    events, and the kernel's profiler device time).  ``calls`` per path
+    (0 for a cloud of no path).  Returns the plain version's result."""
+    # imported here: --compare runs this script in checkouts without it
+    from unibev_tpu_torch.ops.voxelize import voxelize_and_encode_reference
+    run = lambda: voxelize_and_encode(points, mask, *args)  # noqa: E731
+    plain = lambda: voxelize_and_encode_reference(  # noqa: E731
+        points, mask, *args)
+    got, want = run(), plain()
+    for k in ("coords", "mask", "num_points", "num_voxels", "num_distinct"):
+        g, w = getattr(got, k), getattr(want, k)
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"K10 {site}: {k} differs from the plain "
+                                 f"version")
+    err = check(f"K10 {site} feats", got.feats, want.feats, 1e-6)
+    ms, dev, plain_ms = cuda_ms(run, 20), device_ms(run, 10), cuda_ms(plain, 5)
     P, F = points.shape
-    counts["voxelizer_bound_ms"] = ((4 * F + 1) * P + (4 * F + 13)
-                                    * CAPACITIES[0]) / HBM_BYTES_PER_S * 1e3
+    distinct, kept = int(want.num_distinct), int(want.num_voxels)
+    most = int(want.num_points.max())
+    # the points and their mask in; each voxel's float32 feature, int32
+    # coords, mask and count, and the two scalars out
+    nbytes = (4 * F + 1) * P + (4 * F + 17) * args[3] + 12
+    bound = add_site(rec, site, calls, ms, plain_ms, err, nbytes, 0,
+                     device_ms=dev, points=P, distinct=distinct, kept=kept,
+                     at_point_cap=int((want.num_points == args[4]).sum()))
+    print(f"  K10 {site}: {P} points, {distinct} voxels, {kept} kept, at most "
+          f"{most} points a voxel, equal; kernel {ms:.4f} ms (device "
+          f"{dev:.4f}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms",
+          flush=True)
+    return want
+
+
+def clustered_cloud(points, gen, clusters=1000, per=20, z_cells=10):
+    """The flagship cloud with its first ``clusters * per`` points moved,
+    ``per`` each, into ``clusters`` voxels of the lowest ``z_cells`` layers
+    (within 0.3 of a voxel of its centre): kept voxels over the 10-point
+    cap, among more distinct voxels than the 120,000 kept."""
+    pts = points.clone()
+    cells = torch.stack([torch.randint(0, n, (clusters,), device="cuda",
+                                       generator=gen)
+                         for n in (VOXEL_GRID[0], VOXEL_GRID[1], z_cells)], 1)
+    size = torch.tensor(VOXEL_SIZE, device="cuda")
+    centre = torch.tensor(PC_RANGE[:3], device="cuda") + (cells + 0.5) * size
+    jitter = (torch.rand(clusters, per, 3, device="cuda", generator=gen)
+              - 0.5) * 0.6 * size
+    pts[:clusters * per, :3] = (centre[:, None] + jitter).reshape(-1, 3)
+    return pts
+
+
+def hold_tables(grid):
+    """K11 against its plain versions at the 5 table calls of one
+    SparseEncoder forward (``build_table`` at res 0, the three strided
+    convs' and ``conv_out``'s ``downsample_with_table``): bitmaps, counts,
+    coords, masks and overflows equal, and the rank -> row maps on the live
+    ranks; each call timed.  The next call reads the kernel's grid."""
+    from unibev_tpu_torch.ops.sparse_conv import (
+        build_table_reference, downsample_with_table_reference)
+    rec = new_rec()
+    names = ["table0"] + [f"down{i}" for i in range(len(DOWN_PADDINGS))] \
+        + ["conv_out"]
+    for name, conv in zip(names, [None] + STRIDED_CONVS):
+        V = grid.coords.shape[0]
+        if conv is None:
+            args = (grid,)
+            run, plain = build_table, build_table_reference
+            tab, want = run(grid), plain(grid)
+            live, out_rows, over = int(grid.mask.sum()), 0, 0
+        else:
+            kernel, stride, padding, capacity = conv
+            out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                              zip(grid.shape, padding, kernel, stride))
+            args = (grid, kernel, stride, padding, out_shape, capacity)
+            run, plain = downsample_with_table, downsample_with_table_reference
+            (co, mo, tab, over), (wco, wmo, want, wover) = run(*args), plain(*args)
+            if not (torch.equal(co, wco) and torch.equal(mo, wmo)
+                    and over.dtype == wover.dtype and torch.equal(over, wover)):
+                raise AssertionError(f"K11 {name}: coords, mask or overflow "
+                                     f"differ from the plain version")
+            live, out_rows, over = capacity, capacity, int(over)
+            grid = SparseGrid(co, mo, out_shape, grid.batch)
+        words = tab.bits.numel()
+        if not (torch.equal(tab.bits, want.bits)
+                and torch.equal(tab.base, want.base)
+                and tab.rows.shape == want.rows.shape
+                and torch.equal(tab.rows[:live], want.rows[:live])):
+            raise AssertionError(f"K11 {name}: the table differs from the "
+                                 f"plain version's")
+        ms = cuda_ms(lambda: run(*args), 20)
+        dev = device_ms(lambda: run(*args), 10)
+        plain_ms = cuda_ms(lambda: plain(*args), 5)
+        plain_dev = device_ms(lambda: plain(*args), 5)
+        # coords and mask in; bits, counts and the map out, and a
+        # downsample's coords, mask and overflow
+        nbytes = 17 * V + 8 * words + 4 * tab.rows.numel() + 17 * out_rows \
+            + (8 if conv else 0)
+        bound = add_site(rec, name, 1, ms, plain_ms, 0.0, nbytes, 0,
+                         device_ms=dev, plain_device_ms=plain_dev, rows_in=V,
+                         words=words, overflow=over)
+        print(f"  K11 {name}: {V} rows in, {words} words, overflow {over}, "
+              f"equal; kernel {ms:.4f} ms (device {dev:.4f}), plain "
+              f"{plain_ms:.4f} ms (device {plain_dev:.4f}), bound "
+              f"{bound:.4f} ms", flush=True)
+    rec["device_ms"] = sum(v["device_ms"] for v in rec["sites"].values())
+    rec["plain_device_ms"] = sum(v["plain_device_ms"]
+                                 for v in rec["sites"].values())
+    ratio_line(f"K11 over the 5 launches of one forward (device "
+               f"{rec['device_ms']:.4f} ms, plain versions' device "
+               f"{rec['plain_device_ms']:.4f} ms)", rec)
+    return rec
+
+
+def phase_sparse(gen):
+    print("phase 11: K10 voxelize, K11 active_set, K6 sparse_nbr and K7 "
+          "sparse_conv vs their plain versions at the flagship LiDAR sites",
+          flush=True)
+    points = synthetic_batch(np.random.RandomState(0), device="cuda")["points"][0]
+    mask = torch.ones(points.shape[0], dtype=torch.bool, device="cuda")
+    vox_args = (VOXEL_SIZE, PC_RANGE, VOXEL_GRID, CAPACITIES[0], 10)
+    rec10 = new_rec()
+    hold_voxelizer(rec10, "lidar", 1, points, mask, vox_args)
+    want = hold_voxelizer(rec10, "lidar_clustered", 0,
+                          clustered_cloud(points, gen), mask, vox_args)
+    if not (int(want.num_distinct) > CAPACITIES[0]
+            and int(want.num_points.max()) == 10
+            and int((want.num_points == 10).sum()) >= 900):
+        raise AssertionError("the clustered cloud must hold kept voxels over "
+                             "the point cap and more voxels than the cap")
+    k6, k7, _, counts = lidar_sites(points)
     grid = counts.pop("grid")
     print(f"  voxelized synthetic batch: {counts}", flush=True)
+    rec11 = hold_tables(grid)
     counts["tables_device_ms"] = device_ms(lambda: _tables_of_a_forward(grid),
                                            5)
     counts["tables_ms"] = cuda_ms(lambda: _tables_of_a_forward(grid), 5)
     print(f"  the compact tables of one forward (build_table and 4 "
-          f"downsample_with_table): device {counts['tables_device_ms']:.4f} "
-          f"ms, events {counts['tables_ms']:.4f} ms", flush=True)
+          f"downsample_with_table, K11): device "
+          f"{counts['tables_device_ms']:.4f} ms, events "
+          f"{counts['tables_ms']:.4f} ms", flush=True)
     from unibev_tpu_torch.ops.sparse_conv import rulebook_cells
     rec6 = new_rec()
     for name, args in k6:
@@ -1300,7 +1453,7 @@ def phase_sparse(gen):
     ratio_line("K7 over the 21 launches of one LC forward", rec7)
     del k6, k7
     torch.cuda.empty_cache()
-    return rec6, rec7, counts
+    return rec6, rec7, rec10, rec11, counts
 
 
 def phase_sparse_backward(gen):
@@ -1436,7 +1589,8 @@ def phase_tiny_lc():
         with torch.inference_mode():
             want, got = cpu_model(batch), gpu_model(gpu_batch)
         launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
-        if not {"sparse_nbr", "sparse_conv", "msda_fwd"} <= launched:
+        if not {"sparse_nbr", "sparse_conv", "msda_fwd", "voxelize",
+                "active_set"} <= launched:
             raise AssertionError(f"tiny {mode} on CUDA launched only {launched}")
         for k in ("all_cls_scores", "all_bbox_preds"):
             rec[f"{mode} {k}"] = check(f"{mode} {k}", got[k].cpu(), want[k],
@@ -1537,6 +1691,13 @@ def _category(kernel_name):
         return "K6 sparse_nbr"
     if "sparse_conv" in n:
         return "K7 sparse_conv"
+    # the bitmap kernels shared by K10 and K11 carry the kernel's number
+    if "<10>" in n or any(k in n for k in ("mark_points", "slot_points",
+                                            "emit_voxels")):
+        return "K10 voxelize"
+    if "<11>" in n or any(k in n for k in ("mark_rows", "mark_sites",
+                                            "build_rows", "emit_sites")):
+        return "K11 active_set"
     if "sort" in n:
         return "sort (voxelizer, SCA top-K order)"
     if "index" in n or "scatter" in n or "scan" in n or "cum" in n:
@@ -1695,7 +1856,8 @@ def phase_tiny_variants():
           "queries, CUDA kernels vs CPU plain versions: predict, and the "
           "losses and gradients of one forward with the LiDAR modules in "
           "train mode", flush=True)
-    forward = {"msda_fwd", "dcn_fwd", "sparse_nbr", "sparse_conv"}
+    forward = {"msda_fwd", "dcn_fwd", "sparse_nbr", "sparse_conv", "voxelize",
+               "active_set"}
     backward = {"msda_bwd", "dcn_bwd", "dcn_im2col", "sparse_inv_nbr",
                 "sparse_conv_wgrad"}
     batch = tiny_batch(np.random.RandomState(0))
@@ -2137,17 +2299,14 @@ def _rc_batch(device="cuda"):
 def phase_radar_scatter(gen):
     print("phase 27: K5 at the radar pillar scatter of the full-width RC "
           "model (40,000 pillar rows x 64 into the 180 x 180 canvas) vs its "
-          "plain version, index_add_ and the bound; the radar voxelizer",
-          flush=True)
+          "plain version, index_add_ and the bound; K10 at the radar "
+          "voxelizer vs its plain version", flush=True)
     batch = _rc_batch()
     radar, mask = batch["radar"][0], batch["radar_mask"][0]
-
-    def vox():
-        return voxelize_and_encode(
-            radar, mask, RADAR_LAYER["voxel_size"],
-            RADAR_LAYER["point_cloud_range"], RADAR_GRID,
-            RADAR_LAYER["max_voxels"][1], RADAR_LAYER["max_num_points"])
-    res = vox()
+    args = (RADAR_LAYER["voxel_size"], RADAR_LAYER["point_cloud_range"],
+            RADAR_GRID, RADAR_LAYER["max_voxels"][1],
+            RADAR_LAYER["max_num_points"])
+    res = voxelize_and_encode(radar, mask, *args)
     rows = res.mask.numel()
     live = int(res.mask.sum())
     coords = res.coords.long()
@@ -2189,16 +2348,21 @@ def phase_radar_scatter(gen):
                      live * RADAR_C, library_ms=lib, device_ms=k5_dev,
                      into_table_ms=into, live=live, rows=rows)
     rec["library_ms"] = lib
-    vox_ms, vox_dev = cuda_ms(vox, 20), device_ms(vox, 10)
-    rec["voxelizer"] = dict(ms=vox_ms, device_ms=vox_dev,
-                            pillars=int(res.num_voxels),
-                            distinct=int(res.num_distinct))
     print(f"  K5 bf16 {k5_ms:.4f} ms (device {k5_dev:.4f}; into a given "
           f"table, as index_add_ adds, {into:.4f}), plain {plain_ms:.4f} ms, "
-          f"index_add_ {lib:.4f} ms, bound {bound:.4f} ms (bytes); the radar "
-          f"voxelizer {vox_ms:.4f} ms a call (device {vox_dev:.4f}), "
-          f"{int(res.num_voxels)} pillars of {RADAR_POINTS} points",
-          flush=True)
+          f"index_add_ {lib:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+    # K10 at the radar site: the batch's cloud, and the same with 30 points
+    # in one pillar (over the 20-point cap)
+    rec["voxelizer"] = new_rec()
+    hold_voxelizer(rec["voxelizer"], "radar", 1, radar, mask, args)
+    clustered = radar.clone()
+    clustered[100:130, :2] = 10.3 + 0.2 * torch.rand(
+        30, 2, device="cuda", generator=gen)
+    want = hold_voxelizer(rec["voxelizer"], "radar_clustered", 0, clustered,
+                          mask, args)
+    if int(want.num_points.max()) != args[4]:
+        raise AssertionError("the clustered radar cloud must fill a pillar "
+                             "past the point cap")
     return rec
 
 
@@ -2208,8 +2372,8 @@ def phase_tiny_rc():
     cpu_model = build_model(tiny_model_cfg(use_radar=True), "cpu", seed=0)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     full = tiny_batch(np.random.RandomState(0), R=TINY_RADAR)
-    need = {"RC": {"msda_fwd", "dcn_fwd", "scatter_add_rows"},
-            "R": {"msda_fwd", "scatter_add_rows"},
+    need = {"RC": {"msda_fwd", "dcn_fwd", "scatter_add_rows", "voxelize"},
+            "R": {"msda_fwd", "scatter_add_rows", "voxelize"},
             "C": {"msda_fwd", "dcn_fwd"}}
     rec = {}
     for mode, drop in RC_MODES.items():
@@ -2515,7 +2679,7 @@ def main(argv):
                                      1000 * train["s_per_step"])
     del model, opt, sched, batch, tgen
     torch.cuda.empty_cache()
-    k6, k7, lidar_counts = phase_sparse(gen)
+    k6, k7, k10, k11, lidar_counts = phase_sparse(gen)
     tiny_lc = phase_tiny_lc()
     model, batch, lc = phase_flagship_lc()
     l_batch, l_only = phase_flagship_l(model, batch)
@@ -2577,7 +2741,22 @@ def main(argv):
         kernel_entry("sparse_conv_wgrad", sparse_cu,
                      "unibev_tpu/ops/sparse_conv.py:358",
                      lc_steps["sparse_conv_wgrad"], k9),
+        kernel_entry("voxelize", "unibev_tpu_torch/csrc/voxelize.cu",
+                     "unibev_tpu/ops/voxelize.py:41",
+                     lc["launches"]["voxelize"], k10),
+        kernel_entry("active_set", "unibev_tpu_torch/csrc/active_set.cu",
+                     "unibev_tpu/ops/sparse_conv.py:154",
+                     lc["launches"]["active_set"], k11),
     ]
+    # K10 also carries the RC model's radar site (phase 27), one launch a
+    # forward there
+    radar_vox = radar["k5"]["voxelizer"]
+    kernels[-2]["max_abs_err"] = max(kernels[-2]["max_abs_err"],
+                                     radar_vox["max_abs_err"])
+    kernels[-2].update(radar_launches=radar["rc"]["RC"]["launches"]["voxelize"],
+                       radar_ms=radar_vox["ms"],
+                       radar_plain_ms=radar_vox["plain_ms"],
+                       radar_bound_ms=radar_vox["bound_ms"])
     # K1 and K3 also carry cat_128's D = 16 sites (phase 20), summed over
     # their launches in one cat_128 LC forward / step
     for entry, rec in ((kernels[0], msda_d16), (kernels[3], msda_bwd_d16)):
@@ -2595,7 +2774,8 @@ def main(argv):
                        flagship=flagship, profile=prof, backward=bwd,
                        tiny_train=tiny_train, train=train,
                        profile_train=prof_train, sparse_nbr=k6,
-                       sparse_conv=k7, lidar_counts=lidar_counts,
+                       sparse_conv=k7, voxelize=k10, active_set=k11,
+                       lidar_counts=lidar_counts,
                        tiny_lc=tiny_lc, lc=lc, l_only=l_only,
                        profile_lc=prof_lc, profile_l=prof_l,
                        sparse_inv_nbr=k8, sparse_conv_wgrad=k9,

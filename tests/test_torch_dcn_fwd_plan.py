@@ -197,18 +197,21 @@ def test_schedule_is_one_wave_at_the_flagship_sites():
 # path: (the launches chip_smoke.py expects, the counts per path)
 PATHS = {
     "LC predict": (chip_smoke.expected_predict_launches(),
-                   dict(msda_fwd=18, dcn_fwd=26, sparse_nbr=8, sparse_conv=21)),
+                   dict(msda_fwd=18, dcn_fwd=26, voxelize=1, active_set=5,
+                        sparse_nbr=8, sparse_conv=21)),
     "C predict": (chip_smoke.expected_predict_launches(lidar=False),
                   dict(msda_fwd=12, dcn_fwd=26)),
     "L predict": (chip_smoke.expected_predict_launches(camera=False),
-                  dict(msda_fwd=12, sparse_nbr=8, sparse_conv=21)),
+                  dict(msda_fwd=12, voxelize=1, active_set=5, sparse_nbr=8,
+                       sparse_conv=21)),
     "C train step": (chip_smoke.expected_train_launches(),
                      dict(msda_fwd=12, dcn_fwd=52, dcn_im2col=26, msda_bwd=12,
                           dcn_bwd=26)),
     "LC train step": (chip_smoke.expected_train_launches(lidar=True),
                       dict(msda_fwd=18, dcn_fwd=52, dcn_im2col=26, msda_bwd=18,
-                           dcn_bwd=26, sparse_nbr=8, sparse_conv=41,
-                           sparse_inv_nbr=4, sparse_conv_wgrad=21)),
+                           dcn_bwd=26, voxelize=1, active_set=5, sparse_nbr=8,
+                           sparse_conv=41, sparse_inv_nbr=4,
+                           sparse_conv_wgrad=21)),
 }
 
 

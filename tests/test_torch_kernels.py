@@ -21,7 +21,13 @@ more inside a cell (``cell_interior`` / ``tap_interior``).  The sparse-conv
 rulebook K6 and the inverse rulebook K8 must equal their plain versions
 exactly; the sparse conv K7 and the weight gradient K9 f32 1e-4, bf16 2^-6
 (the same products summed in another order; K9's float32 atomics sum its
-row spans in no fixed order).
+row spans in no fixed order).  The voxelizer K10 must give its plain
+version's coords, mask, counts and caps exactly and its voxel means within
+1e-6 (at most max_points float32 points, summed in another order by the
+plain version's atomics on the card); the compact-table kernel K11 its
+plain versions' bitmaps, counts, coords, masks and overflows exactly, and
+the rank -> row map on the live ranks (the plain build_table orders its
+padding rows with an unstable sort; no lookup reads past the live ranks).
 """
 
 import numpy as np
@@ -29,6 +35,9 @@ import pytest
 import torch
 
 from torch_port_utils import cuda_device  # noqa: F401
+from unibev_tpu_torch.flagship import (PC_RANGE, RADAR_POINTS,
+                                       RADAR_VOXEL_SIZE, VOXEL_SIZE,
+                                       synthetic_batch)
 from unibev_tpu_torch.ops import _build, deform_conv
 from unibev_tpu_torch.ops.deform_conv import (
     dcn_fwd, deform_im2col, deform_im2col_backward,
@@ -42,10 +51,12 @@ from unibev_tpu_torch.ops.msda import (cell_interior, ms_deform_attn,
 from unibev_tpu_torch.ops.scatter import (scatter_add_rows,
                                           scatter_add_rows_reference)
 from unibev_tpu_torch.ops.sparse_conv import (
-    SparseGrid, build_table, downsample_with_table, sparse_conv,
-    sparse_conv_reference, sparse_conv_wgrad, sparse_conv_wgrad_reference,
-    sparse_inv_nbr, sparse_inv_nbr_reference, sparse_nbr, sparse_nbr_reference,
-    table_entries)
+    SparseGrid, build_table, build_table_reference, downsample_with_table,
+    downsample_with_table_reference, sparse_conv, sparse_conv_reference,
+    sparse_conv_wgrad, sparse_conv_wgrad_reference, sparse_inv_nbr,
+    sparse_inv_nbr_reference, sparse_nbr, sparse_nbr_reference, table_entries)
+from unibev_tpu_torch.ops.voxelize import (voxelize_and_encode,
+                                           voxelize_and_encode_reference)
 
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
@@ -1106,3 +1117,192 @@ def test_sparse_conv_backward_goes_through_the_kernels(cuda_device, case,
     for a, b in zip(*grads):
         assert a.dtype == dtype
         _close(a, b, rel)
+
+
+def _clustered_cloud(device, clusters=3, per=40, P=3000, seed=0):
+    """As tests/test_torch_voxelize.py::_cloud builds it: P uniform points
+    over a range 20% wider than (-4, -4, -1, 4, 4, 1) (so some fall
+    outside), ``clusters`` dense clusters of ``per`` points each in one
+    0.5 m voxel, and a tenth of the points masked."""
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-1, 1, (P, 5)).astype(np.float32)
+    pts[:, 0:2] *= 4.8
+    pts[:, 2] *= 1.2
+    centres = rng.randint(0, [16, 16, 4], (clusters, 3)) * 0.5 + 0.25 \
+        - np.array([4.0, 4.0, 1.0])
+    for i, c in enumerate(centres):
+        pts[per * i:per * (i + 1), :3] = c + rng.uniform(-0.2, 0.2, (per, 3))
+    mask = rng.rand(P) > 0.1
+    return (torch.from_numpy(pts).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def _check_voxels(got, want):
+    for k in ("coords", "mask", "num_points", "num_voxels", "num_distinct"):
+        g, w = getattr(got, k), getattr(want, k)
+        assert g.dtype == w.dtype and torch.equal(g, w), k
+    assert got.feats.dtype == torch.float32
+    _close(got.feats, want.feats, 1e-6)
+
+
+# name: (clusters, points a cluster, max_voxels, max_points)
+VOXEL_CASES = {
+    "below_cap": (3, 40, 2000, 10),
+    "capped": (3, 40, 300, 10),
+    "capped_3pts": (3, 40, 300, 3),
+    # 60 clusters over the point cap, more voxels than the cap keeps
+    "many_clusters": (60, 25, 200, 10),
+}
+
+
+@pytest.mark.parametrize("case", list(VOXEL_CASES))
+def test_voxelize_kernel_matches_plain(cuda_device, case):
+    clusters, per, max_voxels, max_points = VOXEL_CASES[case]
+    pts, mask = _clustered_cloud(cuda_device, clusters, per)
+    args = ((0.5, 0.5, 0.5), (-4.0, -4.0, -1.0, 4.0, 4.0, 1.0), (16, 16, 4),
+            max_voxels, max_points)
+    before = _build.launches["voxelize"]
+    got = voxelize_and_encode(pts, mask, *args)
+    torch.cuda.synchronize()
+    assert _build.launches["voxelize"] == before + 1
+    want = voxelize_and_encode_reference(pts, mask, *args)
+    _check_voxels(got, want)
+    assert int(want.num_points.max()) == max_points
+    if max_voxels < 2000:
+        assert int(want.num_distinct) > max_voxels == int(want.num_voxels)
+    # and on the CPU, where the plain version sums in input order
+    _check_voxels(voxelize_and_encode_reference(pts.cpu(), mask.cpu(), *args),
+                  type(got)(*(t.cpu() for t in got)))
+
+
+def test_voxelize_kernel_on_the_flagship_cloud(cuda_device):
+    """300k uniform points on the [1440, 1440, 40] grid: 298,949 distinct
+    voxels, 120,000 kept."""
+    pts = synthetic_batch(np.random.RandomState(0),
+                          device=cuda_device)["points"][0]
+    mask = torch.ones(pts.shape[0], dtype=torch.bool, device=cuda_device)
+    args = (VOXEL_SIZE, PC_RANGE, (1440, 1440, 40), 120000, 10)
+    got = voxelize_and_encode(pts, mask, *args)
+    _check_voxels(got, voxelize_and_encode_reference(pts, mask, *args))
+    assert int(got.num_distinct) == 298949 and int(got.num_voxels) == 120000
+
+
+def test_voxelize_kernel_at_the_radar_site(cuda_device):
+    """The RC model's pillars: 2,048 radar points (7 columns) on the 180 x
+    180 x 1 grid, 40,000 pillars of 20 points, 30 points in one pillar."""
+    pts = synthetic_batch(np.random.RandomState(0), device=cuda_device,
+                          R=RADAR_POINTS)["radar"][0].clone()
+    pts[100:130, :2] = 10.3 + 0.2 * torch.rand(
+        30, 2, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    mask = torch.ones(pts.shape[0], dtype=torch.bool, device=cuda_device)
+    args = (RADAR_VOXEL_SIZE, PC_RANGE, (180, 180, 1), 40000, 20)
+    got = voxelize_and_encode(pts, mask, *args)
+    want = voxelize_and_encode_reference(pts, mask, *args)
+    _check_voxels(got, want)
+    assert int(want.num_points.max()) == 20
+
+
+def test_voxelize_refuses_what_the_kernel_does_not_take(cuda_device):
+    pts, mask = _clustered_cloud(cuda_device)
+    args = ((0.5, 0.5, 0.5), (-4.0, -4.0, -1.0, 4.0, 4.0, 1.0), (16, 16, 4),
+            300, 10)
+    with pytest.raises(TypeError):
+        voxelize_and_encode(pts.bfloat16(), mask, *args)
+    with pytest.raises(TypeError):
+        voxelize_and_encode(pts, mask.int(), *args)
+    with pytest.raises(ValueError):
+        voxelize_and_encode(pts.t().contiguous().t(), mask, *args)
+    with pytest.raises(ValueError):
+        voxelize_and_encode(pts, mask.cpu(), *args)
+    with pytest.raises(ValueError):
+        voxelize_and_encode(pts, mask, *args[:2], (2 ** 11, 2 ** 11, 2 ** 9),
+                            300, 10)
+
+
+def _check_table(got, want, live):
+    """Bitmaps and counts equal; the rank -> row maps on the ``live``
+    ranks."""
+    assert got.size == want.size and got.sentinel == want.sentinel
+    assert got.rows.shape == want.rows.shape
+    for k in ("bits", "base"):
+        g, w = getattr(got, k), getattr(want, k)
+        assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w), k
+    assert torch.equal(got.rows[:live], want.rows[:live])
+
+
+@pytest.mark.parametrize("grid_fn", ["word_edge", "sparse"])
+def test_build_table_kernel_matches_plain(cuda_device, grid_fn):
+    grid = (_word_edge_grid if grid_fn == "word_edge" else _sparse_grid)(
+        cuda_device)
+    before = _build.launches["active_set"]
+    got = build_table(grid)
+    torch.cuda.synchronize()
+    assert _build.launches["active_set"] == before + 1
+    live = int(grid.mask.sum())
+    _check_table(got, build_table_reference(grid), live)
+    assert bool((got.rows[live:] == grid.coords.shape[0]).all())
+    assert torch.equal(table_entries(got),
+                       table_entries(build_table_reference(grid)))
+
+
+@pytest.mark.parametrize("capacity", ["saturated", "exact", "roomy"])
+@pytest.mark.parametrize("kernel,stride,padding", STRIDED,
+                         ids=["k3s2p1", "k3s2p011", "conv_out"])
+def test_downsample_kernel_matches_plain(cuda_device, kernel, stride, padding,
+                                         capacity):
+    """On the word-edge active set at B = 2: a capacity of 10 (far below
+    the site count), the site count itself, and 4x the rows."""
+    grid = _word_edge_grid(cuda_device)
+    out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                      zip(grid.shape, padding, kernel, stride))
+    sites = int(downsample_with_table_reference(grid, kernel, stride, padding,
+                                                out_shape, 1)[3]) + 1
+    cap = dict(saturated=10, exact=sites,
+               roomy=4 * grid.coords.shape[0])[capacity]
+    before = _build.launches["active_set"]
+    co, mo, tab, over = downsample_with_table(grid, kernel, stride, padding,
+                                              out_shape, cap)
+    torch.cuda.synchronize()
+    assert _build.launches["active_set"] == before + 1
+    wco, wmo, wtab, wover = downsample_with_table_reference(
+        grid, kernel, stride, padding, out_shape, cap)
+    assert over.dtype == torch.int64 and over.shape == ()
+    assert int(over) == int(wover) == max(sites - cap, 0)
+    assert co.dtype == torch.int32 and torch.equal(co, wco)
+    assert torch.equal(mo, wmo)
+    _check_table(tab, wtab, cap)
+    # the kernels that read the new table read it as they read the plain one
+    args = (cap, out_shape, grid.coords, grid.mask, kernel, stride, padding)
+    assert torch.equal(sparse_inv_nbr(tab, *args), sparse_inv_nbr(wtab, *args))
+
+
+@pytest.mark.parametrize("kernel,stride,padding", STRIDED,
+                         ids=["k3s2p1", "k3s2p011", "conv_out"])
+def test_downsample_kernel_on_a_sparse_grid(cuda_device, kernel, stride,
+                                            padding):
+    """80 live rows of 100 on a (17, 64, 64) grid at B = 2: fewer candidate
+    sites than 4 per output word, where each lane sets its own bits (the
+    dense grids above OR a warp's bits per word first); capacity 60, below
+    the site count."""
+    grid = _sparse_grid(cuda_device, shape=(17, 64, 64), n=80, V=100)
+    out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                      zip(grid.shape, padding, kernel, stride))
+    args = (grid, kernel, stride, padding, out_shape, 60)
+    co, mo, tab, over = downsample_with_table(*args)
+    wco, wmo, wtab, wover = downsample_with_table_reference(*args)
+    assert int(over) == int(wover) > 0
+    assert torch.equal(co, wco) and torch.equal(mo, wmo)
+    _check_table(tab, wtab, 60)
+
+
+def test_active_set_refuses_what_the_kernel_does_not_take(cuda_device):
+    grid = _sparse_grid(cuda_device)
+    with pytest.raises(TypeError):
+        build_table(grid._replace(coords=grid.coords.long()))
+    with pytest.raises(ValueError):
+        build_table(grid._replace(mask=grid.mask.cpu()))
+    with pytest.raises(ValueError):
+        build_table(grid._replace(coords=grid.coords.t().contiguous().t()))
+    with pytest.raises(ValueError):
+        downsample_with_table(grid, (3, 3, 3), (2, 2, 2), (1, 1, 1), (5, 7, 7),
+                              0)

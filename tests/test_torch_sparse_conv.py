@@ -18,7 +18,13 @@
   saturated capacity and the inverse rulebook equal the JAX package's;
 * on the flagship cloud (300k points, 120,000 voxels on [41, 1440, 1440]):
   the four strided convs' overflows, and res 1's sites against a dense
-  OR-pool written here.
+  OR-pool written here;
+* the plain versions of kernel K11, ``build_table_reference`` and
+  ``downsample_with_table_reference`` (what ``build_table`` and
+  ``downsample_with_table`` run on the CPU), called by name on the word-edge
+  active sets at a capacity above every site count (padding rows with -1
+  coords, no overflow): their tables, coords, masks and overflows equal the
+  JAX package's.
 
 Index tables, coords, masks and counts are compared exactly.  Rows are
 shuffled, so the tables do not depend on the active set being sorted.
@@ -39,7 +45,9 @@ from unibev_tpu_torch.flagship import PC_RANGE, VOXEL_SIZE, synthetic_batch
 from unibev_tpu_torch.ops import _build
 from unibev_tpu_torch.ops.voxelize import voxelize_and_encode
 from unibev_tpu_torch.ops.sparse_conv import (SparseGrid, build_table,
+                                              build_table_reference,
                                               downsample_with_table,
+                                              downsample_with_table_reference,
                                               sparse_conv,
                                               sparse_conv_reference,
                                               sparse_nbr, sparse_nbr_reference,
@@ -257,6 +265,36 @@ def test_compact_table_on_word_edges_matches_jax(case):
         inv.numpy(), np.asarray(jsc.inverse_strided_idx(
             jgrid.coords, jgrid.mask, jtab, kernel, stride, padding,
             out_shape, cap)))
+
+
+@pytest.mark.parametrize("case", ["table"] + IDS)
+def test_k11_plain_versions_on_word_edges_match_jax(case):
+    """The plain versions of K11 by name at B = 2 on the word-edge active
+    set: the decoded table, and each strided conv's sites at capacity 1000
+    (above every site count, so the tail rows are padding) with their table
+    and overflow, exact."""
+    jgrid, grid = _word_edge_grid()
+    if case == "table":
+        table = build_table_reference(grid)
+        assert table.sentinel == grid.coords.shape[0] == table.rows.numel()
+        np.testing.assert_array_equal(
+            table_entries(table).numpy(),
+            np.asarray(jsc.table_entries(jsc.build_table(jgrid))))
+        return
+    kernel, stride, padding = STRIDED[IDS.index(case)]
+    out_shape, cap = _out_shape(kernel, stride, padding), 1000
+    jco, jmo, jtab, jover = jsc.downsample_with_table(
+        jgrid.coords, jgrid.mask, kernel, stride, padding, out_shape, cap, B,
+        in_shape=(D, H, W), table_in=jsc.build_table(jgrid))
+    co, mo, tab, over = downsample_with_table_reference(
+        grid, kernel, stride, padding, out_shape, cap)
+    assert over.dtype == torch.int64 and int(over) == int(jover) == 0
+    assert 0 < int(mo.sum()) < cap and bool((co[~mo] == -1).all())
+    assert tab.sentinel == cap == tab.rows.numel()
+    np.testing.assert_array_equal(co.numpy(), np.asarray(jco))
+    np.testing.assert_array_equal(mo.numpy(), np.asarray(jmo))
+    np.testing.assert_array_equal(table_entries(tab).numpy(),
+                                  np.asarray(jsc.table_entries(jtab)))
 
 
 def _or_pool(occ, kernel, stride, padding):

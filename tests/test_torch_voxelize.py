@@ -8,7 +8,14 @@ most ``max_points_per_voxel`` float32 points summed in another order).
 The flagship synthetic batch's cloud is voxelized at full size: its 300k
 uniform points fill 298,949 distinct voxels, far above the 120,000 cap.
 Cells are ``floor((p - x0) * (1 / v))`` with the float32 reciprocal, as XLA
-compiles the JAX op's division.
+compiles the JAX op's division.  On the CPU ``voxelize_and_encode`` is its
+plain version, ``voxelize_and_encode_reference``, which is also held on its
+own: at the RC model's radar parameters (2,048 points on the 180 x 180 x 1
+pillar grid, 40,000 pillars, 20 points, a cluster over the point cap).
+``cell_params``, the float32 origin and reciprocal that kernel K10 takes as
+scalars, must give the plain version's cells on the flagship cloud's
+coordinates next to a cell edge, the 5 that a true division would move
+among them.
 """
 
 import numpy as np
@@ -19,8 +26,10 @@ import jax.numpy as jnp
 from unibev_tpu.flagship import PC_RANGE, VOXEL_SIZE
 from unibev_tpu.ops.voxelize import voxelize_and_encode as jax_voxelize
 
-from unibev_tpu_torch.flagship import synthetic_batch
-from unibev_tpu_torch.ops.voxelize import voxelize_and_encode
+from unibev_tpu_torch.flagship import (RADAR_POINTS, RADAR_VOXEL_SIZE,
+                                       synthetic_batch)
+from unibev_tpu_torch.ops.voxelize import (cell_params, voxelize_and_encode,
+                                           voxelize_and_encode_reference)
 
 VOXEL = (0.5, 0.5, 0.5)
 RANGE = (-4.0, -4.0, -1.0, 4.0, 4.0, 1.0)
@@ -97,3 +106,78 @@ def test_flagship_cloud_fills_the_voxel_cap():
     assert int(got.num_distinct) == 298949 == _distinct(
         pts.numpy(), mask.numpy(), VOXEL_SIZE, PC_RANGE, grid)
     assert int(got.num_voxels) == 120000
+
+
+RADAR_GRID = (180, 180, 1)
+
+
+def _radar_cloud():
+    """The synthetic batch's radar cloud (2,048 points, 7 columns) with 30
+    points in one pillar, over the 20-point cap."""
+    pts = synthetic_batch(np.random.RandomState(0), device="cpu",
+                          R=RADAR_POINTS)["radar"][0].numpy().copy()
+    rng = np.random.RandomState(1)
+    pts[100:130, :2] = np.float32(10.3) + rng.uniform(
+        0, 0.2, (30, 2)).astype(np.float32)
+    return pts, np.ones(pts.shape[0], bool)
+
+
+def test_reference_matches_jax_at_radar_parameters():
+    """The plain version against JAX at the RC model's pillar grid: every
+    point in range, one pillar over the cap, the rest far below both
+    caps."""
+    pts, mask = _radar_cloud()
+    want = jax_voxelize(jnp.asarray(pts), jnp.asarray(mask), RADAR_VOXEL_SIZE,
+                        PC_RANGE, RADAR_GRID, 40000, 20)
+    got = voxelize_and_encode_reference(
+        torch.from_numpy(pts), torch.from_numpy(mask), RADAR_VOXEL_SIZE,
+        PC_RANGE, RADAR_GRID, 40000, 20)
+    _check(got, want)
+    distinct = _distinct(pts, mask, RADAR_VOXEL_SIZE, PC_RANGE, RADAR_GRID)
+    assert int(got.num_voxels) == int(got.num_distinct) == distinct > 1900
+    assert int(got.num_points.max()) == 20
+
+
+def test_cell_params_give_the_plain_cells_on_edge_coordinates():
+    """K10's float32 origin and reciprocal, in the kernel's arithmetic
+    (float32 subtraction, then product), put each of the flagship cloud's
+    points that lie within 1e-3 of a cell edge on some axis in the plain
+    version's cell.  The plain version voxelizes those points with one
+    voxel per cell and no cap, each point carrying its index as a
+    feature: a point in another cell would change a voxel's count or mean."""
+    origin, inv = cell_params(VOXEL_SIZE, PC_RANGE)
+    np.testing.assert_array_equal(
+        np.float32(origin), torch.tensor(PC_RANGE[:3]).numpy())
+    np.testing.assert_array_equal(
+        np.float32(inv), torch.tensor(VOXEL_SIZE).reciprocal().numpy())
+    pts = synthetic_batch(np.random.RandomState(0), device="cpu")["points"][0]
+    pts = pts.numpy()
+    t = (pts[:, :3] - np.float32(origin)) * np.float32(inv)
+    divided = np.floor((pts[:, :3] - np.float32(origin))
+                       / np.asarray(VOXEL_SIZE, np.float32))
+    near = (np.abs(t - np.round(t)) < 1e-3).any(1)
+    moved = (divided != np.floor(t)).any(1)
+    assert moved.sum() == 5 and near[moved].all()
+    edge = pts[near].copy()
+    n = edge.shape[0]
+    edge[:, 3] = np.arange(n, dtype=np.float32)
+    grid = (1440, 1440, 40)
+    got = voxelize_and_encode_reference(
+        torch.from_numpy(edge), torch.ones(n, dtype=torch.bool), VOXEL_SIZE,
+        PC_RANGE, grid, n, n)
+    g = np.floor((edge[:, :3] - np.float32(origin))
+                 * np.float32(inv)).astype(np.int64)
+    ok = np.all((g >= 0) & (g < np.asarray(grid)), axis=1)
+    key = (g[:, 2] * grid[1] + g[:, 1]) * grid[0] + g[:, 0]
+    keys, count = np.unique(key[ok], return_counts=True)
+    sums = np.zeros(keys.size, np.float32)
+    np.add.at(sums, np.searchsorted(keys, key[ok]), edge[ok, 3])
+    v = keys.size
+    assert 1000 < v == int(got.num_voxels)
+    np.testing.assert_array_equal(
+        got.coords[:v].numpy(),
+        np.stack([keys // (grid[0] * grid[1]), keys // grid[0] % grid[1],
+                  keys % grid[0]], 1))
+    np.testing.assert_array_equal(got.num_points[:v].numpy(), count)
+    np.testing.assert_array_equal(got.feats[:v, 3].numpy(),
+                                  sums / count.astype(np.float32))

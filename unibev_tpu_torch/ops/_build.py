@@ -13,13 +13,16 @@ Each C entry point launches on the stream it is given and returns the
 into an exception.
 
 ``launches`` counts kernel launches by kernel name.  The wrappers in
-``ops/msda.py``, ``ops/deform_conv.py``, ``ops/scatter.py`` and
-``ops/sparse_conv.py`` add one where they launch and nowhere else, so a
-caller can show that a run went through the kernels: ``msda_fwd`` (K1),
-``dcn_fwd`` (K2, the fused DCN forward), ``dcn_im2col`` (the columns of the
-DCN backward), ``msda_bwd`` (K3), ``dcn_bwd`` (K4), ``scatter_add_rows``
-(K5), ``sparse_nbr`` (K6), ``sparse_conv`` (K7), ``sparse_inv_nbr`` (K8),
-``sparse_conv_wgrad`` (K9).
+``ops/msda.py``, ``ops/deform_conv.py``, ``ops/scatter.py``,
+``ops/sparse_conv.py`` and ``ops/voxelize.py`` add one where they launch
+and nowhere else, so a caller can show that a run went through the
+kernels: ``msda_fwd`` (K1), ``dcn_fwd`` (K2, the fused DCN forward),
+``dcn_im2col`` (the columns of the DCN backward), ``msda_bwd`` (K3),
+``dcn_bwd`` (K4), ``scatter_add_rows`` (K5), ``sparse_nbr`` (K6),
+``sparse_conv`` (K7), ``sparse_inv_nbr`` (K8), ``sparse_conv_wgrad`` (K9),
+``voxelize`` (K10, one cloud a call) and ``active_set`` (K11, one compact
+table a call).  A C entry point may launch several ``__global__``
+functions (K10, K11): it counts once.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # name -> argument types of the C entry point
 _SIGNATURES = {
     # value, loc, attn, out, B, V, Q, heads, D, L, P, shapes, dtype, vec,
@@ -85,6 +89,17 @@ _SIGNATURES = {
     # smem_bytes, stream
     "unibev_sparse_conv_wgrad": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _P),
+    # points, mask, P, F, x0, y0, z0, ix, iy, iz, X, Y, Z, max_voxels,
+    # max_points, feats, coords, vmask, num_points, num_voxels,
+    # num_distinct, work, padded, work_words, stream
+    "unibev_voxelize": (_P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I,
+                        _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P),
+    # coords, mask, V, batch, D, H, W, mode, kz, ky, kx, sz, sy, sx, pz, py,
+    # px, Do, Ho, Wo, capacity, rows, coords_out, mask_out, overflow, work,
+    # padded, work_words, stream
+    "unibev_active_set": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _L, _L, _P),
 }
 
 launches: Counter = Counter()
@@ -180,6 +195,19 @@ def group_lanes(chunks: int) -> int:
     while lanes < chunks and lanes < 32:
         lanes *= 2
     return lanes
+
+
+# words of one scan tile of an occupancy bitmap (kTileWords of
+# csrc/bitmap.cuh): K10 and K11 zero and scan their bitmaps in whole tiles
+BITMAP_TILE_WORDS = 2048
+
+
+def bitmap_words(cells: int):
+    """(words, padded) of an occupancy bitmap of ``cells`` cells: 32 cells a
+    word, and the words rounded up to whole scan tiles, the length at which
+    K10 and K11 allocate, zero and scan it."""
+    words = -(-cells // 32)
+    return words, -(-words // BITMAP_TILE_WORDS) * BITMAP_TILE_WORDS
 
 
 # the H100's L2 cache, against which the backwards' f32 tables are sized

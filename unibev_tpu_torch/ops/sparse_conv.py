@@ -22,12 +22,14 @@ compact one to that view, for tests.
   x-pair / x-quad route of ``best_gather_conv`` compute, without writing the
   (V, K * Cin) columns.  The port drops those TPU gather-engine packings and
   the fp8 tables.
-* The active set of a strided conv (``downsample_with_table``): every output
-  site whose window covers a live row, in ascending flat order, the first
-  ``capacity`` kept, found from the rows' candidate sites (the JAX
-  ``downsample_active_set``), never from a pass over the input grid.  Which
-  rows exist after a saturated downsample depends on that order, so it is
-  exact, not approximate.
+* The tables and active sets, kernel K11 (``csrc/active_set.cu::
+  unibev_active_set``, one call a table): ``build_table``, the compact table
+  of an active set, and ``downsample_with_table``, the active set of a
+  strided conv: every output site whose window covers a live row, in
+  ascending flat order, the first ``capacity`` kept, found from the rows'
+  candidate sites (the JAX ``downsample_active_set``), never from a pass
+  over the input grid, with its table.  Which rows exist after a saturated
+  downsample depends on that order, so it is exact, not approximate.
 
 * The backward (``SparseConvFn``), the JAX package's scatter-free VJPs
   (``_subm_gc_bwd``, ``_strided_xp_bwd``): d_feats is K7 again, over the
@@ -44,7 +46,8 @@ compact one to that view, for tests.
   float32 sums, float32 out; bf16 on the tensor cores over spans of rows,
   :func:`wgrad_plan` its launch plan.
 
-CPU tensors take the plain versions (``sparse_nbr_reference``,
+CPU tensors take the plain versions (``build_table_reference``,
+``downsample_with_table_reference``, ``sparse_nbr_reference``,
 ``sparse_conv_reference``, ``sparse_inv_nbr_reference``,
 ``sparse_conv_wgrad_reference``); CUDA tensors launch the kernels or raise.
 """
@@ -122,12 +125,12 @@ def _grid_tables(shape: Triple, device: torch.device):
             torch.tensor([2 ** 62, D, H, W], device=device))
 
 
-def build_table(grid: SparseGrid) -> CompactTable:
-    """The compact table of an active set (sentinel V, the row capacity):
-    one sort of the live rows' flat cells gives the rank -> row map, and
-    the bits and each word's count come from the rows; nothing passes over
-    the grid's cells.  The live rows' cells are distinct, as the voxelizer
-    gives them."""
+def build_table_reference(grid: SparseGrid) -> CompactTable:
+    """Plain version of K11's table: the compact table of an active set
+    (sentinel V, the row capacity).  One sort of the live rows' flat cells
+    gives the rank -> row map, and the bits and each word's count come from
+    the rows; nothing passes over the grid's cells.  The live rows' cells
+    are distinct, as the voxelizer gives them."""
     D, H, W = grid.shape
     V = grid.coords.shape[0]
     size = grid.batch * D * H * W
@@ -309,13 +312,14 @@ def _ranks(capacity: int, device: torch.device) -> torch.Tensor:
     return torch.arange(capacity, dtype=torch.int32, device=device)
 
 
-def downsample_with_table(grid: SparseGrid, kernel: Triple, stride: Triple,
-                          padding: Triple, out_shape: Triple, capacity: int):
-    """spconv's output sites of a strided conv: every site whose window
-    covers an active input cell, in ascending flat order, the first
-    ``capacity`` kept.  What the JAX ``downsample_with_table`` computes with
-    an OR-pool of the dense occupancy, from the rows (its
-    ``downsample_active_set``):
+def downsample_with_table_reference(grid: SparseGrid, kernel: Triple,
+                                    stride: Triple, padding: Triple,
+                                    out_shape: Triple, capacity: int):
+    """Plain version of K11's active set: spconv's output sites of a strided
+    conv, every site whose window covers an active input cell, in ascending
+    flat order, the first ``capacity`` kept.  What the JAX
+    ``downsample_with_table`` computes with an OR-pool of the dense
+    occupancy, from the rows (its ``downsample_active_set``):
 
     * each live row names the at most ceil(k / s) sites per axis whose
       window holds it (8 candidates for k3 s2, 2 for (3, 1, 1) s(2, 1, 1)),
@@ -368,6 +372,83 @@ def downsample_with_table(grid: SparseGrid, kernel: Triple, stride: Triple,
     table = CompactTable(packed.view(torch.int32), before[::4].contiguous(),
                          ranks, size, capacity)
     return coords, mask_out, table, (total - capacity).clamp(min=0).long()
+
+
+def _active_set(grid: SparseGrid, mode: int, kernel: Triple, stride: Triple,
+                padding: Triple, out_shape: Triple, capacity: int):
+    """Kernel K11 on CUDA: (table, coords_out, mask_out, overflow) of
+    ``build_table`` (mode 0; the three last None) or of
+    ``downsample_with_table`` (mode 1)."""
+    name = ("build_table", "downsample_with_table")[mode]
+    coords, mask = grid.coords, grid.mask
+    _on_current_cuda_device(name, (coords, mask))
+    V = coords.shape[0]
+    if coords.shape != (V, 4) or mask.shape != (V,):
+        raise ValueError(f"{name}: coords (V, 4) and mask (V,), got "
+                         f"{tuple(coords.shape)} and {tuple(mask.shape)}")
+    if coords.dtype != torch.int32 or mask.dtype != torch.bool:
+        raise TypeError(f"{name}: coords int32 and mask bool, got "
+                        f"{coords.dtype} and {mask.dtype}")
+    if not (coords.is_contiguous() and mask.is_contiguous()):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    size = grid.batch * out_shape[0] * out_shape[1] * out_shape[2]
+    if mode == 1 and capacity < 1:
+        raise ValueError(f"{name}: capacity must be at least 1, got {capacity}")
+    if max(size // 32, V, capacity) >= 2 ** 31:
+        raise ValueError(f"{name}: the kernel's int32 words, rows and ranks "
+                         f"take fewer than 2^31 of each")
+    dev = coords.device
+    words, padded = _build.bitmap_words(size)
+    work_words = 2 * padded + padded // _build.BITMAP_TILE_WORDS + 1
+    work = torch.empty((work_words,), dtype=torch.int32, device=dev)
+    n_rows = V if mode == 0 else capacity
+    rows = torch.empty((n_rows,), dtype=torch.int32, device=dev)
+    out = (None, None, None)
+    if mode == 1:
+        out = (torch.empty((capacity, 4), dtype=torch.int32, device=dev),
+               torch.empty((capacity,), dtype=torch.bool, device=dev),
+               torch.empty((), dtype=torch.int64, device=dev))
+    ptrs = [0 if t is None else t.data_ptr() for t in out]
+    err = _build.lib().unibev_active_set(
+        coords.data_ptr(), mask.data_ptr(), V, grid.batch, *grid.shape, mode,
+        *kernel, *stride, *padding, *out_shape, capacity, rows.data_ptr(),
+        *ptrs, work.data_ptr(), padded, work_words,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    _build.launches["active_set"] += 1
+    table = CompactTable(work[:words], work[padded:padded + words], rows, size,
+                         n_rows)
+    return (table, *out)
+
+
+def build_table(grid: SparseGrid) -> CompactTable:
+    """The compact table of an active set (sentinel V, the row capacity).
+    CPU tensors take the plain version, CUDA tensors kernel K11: a bit per
+    live row's cell, a scan of the words' counts, and each row written at
+    its cell's rank; the map's entries past the live rows read V.  On CUDA
+    the coords are int32, the mask bool, both contiguous."""
+    if grid.coords.device.type == "cpu":
+        return build_table_reference(grid)
+    return _active_set(grid, 0, (1, 1, 1), (1, 1, 1), (0, 0, 0),
+                       tuple(grid.shape), 0)[0]
+
+
+def downsample_with_table(grid: SparseGrid, kernel: Triple, stride: Triple,
+                          padding: Triple, out_shape: Triple, capacity: int):
+    """The active set of a strided conv and its table, as
+    :func:`downsample_with_table_reference` returns them: (coords_out
+    (capacity, 4) int32, mask_out, table_out (sentinel ``capacity``),
+    overflow (0-dim int64)).  CPU tensors take the plain version, CUDA
+    tensors kernel K11: each live row sets the bits of its candidate sites,
+    a scan of the words' counts ranks them, and a warp per group of words
+    writes their sites' coords below the capacity."""
+    if grid.coords.device.type == "cpu":
+        return downsample_with_table_reference(grid, kernel, stride, padding,
+                                               out_shape, capacity)
+    table, coords, mask, overflow = _active_set(
+        grid, 1, tuple(kernel), tuple(stride), tuple(padding),
+        tuple(out_shape), capacity)
+    return coords, mask, table, overflow
 
 
 def sparse_conv_reference(feats: torch.Tensor, nidx: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Hard voxelization with the mean voxel feature encoder, in plain PyTorch.
+"""Hard voxelization with the mean voxel feature encoder: kernel K10
+(``csrc/voxelize.cu``) and its plain PyTorch version.
 
 Counterpart of ``unibev_tpu/ops/voxelize.py::voxelize_and_encode`` (an XLA
 op of the JAX package, not a Pallas kernel): a stable sort by voxel key and a
@@ -16,15 +17,24 @@ segment sum.  The semantics are the JAX op's, to the bit where it matters:
   deviation from the reference's first-seen order);
 * the feature of a voxel is the float32 mean of its kept points.
 
-Whether the voxelizer deserves a kernel is left to the card's profile
-(``chip_smoke.py``).
+CPU tensors take the plain version (``voxelize_and_encode_reference``: a
+stable sort, scans and ``index_add_``, ~20 launches on a card); CUDA
+tensors launch K10 or raise.  K10 ranks the voxels over an occupancy bitmap
+of the grid instead of sorting the points, keeps each voxel's first points
+by input index with an ``atomicMin`` cascade, and gets the cell arithmetic's
+float32 origin and reciprocal as scalar arguments (``cell_params``), so a
+call copies nothing from the host and synchronizes nothing.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from unibev_tpu_torch.ops import _build
 
 
 class VoxelizationResult(NamedTuple):
@@ -36,12 +46,16 @@ class VoxelizationResult(NamedTuple):
     num_distinct: torch.Tensor  # () int64 occupied voxels before the cap
 
 
-def voxelize_and_encode(points: torch.Tensor, points_mask: torch.Tensor,
-                        voxel_size: Sequence[float], pc_range: Sequence[float],
-                        grid_size: Tuple[int, int, int], max_voxels: int,
-                        max_points_per_voxel: int = 10) -> VoxelizationResult:
-    """Voxelize one padded cloud: points (P, F) float32 (x, y, z first),
-    points_mask (P,) bool; grid_size (X, Y, Z)."""
+def voxelize_and_encode_reference(points: torch.Tensor,
+                                  points_mask: torch.Tensor,
+                                  voxel_size: Sequence[float],
+                                  pc_range: Sequence[float],
+                                  grid_size: Tuple[int, int, int],
+                                  max_voxels: int,
+                                  max_points_per_voxel: int = 10
+                                  ) -> VoxelizationResult:
+    """Plain version of K10: voxelize one padded cloud, points (P, F)
+    float32 (x, y, z first), points_mask (P,) bool; grid_size (X, Y, Z)."""
     P, F = points.shape
     X, Y, Z = grid_size
     dev = points.device
@@ -84,3 +98,73 @@ def voxelize_and_encode(points: torch.Tensor, points_mask: torch.Tensor,
         num_voxels=mask.sum().to(torch.int32),
         num_points=counts.to(torch.int32),
         num_distinct=first.sum())
+
+
+@functools.lru_cache(maxsize=None)
+def cell_params(voxel_size: Tuple[float, float, float],
+                pc_range: Tuple[float, ...]):
+    """K10's cell arithmetic as Python floats that are exactly float32: the
+    origin ``(x0, y0, z0)`` and the reciprocal ``1 / v`` of each voxel size,
+    both rounded to float32 as the plain version's tensors hold them (the
+    reciprocal of the float32 size, correctly rounded)."""
+    origin = np.asarray(pc_range[:3], np.float32)
+    inv = np.float32(1) / np.asarray(voxel_size, np.float32)
+    return tuple(map(float, origin)), tuple(map(float, inv))
+
+
+def voxelize_and_encode(points: torch.Tensor, points_mask: torch.Tensor,
+                        voxel_size: Sequence[float], pc_range: Sequence[float],
+                        grid_size: Tuple[int, int, int], max_voxels: int,
+                        max_points_per_voxel: int = 10) -> VoxelizationResult:
+    """Voxelize one padded cloud: points (P, F) float32 (x, y, z first),
+    points_mask (P,) bool; grid_size (X, Y, Z).  CPU tensors take the plain
+    version, CUDA tensors kernel K10 (float32 points, both contiguous)."""
+    if points.device.type == "cpu":
+        return voxelize_and_encode_reference(
+            points, points_mask, voxel_size, pc_range, grid_size, max_voxels,
+            max_points_per_voxel)
+    P, F = points.shape
+    X, Y, Z = grid_size
+    M, K = max_voxels, max_points_per_voxel
+    dev = points.device
+    if dev.type != "cuda" or points_mask.device != dev \
+            or dev.index != torch.cuda.current_device():
+        raise ValueError("voxelize_and_encode: the points and their mask "
+                         "must lie on the current CUDA device")
+    if points.dtype != torch.float32 or points_mask.dtype != torch.bool:
+        raise TypeError(f"voxelize_and_encode: float32 points and a bool "
+                        f"mask, got {points.dtype} and {points_mask.dtype}")
+    if F < 3 or points_mask.shape != (P,) or M < 1 or K < 1:
+        raise ValueError(f"voxelize_and_encode: points (P, F >= 3), mask "
+                         f"(P,), max_voxels and max_points >= 1; got "
+                         f"{tuple(points.shape)}, {tuple(points_mask.shape)},"
+                         f" {M}, {K}")
+    if not (points.is_contiguous() and points_mask.is_contiguous()):
+        raise ValueError("voxelize_and_encode: the kernel takes contiguous "
+                         "points and mask")
+    if X * Y * Z >= 2 ** 31 or P >= 2 ** 31 or M * F >= 2 ** 31:
+        raise ValueError(f"voxelize_and_encode: the kernel's int32 keys and "
+                         f"rows take fewer than 2^31 cells, points and "
+                         f"features; got grid {grid_size}, {P} points")
+    origin, inv = cell_params(tuple(voxel_size), tuple(pc_range))
+    _, padded = _build.bitmap_words(X * Y * Z)
+    work_words = (2 * padded + padded // _build.BITMAP_TILE_WORDS + 1 + P
+                  + min(M, P) * K)
+    work = torch.empty((work_words,), dtype=torch.int32, device=dev)
+    feats = torch.empty((M, F), dtype=torch.float32, device=dev)
+    coords = torch.empty((M, 3), dtype=torch.int32, device=dev)
+    mask = torch.empty((M,), dtype=torch.bool, device=dev)
+    num_points = torch.empty((M,), dtype=torch.int32, device=dev)
+    num_voxels = torch.empty((), dtype=torch.int32, device=dev)
+    num_distinct = torch.empty((), dtype=torch.int64, device=dev)
+    err = _build.lib().unibev_voxelize(
+        points.data_ptr(), points_mask.data_ptr(), P, F, *origin, *inv, X, Y,
+        Z, M, K, feats.data_ptr(), coords.data_ptr(), mask.data_ptr(),
+        num_points.data_ptr(), num_voxels.data_ptr(), num_distinct.data_ptr(),
+        work.data_ptr(), padded, work_words,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "voxelize")
+    _build.launches["voxelize"] += 1
+    return VoxelizationResult(feats=feats, coords=coords, mask=mask,
+                              num_voxels=num_voxels, num_points=num_points,
+                              num_distinct=num_distinct)

@@ -7,10 +7,11 @@ CUDA card.
 Voxelizes chip_smoke.py's flagship cloud (300k points, 120,000 voxels on
 [41, 1440, 1440]) and profiles the tables of one SparseEncoder forward
 (``chip_smoke.py::_tables_of_a_forward``: ``build_table`` at res 0 and the
-four ``downsample_with_table`` calls) after three warm-up runs.  Prints
-their device time in all, the 30 kernels that take the most of it with
-their launches, and the host's time in ``cudaLaunchKernel``; exits non-zero
-without a CUDA device.
+four ``downsample_with_table`` calls, one call of kernel K11 each, which
+launches six ``__global__`` functions) after three warm-up runs.  Prints
+their device time in all, the K11 calls counted by ``_build.launches``,
+the 30 kernels that take the most of the time with their launches, and the
+host's time in ``cudaLaunchKernel``; exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (CAPACITIES, PC_RANGE, SPARSE_SHAPE,  # noqa: E402
                         VOXEL_GRID, VOXEL_SIZE, _tables_of_a_forward)
 from unibev_tpu_torch.flagship import synthetic_batch  # noqa: E402
+from unibev_tpu_torch.ops import _build  # noqa: E402
 from unibev_tpu_torch.ops.sparse_conv import SparseGrid  # noqa: E402
 from unibev_tpu_torch.ops.voxelize import voxelize_and_encode  # noqa: E402
 
@@ -48,9 +50,11 @@ def main() -> int:
     for _ in range(3):
         _tables_of_a_forward(grid)
     torch.cuda.synchronize()
+    calls = _build.launches["active_set"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _tables_of_a_forward(grid)
         torch.cuda.synchronize()
+    calls = _build.launches["active_set"] - calls
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
                       and e.self_device_time_total > 0),
@@ -58,9 +62,10 @@ def main() -> int:
     total = sum(e.self_device_time_total for e in kernels) / 1000
     launch = sum(e.self_cpu_time_total for e in events
                  if e.key == "cudaLaunchKernel") / 1000
-    print(f"{torch.cuda.get_device_name(0)}: the tables of one forward, device "
-          f"{total:.4f} ms in {sum(e.count for e in kernels)} kernels; host "
-          f"{launch:.4f} ms in cudaLaunchKernel")
+    print(f"{torch.cuda.get_device_name(0)}: the tables of one forward, "
+          f"{calls} K11 calls, device {total:.4f} ms in "
+          f"{sum(e.count for e in kernels)} kernels; host {launch:.4f} ms in "
+          f"cudaLaunchKernel")
     for e in kernels[:30]:
         print(f"  {e.self_device_time_total / 1000:8.4f} ms {e.count:4d}  "
               f"{e.key[:120]}")
