@@ -11,8 +11,8 @@ then, each phase printing one line (or a few) and raising on any failure:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
      kernel build time, and what ``nvcc -Xptxas -v`` reports for K1, K2
-     (dcn_fwd), the im2col, K3, K4, K6, K7, K8, K9, K10 and K11 (registers,
-     static shared memory, stack, spills);
+     (dcn_fwd), the im2col, K3, K4, K6, K7, K8, K9, K10, K11 and K12
+     (registers, static shared memory, stack, spills);
   2. kernel K1 (MSDA) against its plain PyTorch version at the five
      flagship call shapes, in f32 (TF32 off) and bf16, with both times,
      their ratio and the access width each site takes;
@@ -38,7 +38,10 @@ then, each phase printing one line (or a few) and raising on any failure:
      sample (median of 10
      synchronized iterations after 3 warm-ups), peak memory, SCA overflow,
      finite boxes;
-  6. a torch.profiler breakdown of one forward by kernel;
+  6. a torch.profiler breakdown of one forward by kernel (every profile
+     phase drains the card, opens its trace with spin kernels that absorb
+     the kernels the profiler drops at a session's start, and holds each
+     hand kernel's traced launches to its ``_build.launches`` count);
   7. the backward kernels against their plain versions (autograd through
      the plain forwards) at the flagship call sites, f32 (TF32 off) and
      bf16, with both times and each site's launch plan: K3 msda_bwd and K4
@@ -107,6 +110,24 @@ then, each phase printing one line (or a few) and raising on any failure:
      steps, frozen parameters bit-identical, LiDAR running statistics
      moved;
  19. a torch.profiler breakdown of one LC train step by kernel;
+ 19b. the sync check on phase 18's model: one ``head.loss`` (the
+     assignment on K12 included) under ``torch.cuda.set_sync_debug_mode(
+     "error")``, so that any call that makes the host wait for the card
+     fails the run (launches: 1 K12); one whole LC train step under
+     "warn", printing its synchronizing calls and where each comes from
+     (none may come from the loss); one ``val_step``, the val workflow's
+     loss (launches: phase 13's and 1 K12);
+ 19c. kernel K12 (lsa, the head's Hungarian assignment) against its plain
+     version, col4row equal, on (a) the problems of the loss of a forward
+     of phase 18's model (L x B = 6 problems of 64 gt rows, 40 valid, x
+     900 queries), (b) 6 x 140 x 900 with 0, 1, 35, 139 and 140 valid
+     rows and one mask with holes, (c) integer costs in [0, 8), full of
+     ties; each problem's total cost against scipy's optimum (relative
+     1e-6); K12's time (CUDA events and the profiler's device time), the
+     plain version's, the host route the assigner took before K12 (the
+     costs copied to the host, scipy per problem, the result copied back;
+     host clock), the bound, and each problem's Dijkstra steps (the plain
+     version's count) with the device time a step of the longest chain;
  20. K1 and K3 against their plain versions at the cat_128 config's sites
      with 8 heads of D = 16 channels (both encoders' TSA, the dense camera
      SCA over all 6 x 40,000 queries, the LiDAR SCA), f32 (TF32 off) and
@@ -187,17 +208,19 @@ then, each phase printing one line (or a few) and raising on any failure:
 
 Each kernel's entry in the line before the last gives its launches on the
 path it serves (K1, K2, K6, K7, K10, K11: one LC predict; the im2col, K3,
-K4, K8, K9: one LC train step; K5: one RC predict), its time summed over
+K4, K8, K9, K12: one LC train step; K5: one RC predict), its time summed over
 that path's call sites (CUDA events; K5 at the radar pillar scatter, phase
 27; K1 and K3 also ``d16_*``, summed over cat_128's D = 16 launches; K10
-also ``radar_*``, its launch a forward at the radar site), its plain
+also ``radar_*``, its launch a forward at the radar site; K12 on the
+loss's problems, phase 19c's case a), its plain
 version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes each call must move over 3.35 TB/s
 and its operations over 989 TFLOP/s, the H100 SXM's HBM3 and dense bf16
-peaks, counting the rulebook entries this run's data holds), and the time
+peaks, K12's float32 compares and adds over 67 TFLOP/s, counting the
+rulebook entries and Dijkstra steps this run's data holds), and the time
 of one PyTorch call computing the same function where there is one
-(``library_ms``, K5's float32 ``index_add_`` at the radar site; the port
-never calls it).
+(``library_ms``, K5's float32 ``index_add_`` at the radar site; K12's is
+the scipy route on the host, phase 19c; the port calls neither).
 The last line is {"ok": true, "device": {...}}.  The numbers also go to
 chip_smoke.json in the output directory beside this script.  Exits non-zero
 without a CUDA device or when any phase fails.
@@ -213,6 +236,9 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
+import warnings
+from collections import Counter
 
 import numpy as np
 import torch
@@ -284,6 +310,9 @@ K8_BEFORE_MS = {"down0": 0.0380, "down1": 0.0414, "down2": 0.0398,
 # name and power limit are printed beside every number.
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+# the H100 SXM's float32 peak outside the tensor cores: K12's compares and
+# adds
+FP32_OPS_PER_S = 67e12
 # A second floor of the im2col, printed beside its bound and not part of
 # it: its four corner reads per column vector from L2 at ~7 TB/s, an
 # estimate of the H100's L2 read rate (NVIDIA publishes none)
@@ -371,11 +400,13 @@ def device_ms(fn, iters):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prime_trace()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1000 / iters
+               if e.device_type == DeviceType.CUDA
+               and PRIMER_KERNEL not in e.key) / 1000 / iters
 
 
 def new_rec():
@@ -385,12 +416,13 @@ def new_rec():
                 bytes_ms=0.0, ops_ms=0.0, sites={})
 
 
-def add_site(rec, site, calls, ms, plain, err, nbytes, ops, **extra):
+def add_site(rec, site, calls, ms, plain, err, nbytes, ops,
+             ops_per_s=BF16_OPS_PER_S, **extra):
     """Add one call site (``calls`` launches per path, ``ms`` / ``plain``
-    per call) with its bytes and operations to ``rec``; returns the site's
-    least time per call in ms."""
+    per call) with its bytes and operations (at ``ops_per_s``) to ``rec``;
+    returns the site's least time per call in ms."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     bound = max(bytes_ms, ops_ms)
     rec["sites"][site] = dict(ms=ms, plain_ms=plain, calls=calls, err=err,
                               bytes=nbytes, ops=ops, bound_ms=bound, **extra)
@@ -425,7 +457,7 @@ def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "dcn_im2col", "msda_bwd",
                           "tile_counts", "scan_tile_sums", "tile_bases",
                           "mark_points", "slot_points", "emit_voxels",
                           "mark_rows", "mark_sites", "build_rows",
-                          "emit_sites")):
+                          "emit_sites", "lsa_kernel")):
     """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
     entry functions whose names hold one of ``kernels``: one dict each."""
     log = _build.BUILD_DIR / "nvcc.log"
@@ -918,12 +950,13 @@ def expected_train_launches(lidar=False, radar=False):
     conv, K9 once per conv.  The RC model (``radar``) adds the LiDAR
     encoder's MSDA sites and one K5, the pillar scatter's forward (its
     backward is a gather, no kernel).  Both add K10 once per sample, and
-    LC K11 once per table: the forward's, which the backward reuses."""
+    LC K11 once per table: the forward's, which the backward reuses.  Every
+    step's loss assigns all its decoder layers' problems in one K12 call."""
     sites = MSDA_SITES + (LIDAR_MSDA_SITES if lidar or radar else [])
     msda = sum(s[1] for s in sites)
     dcn = sum(s[1] for s in DCN_SITES)
     out = dict(msda_fwd=msda, msda_bwd=msda, dcn_fwd=2 * dcn, dcn_im2col=dcn,
-               dcn_bwd=dcn)
+               dcn_bwd=dcn, lsa=1)
     if lidar or radar:
         out["voxelize"] = BATCH
     if lidar:
@@ -990,7 +1023,7 @@ def phase_tiny_train(lidar=False, radar=False):
         metrics.append(train_step(model, opt, sched, b))
         torch.cuda.synchronize()
     launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
-    need = {"msda_bwd", "dcn_bwd"}
+    need = {"msda_bwd", "dcn_bwd", "lsa"}
     if lidar:
         need |= {"sparse_nbr", "sparse_conv", "sparse_inv_nbr",
                  "sparse_conv_wgrad", "active_set"}
@@ -1671,6 +1704,8 @@ def phase_flagship_l(model, batch, iters=10):
 
 def _category(kernel_name):
     n = kernel_name.lower()
+    if "lsa_kernel" in n:
+        return "K12 lsa"
     if "msda_fwd" in n:
         return "K1 msda_fwd"
     if "dcn_fwd" in n:
@@ -1716,24 +1751,109 @@ def _category(kernel_name):
 WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
 
+# The __global__ functions each hand kernel's C entry point launches a fixed
+# number of times a call (alternative name fragments, count): the profile
+# phases hold the traced kernels to _build.launches.  K10 fills two buffers
+# (its bitmap and its point slots); K11 marks rows or sites and then builds
+# rows or emits sites.
+PROFILED_PER_CALL = {
+    "msda_fwd": ((("msda_fwd_kernel",), 1),),
+    "dcn_fwd": ((("dcn_fwd_kernel",), 1),),
+    "dcn_im2col": ((("dcn_im2col_kernel",), 1),),
+    "msda_bwd": ((("msda_bwd_kernel",), 1),),
+    "dcn_bwd": ((("dcn_bwd_kernel",), 1),),
+    "scatter_add_rows": ((("scatter_add_rows_kernel",), 1),),
+    "sparse_nbr": ((("sparse_nbr_kernel",), 1),),
+    "sparse_conv": ((("sparse_conv_kernel",), 1),),
+    "sparse_inv_nbr": ((("sparse_inv_nbr_kernel",), 1),),
+    "sparse_conv_wgrad": ((("sparse_wgrad",), 1),),
+    "voxelize": ((("fill_words<10>",), 2), (("mark_points",), 1),
+                 (("tile_counts<10>",), 1), (("scan_tile_sums<10>",), 1),
+                 (("tile_bases<10>",), 1), (("slot_points",), 1),
+                 (("emit_voxels",), 1)),
+    "active_set": ((("fill_words<11>",), 1), (("mark_rows", "mark_sites"), 1),
+                   (("tile_counts<11>",), 1), (("scan_tile_sums<11>",), 1),
+                   (("tile_bases<11>",), 1),
+                   (("build_rows", "emit_sites"), 1)),
+    "lsa": ((("lsa_kernel",), 1),),
+}
 
-def _profile(run, wall_ms):
-    """Device time by kernel category of one traced ``run``, its idle share
-    against ``wall_ms``, and the host's time in the traced run: its wall
-    less the time the host spent in WAIT_CALLS (tracing adds to it)."""
-    from torch.autograd import DeviceType
+# In a long-lived process the profiler dropped the first device kernels of
+# a session: a trace that began with the voxelizer showed 2, then 5, then
+# none of K10's 8 kernels as the run went on (phases 15, 22 and 29), with
+# the card drained and the host idle 50 ms after the start, and device_ms
+# lost ~20% of 20 K12 calls late in the run; a fresh process, even after
+# 300 sessions, kept them all (unibev_tpu_torch/tools/trace_window.py).  So
+# every trace opens with TRACE_PRIMERS spin kernels (torch.cuda._sleep's
+# PRIMER_KERNEL), which no reading counts, and the profile phases print how
+# many were kept.
+TRACE_PRIMERS = 256
+PRIMER_KERNEL = "spin_kernel"
+# the profiles whose traced hand kernels differ from _build.launches: the
+# run goes on and fails at its end
+TRACE_FAULTS = []
+
+
+def raise_trace_faults():
+    if TRACE_FAULTS:
+        raise AssertionError(f"{len(TRACE_FAULTS)} profiles traced other hand "
+                             f"kernel counts than they launched (traced, "
+                             f"expected): {TRACE_FAULTS}")
+
+
+def prime_trace(n=TRACE_PRIMERS):
+    """Open a trace with ``n`` short spin kernels."""
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+
+
+def _traced(run, primers=TRACE_PRIMERS):
+    """(profiler, host ms of ``run`` and its synchronize): ``run`` traced on
+    the CPU and the card, the card drained first, the run's kernels queued
+    behind ``primers`` spin kernels."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_trace(primers)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1000
+    return prof, traced_ms
+
+
+def profiled_counts(events, launched):
+    """{kernel: (traced __global__ launches, expected)} of every hand kernel
+    in ``launched`` ({kernel: _build.launches in the traced run}), from the
+    profiler's device ``events``, by PROFILED_PER_CALL."""
+    out = {}
+    for key, calls in launched.items():
+        for names, per in PROFILED_PER_CALL[key]:
+            got = sum(e.count for e in events
+                      if any(f in e.key for f in names))
+            out[f"{key} {'|'.join(names)}"] = (got, per * calls)
+    return out
+
+
+def _profile(run, wall_ms):
+    """Device time by kernel category of one traced ``run``, its idle share
+    against ``wall_ms``, and the host's time in the traced run: its wall
+    less the time the host spent in WAIT_CALLS (tracing adds to it).  Each
+    hand kernel's traced launches must equal its _build.launches count."""
+    from torch.autograd import DeviceType
+    before = dict(_build.launches)
+    prof, traced_ms = _traced(run)
+    launched = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                if v != before.get(k, 0)}
     # kernels only: the optimizer's record_function range ("Optimizer.step#
     # AdamW.step") also shows as a device event and would count its kernels
     # twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-              and not e.key.startswith("Optimizer.")]
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    primers = sum(e.count for e in device if PRIMER_KERNEL in e.key)
+    events = [e for e in device if e.self_device_time_total > 0
+              and not e.key.startswith("Optimizer.")
+              and PRIMER_KERNEL not in e.key]
     if not events:
         raise AssertionError("the profiler recorded no device kernels")
     events.sort(key=lambda e: -e.self_device_time_total)
@@ -1749,14 +1869,29 @@ def _profile(run, wall_ms):
           f"idle share {idle:.3f}", flush=True)
     waits = [e for e in prof.key_averages() if e.key in WAIT_CALLS]
     wait_ms = sum(e.self_cpu_time_total for e in waits) / 1000
+    # cudaMemcpyAsync is also every copy on the card, which waits for nothing
+    by_call = {e.key: e.count for e in waits}
     print(f"  host: traced run {traced_ms:.3f} ms, of which {wait_ms:.3f} ms "
-          f"in {sum(e.count for e in waits)} waiting calls; host time "
-          f"{traced_ms - wait_ms:.3f} ms", flush=True)
+          f"in {sum(e.count for e in waits)} waiting calls {by_call}; host "
+          f"time {traced_ms - wait_ms:.3f} ms", flush=True)
+    counts = profiled_counts(events, launched)
+    wrong = {k: v for k, v in counts.items() if v[0] != v[1]}
+    print(f"  hand kernels traced / launched: "
+          f"{ {k: v[0] for k, v in counts.items()} }"
+          + (f"; DIFFER: {wrong}" if wrong else ", all equal")
+          + f"; primers traced {primers} of {TRACE_PRIMERS}", flush=True)
+    if wrong:
+        TRACE_FAULTS.append(wrong)
     top = [dict(name=e.key[:120], calls=e.count,
                 device_ms=e.self_device_time_total / 1000) for e in events[:30]]
     return dict(device_ms_total=total_ms, idle_share=idle, by_category=by_cat,
                 traced_ms=traced_ms, wait_ms=wait_ms,
-                host_ms=traced_ms - wait_ms, top=top)
+                host_ms=traced_ms - wait_ms, top=top,
+                waiting_calls=sum(e.count for e in waits),
+                waiting_calls_by_call=by_call,
+                launches=launched,
+                traced_launches={k: v[0] for k, v in counts.items()},
+                primers_traced=primers)
 
 
 def phase_profile(model, batch, wall_ms):
@@ -1784,6 +1919,239 @@ def phase_profile_train(model, opt, sched, batch, gen, wall_ms, lidar=False):
                                        for c in cats)
     print(f"  K3 + K4 + K5: {rec['sampling_backwards_ms']:.3f} ms of device "
           f"time", flush=True)
+    return rec
+
+
+def _since(before):
+    """{kernel: launches} counted since the snapshot ``before``."""
+    return {k: v - before.get(k, 0) for k, v in _build.launches.items()
+            if v != before.get(k, 0)}
+
+
+def _gt(batch):
+    return batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"]
+
+
+def phase_sync_check(model, opt, sched, batch, gen):
+    """Phase 19b on phase 18's model: the loss under the error mode of
+    torch.cuda.set_sync_debug_mode, a whole step under its warn mode, and
+    one val_step's launches."""
+    from unibev_tpu_torch.parallel.train_state import (compute_autocast,
+                                                       val_step)
+    print("phase 19b: the sync check on phase 18's model: one head.loss (the "
+          "assignment on K12) with every synchronizing CUDA call an error, "
+          "one LC train step with each one a warning, one val_step",
+          flush=True)
+    head = model.pts_bbox_head
+    with compute_autocast(model):
+        preds = model(batch, gen)
+    torch.cuda.synchronize()
+    before = dict(_build.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with compute_autocast(model):
+            losses = head.loss(preds, *_gt(batch))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    loss_launches = _since(before)
+    finite = all(bool(torch.isfinite(v).all()) for v in losses.values())
+    print(f"  head.loss under 'error': no synchronizing call; launches "
+          f"{loss_launches}; {len(losses)} finite losses {finite}", flush=True)
+    if loss_launches != {"lsa": 1} or not finite:
+        raise AssertionError(f"head.loss: launches {loss_launches}, finite "
+                             f"{finite}")
+    del preds, losses
+
+    package = os.path.join(ROOT, "unibev_tpu_torch") + os.sep
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        """Where a synchronizing call came from: the call itself and the
+        innermost frame of the port's package above it."""
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(package)]
+        via = (f"{os.path.relpath(ours[-1].filename, ROOT)}:{ours[-1].lineno}"
+               if ours else "-")
+        where = (os.path.relpath(filename, ROOT)
+                 if filename.startswith(ROOT) else filename)
+        sites.append((f"{where}:{lineno}", via, str(message)[:80]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            train_step(model, opt, sched, batch, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [s for s in sites if "synchroniz" in s[2]]
+    print(f"  one LC train step under 'warn': {len(syncs)} synchronizing "
+          f"calls", flush=True)
+    for (where, via, _), n in Counter(syncs).most_common():
+        print(f"    {n} x {where} (the port's frame: {via})", flush=True)
+    assigning = [s for s in syncs
+                 if "core/bbox" in s[1] or "heads/unibev_head" in s[1]]
+    if assigning:
+        raise AssertionError(f"the step's loss synchronized: {assigning}")
+
+    before = dict(_build.launches)
+    val = val_step(model, batch)
+    torch.cuda.synchronize()
+    val_launches = _since(before)
+    want = dict(expected_predict_launches(), lsa=1)
+    print(f"  val_step: loss {float(val['loss']):.4f}; launches "
+          f"{val_launches} (expected phase 13's and 1 lsa: {want})",
+          flush=True)
+    if CHECK_LAUNCHES and val_launches != want:
+        raise AssertionError(f"val_step launches {val_launches} != {want}")
+    return dict(loss_launches=loss_launches, step_syncs=len(syncs),
+                step_sync_sites=[dict(where=w, via=v, calls=n)
+                                 for (w, v, _), n in Counter(syncs).items()],
+                val_launches=val_launches)
+
+
+# K12's cases beside the loss's (phase 19c): 6 problems of 140 gt rows (the
+# data path's max_gt) x 900 queries, valid counts 0, 1, 35, 139 and 140
+# (packed) and one mask with holes; float costs, or integers in [0, 8)
+LSA_COUNTS = (0, 1, 35, 139, 140)
+LSA_G, LSA_Q = 140, 900
+
+
+def lsa_cases(head, preds, batch):
+    """{case: (cost (P, G, Q) float32, valid (P, G) bool)} on the card: (a)
+    the problems of ``head.loss`` on ``preds`` (its L * B problems), (b)
+    and (c) the synthetic ones above."""
+    cls, bbox = preds["all_cls_scores"], preds["all_bbox_preds"]
+    L, B, Q = cls.shape[:3]
+
+    def rep(x):
+        return x[None].expand(L, *x.shape).reshape(L * B, *x.shape[1:])
+
+    gt_b, gt_l, gt_valid = _gt(batch)
+    cases = {"a loss": (head.assigner.costs(
+        bbox.float().reshape(L * B, Q, -1), cls.float().reshape(L * B, Q, -1),
+        rep(gt_b.float()), rep(gt_l.long())),
+        rep(gt_valid).bool().contiguous())}
+    rng = np.random.RandomState(0)
+    valid = np.zeros((len(LSA_COUNTS) + 1, LSA_G), bool)
+    for p, n in enumerate(LSA_COUNTS):
+        valid[p, :n] = True
+    valid[-1] = rng.rand(LSA_G) < 0.3
+    shape = (len(valid), LSA_G, LSA_Q)
+    for name, cost in (("b 140 rows", rng.rand(*shape) * 4),
+                       ("c integer ties", rng.randint(0, 8, shape))):
+        cases[name] = (torch.tensor(cost, dtype=torch.float32, device="cuda"),
+                       torch.tensor(valid, device="cuda"))
+    return cases
+
+
+def _scipy_route(cost, valid):
+    """The assignment as the assigner solved it before K12: the (P, Q, G)
+    costs copied to the host, scipy on each problem's valid columns, gt_inds
+    and the positive mask copied back."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+    c = cost.cpu().numpy()
+    v = valid.cpu().numpy()
+    gt_inds = np.zeros(c.shape[:2], np.int64)
+    pos = np.zeros(c.shape[:2], bool)
+    for i in range(c.shape[0]):
+        rows = np.flatnonzero(v[i])
+        if rows.size:
+            r, q = scipy_lsa(c[i][:, rows].T)
+            gt_inds[i, q] = rows[r]
+            pos[i, q] = True
+    return (torch.from_numpy(gt_inds).to(cost.device),
+            torch.from_numpy(pos).to(cost.device))
+
+
+def phase_lsa(model, batch, gen):
+    """Phase 19c: K12 against its plain version on the loss's problems and
+    on cases (b) and (c)."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+    from unibev_tpu_torch.core.bbox.lsa import (linear_sum_assignment,
+                                                solve_with_steps)
+    from unibev_tpu_torch.parallel.train_state import compute_autocast
+    print("phase 19c: kernel K12 lsa vs its plain version (col4row equal), "
+          "on the loss of phase 18's model (L x B = 6 problems, 64 gt rows of "
+          "which 40 valid, 900 queries), on 6 x 140 x 900 with 0, 1, 35, 139, "
+          "140 valid rows and one mask with holes, and on integer costs in "
+          "[0, 8)", flush=True)
+    with torch.no_grad(), compute_autocast(model):
+        preds = model(batch, gen)
+    cases = lsa_cases(model.pts_bbox_head, preds, batch)
+    del preds
+    rec, out = new_rec(), {}
+    for name, (cost, valid) in cases.items():
+        P, G, Q = cost.shape
+        got = linear_sum_assignment(cost, valid)
+        want, steps = solve_with_steps(cost, valid)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        # the optimum, independently of both versions (ties leave the
+        # assignment itself free)
+        c, v = cost.cpu().double().numpy(), valid.cpu().numpy()
+        g = got.cpu().numpy()
+        worst = 0.0
+        for p in range(P):
+            rows = np.flatnonzero(v[p])
+            if rows.size == 0:
+                continue
+            cols = g[p, rows]
+            if (cols < 0).any() or len(set(cols.tolist())) != rows.size:
+                raise AssertionError(f"K12 {name}: problem {p} assigns "
+                                     f"columns {cols}")
+            r, q = scipy_lsa(c[p][rows])
+            best = c[p][rows[r], q].sum()
+            worst = max(worst, abs(c[p][rows, cols].sum() - best)
+                        / max(abs(best), 1e-30))
+        kernel_ms = cuda_ms(lambda: linear_sum_assignment(cost, valid), 50)
+        kernel_dev = device_ms(lambda: linear_sum_assignment(cost, valid), 20)
+        plain_ms = cuda_ms(lambda: solve_with_steps(cost, valid), 1)
+        cost_qg = cost.transpose(1, 2).contiguous()
+        _scipy_route(cost_qg, valid)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _scipy_route(cost_qg, valid)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1000)
+        scipy_ms = float(np.median(times))
+        rows = int(valid.sum())
+        # the valid rows' costs, the mask, col4row; a few compares and adds
+        # per column and Dijkstra step
+        nbytes = rows * Q * 4 + P * G + P * G * 4
+        ops = 4 * Q * int(steps.sum())
+        longest = int(steps.max())
+        site = dict(ms=kernel_ms, device_ms=kernel_dev, plain_ms=plain_ms,
+                    library_ms=scipy_ms, differ=differ, cost_rel_err=worst,
+                    valid_rows=rows, steps=steps.tolist(),
+                    longest_chain=longest,
+                    device_ms_per_step=kernel_dev / max(longest, 1))
+        if name.startswith("a"):
+            bound = add_site(rec, name, 1, kernel_ms, plain_ms, 0.0, nbytes,
+                             ops, ops_per_s=FP32_OPS_PER_S,
+                             **{k: v for k, v in site.items()
+                                if k not in ("ms", "plain_ms")})
+            rec.update(device_ms=kernel_dev, library_ms=scipy_ms)
+        else:
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+            site["bound_ms"] = bound
+        out[name] = site
+        print(f"  {name}: {P} x {G} x {Q}, {rows} valid rows: col4row "
+              f"differs in {differ}; total cost against scipy's optimum "
+              f"{worst:.1e}; K12 {kernel_ms:.4f} ms (device {kernel_dev:.4f}),"
+              f" plain {plain_ms:.2f} ms, the scipy route on the host "
+              f"{scipy_ms:.3f} ms, bound {bound:.5f} ms (bytes); Dijkstra "
+              f"steps per problem {steps.tolist()}: "
+              f"{site['device_ms_per_step'] * 1e3:.3f} us of device a step of "
+              f"the longest chain", flush=True)
+        if differ or not worst <= 1e-6:
+            raise AssertionError(f"K12 {name}: col4row differs in {differ}, "
+                                 f"total cost off by {worst}")
+    rec["cases"] = out
     return rec
 
 
@@ -1890,7 +2258,7 @@ def phase_tiny_variants():
             losses.append(out)
         torch.cuda.synchronize()
         launched = {k for k, v in _build.launches.items() if v > before.get(k, 0)}
-        if not forward | backward <= launched:
+        if not forward | backward | {"lsa"} <= launched:
             raise AssertionError(f"{variant} step on CUDA launched only {launched}")
         grads = {n: p.grad for n, p in models[0].named_parameters()
                  if p.grad is not None}
@@ -2609,6 +2977,7 @@ def radar_dp_only(gen):
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_radar_dp.json"),
               "w") as f:
         json.dump(rec, f, indent=1, default=str)
+    raise_trace_faults()
     return 0
 
 
@@ -2695,6 +3064,8 @@ def main(argv):
                                         1000 * lc_train["s_per_step"],
                                         lidar=True)
     lc_steps = lc_train["launches"]
+    sync = phase_sync_check(model, opt, sched, batch, tgen)
+    k12 = phase_lsa(model, batch, tgen)
     del model, opt, sched, batch, tgen
     torch.cuda.empty_cache()
     msda_d16, msda_bwd_d16 = phase_msda_d16(gen)
@@ -2747,13 +3118,16 @@ def main(argv):
         kernel_entry("active_set", "unibev_tpu_torch/csrc/active_set.cu",
                      "unibev_tpu/ops/sparse_conv.py:154",
                      lc["launches"]["active_set"], k11),
+        kernel_entry("lsa", "unibev_tpu_torch/csrc/lsa.cu",
+                     "unibev_tpu/core/bbox/lsa.py:31", lc_steps["lsa"], k12,
+                     library_ms=k12["library_ms"]),
     ]
     # K10 also carries the RC model's radar site (phase 27), one launch a
     # forward there
     radar_vox = radar["k5"]["voxelizer"]
-    kernels[-2]["max_abs_err"] = max(kernels[-2]["max_abs_err"],
+    kernels[-3]["max_abs_err"] = max(kernels[-3]["max_abs_err"],
                                      radar_vox["max_abs_err"])
-    kernels[-2].update(radar_launches=radar["rc"]["RC"]["launches"]["voxelize"],
+    kernels[-3].update(radar_launches=radar["rc"]["RC"]["launches"]["voxelize"],
                        radar_ms=radar_vox["ms"],
                        radar_plain_ms=radar_vox["plain_ms"],
                        radar_bound_ms=radar_vox["bound_ms"])
@@ -2763,6 +3137,7 @@ def main(argv):
         entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
         entry.update(d16_ms=rec["ms"], d16_plain_ms=rec["plain_ms"],
                      d16_bound_ms=rec["bound_ms"])
+    raise_trace_faults()
     device = dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                   count=torch.cuda.device_count())
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2781,6 +3156,7 @@ def main(argv):
                        sparse_inv_nbr=k8, sparse_conv_wgrad=k9,
                        sparse_conv_bwd=k7_bwd, tiny_lc_train=tiny_lc_train,
                        lc_train=lc_train, profile_lc_train=prof_lc_train,
+                       sync_check=sync, lsa=k12,
                        msda_d16=msda_d16, msda_bwd_d16=msda_bwd_d16,
                        tiny_variants=tiny_variants, configs=configs,
                        cat_train=cat_train, train_cli=train_cli,

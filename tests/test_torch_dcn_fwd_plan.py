@@ -206,12 +206,12 @@ PATHS = {
                        sparse_conv=21)),
     "C train step": (chip_smoke.expected_train_launches(),
                      dict(msda_fwd=12, dcn_fwd=52, dcn_im2col=26, msda_bwd=12,
-                          dcn_bwd=26)),
+                          dcn_bwd=26, lsa=1)),
     "LC train step": (chip_smoke.expected_train_launches(lidar=True),
                       dict(msda_fwd=18, dcn_fwd=52, dcn_im2col=26, msda_bwd=18,
                            dcn_bwd=26, voxelize=1, active_set=5, sparse_nbr=8,
                            sparse_conv=41, sparse_inv_nbr=4,
-                           sparse_conv_wgrad=21)),
+                           sparse_conv_wgrad=21, lsa=1)),
 }
 
 

@@ -28,6 +28,9 @@ plain version's atomics on the card); the compact-table kernel K11 its
 plain versions' bitmaps, counts, coords, masks and overflows exactly, and
 the rank -> row map on the live ranks (the plain build_table orders its
 padding rows with an unstable sort; no lookup reads past the live ranks).
+The assignment kernel K12 must give its plain version's col4row exactly
+(the same float32 arithmetic in the same order, ties to the lowest
+column).
 """
 
 import numpy as np
@@ -35,6 +38,8 @@ import pytest
 import torch
 
 from torch_port_utils import cuda_device  # noqa: F401
+from unibev_tpu_torch.core.bbox.lsa import (linear_sum_assignment,
+                                            linear_sum_assignment_plain)
 from unibev_tpu_torch.flagship import (PC_RANGE, RADAR_POINTS,
                                        RADAR_VOXEL_SIZE, VOXEL_SIZE,
                                        synthetic_batch)
@@ -1306,3 +1311,60 @@ def test_active_set_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         downsample_with_table(grid, (3, 3, 3), (2, 2, 2), (1, 1, 1), (5, 7, 7),
                               0)
+
+
+def _lsa_case(kind, device):
+    """6 problems of 140 gt rows (the data path's max_gt) x 900 queries,
+    valid counts 0, 1, 35, 139, 140 (packed) and one mask with holes; float
+    costs, or integers in [0, 8), full of ties."""
+    rng = np.random.RandomState(0)
+    valid = np.zeros((6, 140), bool)
+    for p, n in enumerate((0, 1, 35, 139, 140)):
+        valid[p, :n] = True
+    valid[5] = rng.rand(140) < 0.3
+    cost = (rng.rand(6, 140, 900) * 4 if kind == "float"
+            else rng.randint(0, 8, (6, 140, 900)))
+    return (torch.tensor(cost, dtype=torch.float32, device=device),
+            torch.tensor(valid, device=device))
+
+
+@pytest.mark.parametrize("kind", ["float", "int"])
+def test_lsa_kernel_matches_plain(cuda_device, kind):
+    """K12's col4row equals the plain version's exactly (same float32
+    arithmetic in the same order, ties to the lowest column)."""
+    cost, valid = _lsa_case(kind, cuda_device)
+    before = dict(_build.launches)
+    got = linear_sum_assignment(cost, valid)
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {"lsa": 1}
+    want = linear_sum_assignment_plain(cost.cpu(), valid.cpu())
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_lsa_kernel_on_small_problems(cuda_device):
+    """One and two columns a thread, a problem of one cell, rows = columns."""
+    rng = np.random.RandomState(1)
+    for R, C in ((1, 1), (5, 5), (24, 300), (64, 512)):
+        cost = torch.tensor(rng.randint(0, 4, (3, R, C)), dtype=torch.float32)
+        valid = torch.tensor(rng.rand(3, R) < 0.8)
+        got = linear_sum_assignment(cost.to(cuda_device), valid.to(cuda_device))
+        assert torch.equal(got.cpu(), linear_sum_assignment_plain(cost, valid))
+
+
+def test_lsa_refuses_what_the_kernel_does_not_take(cuda_device):
+    cost, valid = _lsa_case("int", cuda_device)
+    with pytest.raises(TypeError):
+        linear_sum_assignment(cost.double(), valid)
+    with pytest.raises(TypeError):
+        linear_sum_assignment(cost, valid.int())
+    with pytest.raises(ValueError):
+        linear_sum_assignment(cost.transpose(1, 2), valid)
+    with pytest.raises(ValueError):
+        linear_sum_assignment(cost[:, :, ::2], valid)
+    with pytest.raises(ValueError):
+        linear_sum_assignment(torch.zeros(1, 2, 4096, device=cuda_device),
+                              torch.ones(1, 2, dtype=torch.bool,
+                                         device=cuda_device))
+    with pytest.raises(ValueError):
+        linear_sum_assignment(cost, valid.cpu())

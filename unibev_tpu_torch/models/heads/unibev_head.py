@@ -17,6 +17,7 @@ neither package computes; a nonzero weight raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -34,6 +35,14 @@ from unibev_tpu_torch.registry import HEADS
 
 
 CODE_SIZE = 10    # (cx, cy, log w, log l, cz, log h, sin, cos, vx, vy)
+
+
+@functools.lru_cache(maxsize=None)
+def _code_weights(weights: tuple, device: torch.device) -> torch.Tensor:
+    """The L1 loss's weights per box dimension on ``device``, made once: a
+    tensor made from a list on a card is a blocking copy, which waits for
+    the card to drain its stream (the loss would stall every step)."""
+    return torch.tensor(weights, dtype=torch.float32, device=device)
 
 
 def cls_branch(dims: int, num_classes: int) -> nn.Sequential:
@@ -155,8 +164,9 @@ class UniBEVHead(nn.Module):
              gt_labels: torch.Tensor, gt_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
         """gt_bboxes (B, G, 9); gt_labels (B, G); gt_valid (B, G) bool.
 
-        Every decoder layer is assigned at once (L * B problems, one host
-        transfer).  The average factor is the layer's matched count over the
+        Every decoder layer is assigned at once (L * B problems, one call of
+        the solver, K12 on the card; nothing is read back to the host).  The
+        average factor is the layer's matched count over the
         batch, clamped at 1; under a process group, over the global batch
         (summed over the ranks, as the JAX mesh's global batch has it), so
         that the ranks' losses sum to the global batch's and every rank must
@@ -188,8 +198,7 @@ class UniBEVHead(nn.Module):
                                       gamma=self.focal_gamma)
         cls_losses = self.cls_weight * cls_loss.reshape(L, -1).sum(1) / total_pos
 
-        cw = torch.tensor(self.code_weights, dtype=torch.float32,
-                          device=flat_bbox.device)
+        cw = _code_weights(self.code_weights, flat_bbox.device)
         # the reference's isnotnan guard (nuScenes velocities can be NaN);
         # the guarded targets are zeroed first so that no NaN reaches the
         # gradient either

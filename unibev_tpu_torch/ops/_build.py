@@ -14,15 +14,17 @@ into an exception.
 
 ``launches`` counts kernel launches by kernel name.  The wrappers in
 ``ops/msda.py``, ``ops/deform_conv.py``, ``ops/scatter.py``,
-``ops/sparse_conv.py`` and ``ops/voxelize.py`` add one where they launch
-and nowhere else, so a caller can show that a run went through the
-kernels: ``msda_fwd`` (K1), ``dcn_fwd`` (K2, the fused DCN forward),
-``dcn_im2col`` (the columns of the DCN backward), ``msda_bwd`` (K3),
-``dcn_bwd`` (K4), ``scatter_add_rows`` (K5), ``sparse_nbr`` (K6),
-``sparse_conv`` (K7), ``sparse_inv_nbr`` (K8), ``sparse_conv_wgrad`` (K9),
-``voxelize`` (K10, one cloud a call) and ``active_set`` (K11, one compact
-table a call).  A C entry point may launch several ``__global__``
-functions (K10, K11): it counts once.
+``ops/sparse_conv.py``, ``ops/voxelize.py`` and ``core/bbox/lsa.py`` add
+one where they launch and nowhere else, so a caller can show that a run
+went through the kernels: ``msda_fwd`` (K1), ``dcn_fwd`` (K2, the fused
+DCN forward), ``dcn_im2col`` (the columns of the DCN backward),
+``msda_bwd`` (K3), ``dcn_bwd`` (K4), ``scatter_add_rows`` (K5),
+``sparse_nbr`` (K6), ``sparse_conv`` (K7), ``sparse_inv_nbr`` (K8),
+``sparse_conv_wgrad`` (K9), ``voxelize`` (K10, one cloud a call),
+``active_set`` (K11, one compact table a call) and ``lsa`` (K12, the
+head's Hungarian assignment: every problem of a loss in one call, one
+block each).  A C entry point may
+launch several ``__global__`` functions (K10, K11): it counts once.
 """
 
 from __future__ import annotations
@@ -100,6 +102,8 @@ _SIGNATURES = {
     "unibev_active_set": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _L, _L, _P),
+    # cost, valid, col4row, P, R, C, stream
+    "unibev_lsa": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 launches: Counter = Counter()
