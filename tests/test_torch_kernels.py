@@ -1313,6 +1313,155 @@ def test_active_set_refuses_what_the_kernel_does_not_take(cuda_device):
                               0)
 
 
+def _cells_grid(device, cells, shape, B=1, V=None, seed=0):
+    """The rows of the given flat cells (distinct) on the (B, *shape) grid,
+    shuffled, in V rows (padding after the live ones)."""
+    D, H, W = shape
+    cells = torch.as_tensor(cells, dtype=torch.int64)
+    V = cells.numel() if V is None else V
+    coords = torch.stack([cells // (D * H * W), (cells // (H * W)) % D,
+                          (cells // W) % H, cells % W], 1).int()
+    coords = torch.cat([coords, torch.full((V - cells.numel(), 4), -1,
+                                           dtype=torch.int32)])
+    g = torch.Generator().manual_seed(seed)
+    coords = coords[torch.randperm(V, generator=g)].contiguous().to(device)
+    return SparseGrid(coords, coords[:, 0] >= 0, shape, B)
+
+
+def _random_cells(n, cells, seed=0):
+    """n distinct cells of ``cells``."""
+    g = torch.Generator().manual_seed(seed)
+    if cells <= 2 ** 22:
+        return torch.randperm(cells, generator=g)[:n]
+    return torch.unique(torch.randint(0, cells, (2 * n,), generator=g))[:n]
+
+
+# The single-pass scan at its edges, through build_table's bitmap: name ->
+# ((D, H, W), batch, the live cells).  8192 words (262,144 cells) a tile.
+SCAN_CASES = {
+    # 128 words, the bitmap padded to one tile
+    "one_tile": ((4, 32, 32), 1, lambda n: _random_cells(1500, n)),
+    # 12,288 words: two tiles, the second half empty
+    "two_tiles": ((3, 256, 512), 1, lambda n: _random_cells(60000, n)),
+    # the flagship res-0 grid: 2,656,800 words, 325 tiles (up to 11 steps
+    # of look-back)
+    "flagship_tiles": ((41, 1440, 1440), 1,
+                       lambda n: _random_cells(120000, n)),
+    # every set bit in the last of three tiles
+    "last_tile": ((3, 512, 512), 1,
+                  lambda n: 2 * 262144 + _random_cells(100000, 262144)),
+    # every cell set: 262,144 set bits a tile, bases up to 524,288
+    "all_ones": ((2, 512, 512), 1, lambda n: torch.arange(n)),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_single_pass_scan_at_its_edges(cuda_device, case):
+    """K11's table (the scan's per-word base, one launch) bit for bit
+    against the plain version's, and the map on the live ranks."""
+    shape, B, live = SCAN_CASES[case]
+    cells = live(B * shape[0] * shape[1] * shape[2])
+    grid = _cells_grid(cuda_device, cells, shape, B, V=cells.numel() + 7)
+    got, want = build_table(grid), build_table_reference(grid)
+    torch.cuda.synchronize()
+    _check_table(got, want, cells.numel())
+    last = int(want.bits[-1]) & 0xffffffff
+    assert int(want.base[-1]) + bin(last).count("1") == cells.numel()
+
+
+@pytest.mark.parametrize("kernel,stride,padding", STRIDED,
+                         ids=["k3s2p1", "k3s2p011", "conv_out"])
+def test_downsample_kernel_on_a_grid_of_several_tiles(cuda_device, kernel,
+                                                      stride, padding):
+    """K11's active set where the output bitmap is several scan tiles (B =
+    2 of (33, 200, 200): 2 at k3 s2, 5 at conv_out), the capacity half the
+    site count."""
+    grid = _sparse_grid(cuda_device, shape=(33, 200, 200), n=20000, V=21000)
+    out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                      zip(grid.shape, padding, kernel, stride))
+    sites = int(downsample_with_table_reference(grid, kernel, stride, padding,
+                                                out_shape, 1)[3]) + 1
+    args = (grid, kernel, stride, padding, out_shape, sites // 2)
+    co, mo, tab, over = downsample_with_table(*args)
+    wco, wmo, wtab, wover = downsample_with_table_reference(*args)
+    assert int(over) == int(wover) == sites - sites // 2
+    assert torch.equal(co, wco) and torch.equal(mo, wmo)
+    _check_table(tab, wtab, sites // 2)
+
+
+GRAPH_SHAPE = (41, 128, 128)      # 671,744 cells: 3 scan tiles
+GRAPH_CAPACITIES = (3000, 2000, 1500, 1000)
+
+
+def _graph_chain(points, mask):
+    """The encoder's K10 and K11 calls on one cloud: the voxels, the res-0
+    table and the four strided convs' active sets and tables."""
+    vox = voxelize_and_encode(points, mask, (0.1, 0.1, 0.2),
+                              (-6.4, -6.4, -4.0, 6.4, 6.4, 4.2),
+                              (128, 128, 41), 4000, 10)
+    zero = torch.zeros_like(vox.coords[:, :1])
+    coords = torch.where(vox.mask[:, None], torch.cat([zero, vox.coords], 1),
+                         -1).contiguous()
+    grid = SparseGrid(coords, vox.mask, GRAPH_SHAPE, 1)
+    out = [vox, build_table(grid)]
+    convs = [((3, 3, 3), (2, 2, 2), p, c) for p, c in
+             zip(((1, 1, 1), (1, 1, 1), (0, 1, 1)), GRAPH_CAPACITIES[1:])]
+    convs.append(((3, 1, 1), (2, 1, 1), (0, 0, 0), GRAPH_CAPACITIES[-1]))
+    for kernel, stride, padding, capacity in convs:
+        out_shape = tuple((s + 2 * p - k) // st + 1 for s, p, k, st in
+                          zip(grid.shape, padding, kernel, stride))
+        co, mo, tab, over = downsample_with_table(grid, kernel, stride,
+                                                  padding, out_shape, capacity)
+        out.append((co, mo, tab, over))
+        grid = SparseGrid(co, mo, out_shape, 1)
+    return out
+
+
+def _graph_cloud(seed, P=5000):
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-1, 1, (P, 5)).astype(np.float32)
+    pts[:, :2] *= 6.4
+    pts[:, 2] = pts[:, 2] * 4.0 + 0.1
+    return torch.from_numpy(pts), torch.from_numpy(rng.rand(P) > 0.05)
+
+
+def _check_chain(got, points, mask):
+    want = _graph_chain(points, mask)       # CPU: the plain versions
+    _check_voxels(type(want[0])(*(t.cpu() for t in got[0])), want[0])
+    _check_table(type(want[1])(*(t.cpu() if torch.is_tensor(t) else t
+                                 for t in got[1])), want[1],
+                 int(want[0].mask.sum()))
+    for (co, mo, tab, over), (wco, wmo, wtab, wover), cap in zip(
+            got[2:], want[2:], GRAPH_CAPACITIES[1:] + GRAPH_CAPACITIES[-1:]):
+        assert torch.equal(co.cpu(), wco) and torch.equal(mo.cpu(), wmo)
+        assert int(over) == int(wover)
+        _check_table(type(wtab)(*(t.cpu() if torch.is_tensor(t) else t
+                                  for t in tab)), wtab, cap)
+
+
+def test_k10_k11_replay_in_a_cuda_graph(cuda_device):
+    """K10 and the five K11 calls of a forward captured in one CUDA graph
+    after a warm-up, then replayed twice on new clouds copied into the
+    captured inputs: each replay equals the plain versions, so every call
+    resets its bitmap, scan state and slots inside the stream."""
+    points, mask = (t.to(cuda_device) for t in _graph_cloud(0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _graph_chain(points, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = _graph_chain(points, mask)
+    for seed in (1, 2):
+        new_points, new_mask = _graph_cloud(seed)
+        points.copy_(new_points)
+        mask.copy_(new_mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        _check_chain(got, new_points, new_mask)
+
+
 def _lsa_case(kind, device):
     """6 problems of 140 gt rows (the data path's max_gt) x 900 queries,
     valid counts 0, 1, 35, 139, 140 (packed) and one mask with holes; float

@@ -14,27 +14,37 @@
 // over the flat cells ((b * D + z) * H + y) * W + x, the set bits before
 // each word (bitmap.cuh), and the row of each rank, which K6 and K8 read.
 //
-// One C entry point a call and six launches: the bitmap's fill, mark, the
-// three of the bitmap scan, and a mode's last launch.  No sort, no search, no
-// host synchronization.
-//   * mode 0, build_table: a thread per live row sets its own cell's bit;
-//     after the scan a thread per row writes rows[rank(cell)] = v (the
-//     rank comes from the bitmap: the live rows' cells are distinct, as the
-//     voxelizer gives them) and, for v at or past the live count, rows[v]
-//     = V, the sentinel: entries a lookup never reads, since it tests the
-//     bit first.
-//   * mode 1, downsample: a thread per live row sets the bits of the at
-//     most ceil(k / s) sites per axis whose window holds it (8 for k3 s2, 2
-//     for conv_out's (3, 1, 1) s(2, 1, 1)); after the scan a warp per group
-//     of at most 32 output words writes the coords of their set cells at
-//     ranks base[w] + j below the capacity, and a thread per rank below the
-//     capacity writes mask_out = rank < total, rows = the rank (the map is
-//     the identity: a site past the capacity reads the sentinel), and -1
-//     coords past the total; thread 0 writes overflow = max(total -
-//     capacity, 0).
-// What bounds it: the bitmap, 10.6 MB at res 0 (B = 1) and 1.4 MB at res 1,
-// zeroed and scanned in L2, and the launches' latency: the rows, coords and
-// maps are a few MB.
+// One C entry point a call, no sort, no search, no host synchronization.
+// The stages, one launch each:
+//   * fill: zeroes the bitmap and the scan state;
+//   * mark, mode 0 (build_table): a thread per live row sets its own
+//     cell's bit; mode 1 (downsample): a thread per live row sets the bits
+//     of the at most ceil(k / s) sites per axis whose window holds it (8
+//     for k3 s2, 2 for conv_out's (3, 1, 1) s(2, 1, 1));
+//   * scan: the single-pass scan of bitmap.cuh, the set bits before each
+//     word (the table's base);
+//   * mode 0: a thread per row writes rows[rank(cell)] = v (the rank comes
+//     from the bitmap: the live rows' cells are distinct, as the voxelizer
+//     gives them) and, for v at or past the live count, rows[v] = V, the
+//     sentinel: entries a lookup never reads, since it tests the bit first;
+//     mode 1: a warp per group of at most 32 output words writes the coords
+//     of their set cells at ranks base[w] + j below the capacity, and a
+//     thread per rank below the capacity writes mask_out = rank < total,
+//     rows = the rank (the map is the identity: a site past the capacity
+//     reads the sentinel), and -1 coords past the total; thread 0 writes
+//     overflow = max(total - capacity, 0).
+// What bounds it: bytes in L2 and launches.  The bitmap, 10.6 MB at res 0
+// (B = 1) and 1.4 MB at res 1, is zeroed, scanned and its base written;
+// the rows, coords and maps are a few MB.  At res 2, res 3 and conv_out
+// the output bitmap is 6, 1 and 1 scan tiles, so each stage is about a
+// launch's latency.  So a call is four launches, one scan launch among
+// them.  One cooperative launch running a downsample's stages with
+// grid-wide barriers between them was slower at every site, conv_out's
+// too (PERF.md section 6).
+//
+// The launch plan is ops/sparse_conv.py::active_set_plan, handed over as
+// an array of int64 in the order of ActiveSetPlan below; the entry point
+// refuses a plan whose layout or launch sizes disagree with its own.
 
 #include <cstdint>
 
@@ -44,6 +54,32 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSites = 4;   // sites per axis that may hold one input cell
+
+// the fields of a plan, in ops/sparse_conv.py::ActiveSetPlan's order
+enum ActiveSetPlan {
+  kRowsIn, kBatch, kD, kH, kW, kMode, kKz, kKy, kKx, kSz, kSy, kSx, kPz,
+  kPy, kPx, kDo, kHo, kWo, kCapacity, kWords, kPadded, kTiles, kAggregate,
+  kGroup, kStateOffset, kBaseOffset, kRowsOffset, kCoordsOffset,
+  kOverflowOffset, kMaskOffset, kWorkWords, kZeroVectors, kFillBlocks,
+  kRowBlocks, kEmitBlocks, kPlanFields
+};
+
+// everything a stage reads or writes
+struct ActiveSet {
+  const int* coords;
+  const bool* mask;
+  int V, D, H, W;
+  int kz, ky, kx, sz, sy, sx, pz, py, px;
+  int Do, Ho, Wo, capacity, group;
+  long long words;
+  unsigned* bits;
+  int* base;
+  ScanState st;
+  int* rows;
+  int4* coords_out;
+  bool* mask_out;
+  long long* overflow;
+};
 
 __device__ __forceinline__ long long flat_cell(long long b, long long z,
                                                long long y, long long x,
@@ -66,13 +102,11 @@ __device__ __forceinline__ int axis_sites(int i, int k, int s, int p, int n,
   return m;
 }
 
-__global__ void __launch_bounds__(kThreads)
-mark_rows(const int* __restrict__ coords, const bool* __restrict__ mask, int V,
-          int D, int H, int W, unsigned* __restrict__ bits) {
+__global__ void __launch_bounds__(kThreads) mark_rows(const ActiveSet a) {
   const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= V || !mask[v]) return;
-  const int* c = coords + 4 * (long long)v;
-  set_bit(bits, flat_cell(c[0], c[1], c[2], c[3], D, H, W));
+  if (v >= a.V || !a.mask[v]) return;
+  const int* c = a.coords + 4 * (long long)v;
+  set_bit(a.bits, flat_cell(c[0], c[1], c[2], c[3], a.D, a.H, a.W));
 }
 
 // Where the candidate sites outnumber the output words 4 to 1 (Aggregate),
@@ -84,18 +118,14 @@ mark_rows(const int* __restrict__ coords, const bool* __restrict__ mask, int V,
 // 340,200 words) the matching costs more than it saves, so each lane adds
 // its own bits there (PERF.md section 6 has both times).
 template <bool Aggregate>
-__global__ void __launch_bounds__(kThreads)
-mark_sites(const int* __restrict__ coords, const bool* __restrict__ mask,
-           int V, int kz, int ky, int kx, int sz, int sy, int sx, int pz,
-           int py, int px, int Do, int Ho, int Wo,
-           unsigned* __restrict__ bits) {
+__global__ void __launch_bounds__(kThreads) mark_sites(const ActiveSet a) {
   const int v = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = v < V && mask[v];
-  const int* c = coords + 4 * (long long)(live ? v : 0);
+  const bool live = v < a.V && a.mask[v];
+  const int* c = a.coords + 4 * (long long)(live ? v : 0);
   int oz[kMaxSites], oy[kMaxSites], ox[kMaxSites];
-  const int nz = live ? axis_sites(c[1], kz, sz, pz, Do, oz) : 0;
-  const int ny = live ? axis_sites(c[2], ky, sy, py, Ho, oy) : 0;
-  const int nx = live ? axis_sites(c[3], kx, sx, px, Wo, ox) : 0;
+  const int nz = live ? axis_sites(c[1], a.kz, a.sz, a.pz, a.Do, oz) : 0;
+  const int ny = live ? axis_sites(c[2], a.ky, a.sy, a.py, a.Ho, oy) : 0;
+  const int nx = live ? axis_sites(c[3], a.kx, a.sx, a.px, a.Wo, ox) : 0;
   // the whole warp runs every candidate any lane has
   const int mz = __reduce_max_sync(0xffffffffu, nz);
   const int my = __reduce_max_sync(0xffffffffu, ny);
@@ -106,33 +136,29 @@ mark_sites(const int* __restrict__ coords, const bool* __restrict__ mask,
       for (int k = 0; k < mx; ++k) {
         const bool set = i < nz && j < ny && k < nx;
         const long long cell =
-            set ? flat_cell(b, oz[i], oy[j], ox[k], Do, Ho, Wo) : 0;
+            set ? flat_cell(b, oz[i], oy[j], ox[k], a.Do, a.Ho, a.Wo) : 0;
         if (!Aggregate) {
-          if (set) set_bit(bits, cell);
+          if (set) set_bit(a.bits, cell);
           continue;
         }
-        // word indices fit 31 bits (the wrapper); ~0u marks no word
+        // word indices fit 31 bits (the plan); ~0u marks no word
         const unsigned w = set ? (unsigned)(cell >> 5) : ~0u;
         const unsigned peers = __match_any_sync(0xffffffffu, w);
         const unsigned word =
             __reduce_or_sync(peers, set ? 1u << (cell & 31) : 0u);
         if (set && (threadIdx.x & 31) == __ffs(peers) - 1)
-          atomicOr(bits + w, word);
+          atomicOr(a.bits + w, word);
       }
 }
 
-__global__ void __launch_bounds__(kThreads)
-build_rows(const int* __restrict__ coords, const bool* __restrict__ mask,
-           int V, int D, int H, int W, const unsigned* __restrict__ bits,
-           const int* __restrict__ base, const int* __restrict__ total,
-           int* __restrict__ rows) {
+__global__ void __launch_bounds__(kThreads) build_rows(const ActiveSet a) {
   const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= V) return;
-  if (v >= *total) rows[v] = V;
-  if (!mask[v]) return;
-  const int* c = coords + 4 * (long long)v;
-  rows[bitmap_rank(bits, base, flat_cell(c[0], c[1], c[2], c[3], D, H, W))] =
-      v;
+  if (v >= a.V) return;
+  if (v >= *a.st.total) a.rows[v] = a.V;
+  if (!a.mask[v]) return;
+  const int* c = a.coords + 4 * (long long)v;
+  a.rows[bitmap_rank(a.bits, a.base,
+                     flat_cell(c[0], c[1], c[2], c[3], a.D, a.H, a.W))] = v;
 }
 
 // The place of the n-th (from 0) set bit of w, which has more than n.
@@ -173,34 +199,30 @@ __device__ __forceinline__ int4 decode_cell(long long cell, bool narrow,
 // set cells hold consecutive ranks from the first word's base, so the warp
 // writes them as consecutive rows, each lane finding its rank's word by a
 // search of the warp's running counts (5 shuffles) and its bit by a search
-// of the word.  The entry point sizes the group so that a warp writes about
-// 32 rows when the sites below the capacity fill their words: the ranks
-// below the capacity lie in the first words, so a warp that owns more of
-// them loops while others idle.  (A thread per word that wrote its cells
-// one after another was several times slower on the dense outputs of res
-// 2-3, ~20 set cells a word: PERF.md section 6.)  Threads below the
-// capacity also write the mask, the identity map and the -1 coords past
-// the total.
-__global__ void __launch_bounds__(kThreads)
-emit_sites(const unsigned* __restrict__ bits, const int* __restrict__ base,
-           long long words, int group, const int* __restrict__ total,
-           int capacity, int Do, int Ho, int Wo, int4* __restrict__ coords_out,
-           bool* __restrict__ mask_out, int* __restrict__ rows,
-           long long* __restrict__ overflow) {
+// of the word.  The plan sizes
+// the group so that a warp writes about 32 rows when the sites below the
+// capacity fill their words: the ranks below the capacity lie in the first
+// words, so a warp that owns more of them loops while others idle.  (A
+// thread per word that wrote its cells one after another was several times
+// slower on the dense outputs of res 2-3, ~20 set cells a word: PERF.md
+// section 6.)  Threads below the capacity also write the mask, the
+// identity map and the -1 coords past the total.
+__global__ void __launch_bounds__(kThreads) emit_sites(const ActiveSet a) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const int live = *total;
-  if (t == 0) *overflow = live > capacity ? live - capacity : 0;
-  const long long w0 = (t >> 5) * group;
-  if (w0 < words) {                              // the whole warp
+  const int live = *a.st.total;
+  const int capacity = a.capacity;
+  if (t == 0) *a.overflow = live > capacity ? live - capacity : 0;
+  const long long w0 = (t >> 5) * a.group;
+  if (w0 < a.words) {                            // the whole warp
     const long long w = w0 + lane;
-    const unsigned word = lane < group && w < words ? bits[w] : 0u;
+    const unsigned word = lane < a.group && w < a.words ? a.bits[w] : 0u;
     const int count = __popc(word);
     const int incl = warp_inclusive_scan(count);
-    const int first = __shfl_sync(0xffffffffu, lane == 0 ? base[w0] : 0, 0);
+    const int first = __shfl_sync(0xffffffffu, lane == 0 ? a.base[w0] : 0, 0);
     const int all = __shfl_sync(0xffffffffu, incl, 31);
     const int n = all < capacity - first ? all : capacity - first;
-    const bool narrow = words * 32 <= 0xffffffffLL;
+    const bool narrow = a.words * 32 <= 0xffffffffLL;
     for (int k0 = 0; k0 < n; k0 += 32) {
       const int k = k0 + lane;
       int owner = 0;                             // lanes whose incl <= k
@@ -211,93 +233,140 @@ emit_sites(const unsigned* __restrict__ bits, const int* __restrict__ base,
       const unsigned own = __shfl_sync(0xffffffffu, word, owner);
       const int before = __shfl_sync(0xffffffffu, incl - count, owner);
       if (k < n)
-        coords_out[first + k] = decode_cell(
-            (w0 + owner) * 32 + nth_set_bit(own, k - before), narrow, Do, Ho,
-            Wo);
+        a.coords_out[first + k] = decode_cell(
+            (w0 + owner) * 32 + nth_set_bit(own, k - before), narrow, a.Do,
+            a.Ho, a.Wo);
     }
   }
   if (t < capacity) {
     const bool kept = t < live;
-    mask_out[t] = kept;
-    rows[t] = (int)t;
-    if (!kept) coords_out[t] = make_int4(-1, -1, -1, -1);
+    a.mask_out[t] = kept;
+    a.rows[t] = (int)t;
+    if (!kept) a.coords_out[t] = make_int4(-1, -1, -1, -1);
   }
+}
+
+// The plan this entry point would make from the plan's shape fields: false
+// where they are out of range.
+bool expected_plan(const long long* p, long long* e) {
+  for (int i = 0; i < kPlanFields; ++i) e[i] = p[i];
+  const long long mode = p[kMode], V = p[kRowsIn], cap = p[kCapacity];
+  if (mode == 0) {
+    e[kDo] = p[kD];
+    e[kHo] = p[kH];
+    e[kWo] = p[kW];
+  }
+  const long long cells = p[kBatch] * e[kDo] * e[kHo] * e[kWo];
+  e[kWords] = (cells + 31) / 32;
+  if (V < 0 || p[kBatch] < 1 || p[kD] < 1 || p[kH] < 1 || p[kW] < 1 ||
+      e[kDo] < 1 || e[kHo] < 1 || e[kWo] < 1 || (mode != 0 && mode != 1) ||
+      e[kWords] >= (1LL << 31) || V >= (1LL << 31) || cap >= (1LL << 31))
+    return false;
+  long long candidates = 1;
+  if (mode == 1) {
+    const long long k[3] = {p[kKz], p[kKy], p[kKx]};
+    const long long s[3] = {p[kSz], p[kSy], p[kSx]};
+    const long long pad[3] = {p[kPz], p[kPy], p[kPx]};
+    if (cap < 1) return false;
+    for (int i = 0; i < 3; ++i) {
+      if (k[i] < 1 || s[i] < 1 || pad[i] < 0 ||
+          (k[i] + s[i] - 1) / s[i] > kMaxSites)
+        return false;
+      candidates *= (k[i] + s[i] - 1) / s[i];
+    }
+  }
+  e[kPadded] = (e[kWords] + kTileWords - 1) / kTileWords * kTileWords;
+  e[kTiles] = e[kPadded] / kTileWords;
+  e[kStateOffset] = e[kPadded];
+  e[kBaseOffset] = e[kStateOffset] + scan_state_words(e[kTiles]);
+  e[kRowsOffset] = e[kBaseOffset] + e[kPadded];
+  e[kZeroVectors] = e[kBaseOffset] / 4;
+  e[kFillBlocks] = fill_blocks(e[kZeroVectors]);
+  e[kRowBlocks] = blocks_of(V, kThreads);
+  if (mode == 0) {
+    e[kAggregate] = 0;
+    e[kGroup] = 0;
+    e[kCoordsOffset] = e[kOverflowOffset] = e[kMaskOffset] =
+        e[kRowsOffset] + round4(V);
+    e[kWorkWords] = e[kMaskOffset];
+    e[kEmitBlocks] = 0;
+    return true;
+  }
+  e[kAggregate] = V * candidates > 4 * e[kWords];
+  // a warp per group of words and a thread per rank below the capacity;
+  // the group: 32 rows a warp where the ranks below the capacity come from
+  // words at the density capacity / words gives, when they are full
+  long long group = 32;
+  while (group > 1 && group * cap > 32 * e[kWords]) group /= 2;
+  e[kGroup] = group;
+  e[kCoordsOffset] = e[kRowsOffset] + round4(cap);
+  e[kOverflowOffset] = e[kCoordsOffset] + 4 * cap;
+  e[kMaskOffset] = e[kOverflowOffset] + 4;
+  e[kWorkWords] = e[kMaskOffset] + round4((cap + 3) / 4);
+  const long long lanes = (e[kWords] + group - 1) / group * 32;
+  e[kEmitBlocks] = blocks_of(lanes > cap ? lanes : cap, kThreads);
+  return true;
 }
 
 }  // namespace
 
 // coords (V, 4) int32 (b, z, y, x) and mask (V,) bool of the input rows on
-// the (batch, D, H, W) grid.  mode 0 (build_table): the table of those
-// rows; rows (V,) int32.  mode 1 (downsample): the sites of the strided
-// conv (kernel, stride, padding) on the (batch, Do, Ho, Wo) output grid,
-// the first `capacity` of them: coords_out (capacity, 4) int32, mask_out
-// (capacity,) bool, rows (capacity,) int32, overflow () int64.  work: int32
-// words [bitmap padded | base padded | tile sums padded / kTileWords | total
-// 1], `work_words` of them; `padded` is the output bitmap's words rounded up
-// to kTileWords.  Returns the cudaError_t of the launches.
-extern "C" int unibev_active_set(const void* coords, const void* mask, int V,
-                                 int batch, int D, int H, int W, int mode,
-                                 int kz, int ky, int kx, int sz, int sy,
-                                 int sx, int pz, int py, int px, int Do,
-                                 int Ho, int Wo, int capacity, void* rows,
-                                 void* coords_out, void* mask_out,
-                                 void* overflow, void* work, long long padded,
-                                 long long work_words, void* stream) {
-  if (mode == 0) {
-    Do = D;
-    Ho = H;
-    Wo = W;
-  }
-  const long long cells = (long long)batch * Do * Ho * Wo;
-  const long long words = (cells + 31) / 32;
-  if (V < 0 || batch < 1 || D < 1 || H < 1 || W < 1 || Do < 1 || Ho < 1 ||
-      Wo < 1 || (mode != 0 && mode != 1) || padded % kTileWords != 0 ||
-      words > padded || work_words != 2 * padded + padded / kTileWords + 1)
+// the (batch, D, H, W) grid.  work: the plan's work_words int32 words, the
+// table and every output: [bitmap padded | scan state | base padded | rows
+// | coords_out (capacity, 4) int32 | overflow () int64 | mask_out
+// (capacity,) bool] at the plan's offsets.  mode 0 (build_table): the
+// table of those rows, rows (V,) int32.  mode 1 (downsample): the sites of
+// the strided conv (kernel, stride, padding) on the (batch, Do, Ho, Wo)
+// output grid, the first `capacity` of them, and their table, rows
+// (capacity,) int32.  Returns the cudaError_t of the launches.
+extern "C" int unibev_active_set(const void* coords, const void* mask,
+                                 void* work, const long long* plan,
+                                 int plan_fields, void* stream) {
+  long long e[kPlanFields];
+  if (plan_fields != kPlanFields || !expected_plan(plan, e))
     return cudaErrorInvalidValue;
-  if (mode == 1 &&
-      (capacity < 1 || kz < 1 || ky < 1 || kx < 1 || sz < 1 || sy < 1 ||
-       sx < 1 || pz < 0 || py < 0 || px < 0 ||
-       (kz + sz - 1) / sz > kMaxSites || (ky + sy - 1) / sy > kMaxSites ||
-       (kx + sx - 1) / sx > kMaxSites))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < kPlanFields; ++i)
+    if (e[i] != plan[i]) return cudaErrorInvalidValue;
+  const long long* p = plan;
+  ActiveSet a;
+  a.coords = static_cast<const int*>(coords);
+  a.mask = static_cast<const bool*>(mask);
+  a.V = (int)p[kRowsIn];
+  a.D = (int)p[kD]; a.H = (int)p[kH]; a.W = (int)p[kW];
+  a.kz = (int)p[kKz]; a.ky = (int)p[kKy]; a.kx = (int)p[kKx];
+  a.sz = (int)p[kSz]; a.sy = (int)p[kSy]; a.sx = (int)p[kSx];
+  a.pz = (int)p[kPz]; a.py = (int)p[kPy]; a.px = (int)p[kPx];
+  a.Do = (int)p[kDo]; a.Ho = (int)p[kHo]; a.Wo = (int)p[kWo];
+  a.capacity = (int)p[kCapacity];
+  a.group = (int)p[kGroup];
+  a.words = p[kWords];
   int* w = static_cast<int*>(work);
-  unsigned* bits = reinterpret_cast<unsigned*>(w);
-  int* base = w + padded;
-  int* tile_sums = base + padded;
-  int* total = tile_sums + padded / kTileWords;
-  fill<11>(bits, padded, 0u, s);
-  const unsigned row_blocks = (unsigned)((V + kThreads - 1) / kThreads);
-  const int* c = static_cast<const int*>(coords);
-  const bool* m = static_cast<const bool*>(mask);
-  if (V > 0) {
-    if (mode == 0)
-      mark_rows<<<row_blocks, kThreads, 0, s>>>(c, m, V, D, H, W, bits);
-    else if ((long long)V * ((kz + sz - 1) / sz) * ((ky + sy - 1) / sy) *
-                 ((kx + sx - 1) / sx) > 4 * words)
-      mark_sites<true><<<row_blocks, kThreads, 0, s>>>(
-          c, m, V, kz, ky, kx, sz, sy, sx, pz, py, px, Do, Ho, Wo, bits);
+  a.bits = reinterpret_cast<unsigned*>(w);
+  a.base = w + p[kBaseOffset];
+  a.st = scan_state_at(w + p[kStateOffset], p[kTiles]);
+  a.rows = w + p[kRowsOffset];
+  a.coords_out = reinterpret_cast<int4*>(w + p[kCoordsOffset]);
+  a.overflow = reinterpret_cast<long long*>(w + p[kOverflowOffset]);
+  a.mask_out = reinterpret_cast<bool*>(w + p[kMaskOffset]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aggregate = p[kAggregate] != 0;
+  fill_words<11><<<(unsigned)p[kFillBlocks], kFillThreads, 0, s>>>(
+      reinterpret_cast<uint4*>(w), p[kZeroVectors], nullptr, 0, 0u);
+  const unsigned row_blocks = (unsigned)p[kRowBlocks];
+  if (row_blocks > 0) {
+    if (p[kMode] == 0)
+      mark_rows<<<row_blocks, kThreads, 0, s>>>(a);
+    else if (aggregate)
+      mark_sites<true><<<row_blocks, kThreads, 0, s>>>(a);
     else
-      mark_sites<false><<<row_blocks, kThreads, 0, s>>>(
-          c, m, V, kz, ky, kx, sz, sy, sx, pz, py, px, Do, Ho, Wo, bits);
+      mark_sites<false><<<row_blocks, kThreads, 0, s>>>(a);
   }
-  scan_bitmap<11>(bits, base, tile_sums, total, padded, s);
-  if (mode == 0) {
-    if (V > 0)
-      build_rows<<<row_blocks, kThreads, 0, s>>>(c, m, V, D, H, W, bits, base,
-                                                 total, static_cast<int*>(rows));
+  scan_tiles<11, 1><<<(unsigned)p[kTiles], kScanThreads, 0, s>>>(
+      reinterpret_cast<const uint4*>(a.bits), a.base, a.st);
+  if (p[kMode] == 0) {
+    if (row_blocks > 0) build_rows<<<row_blocks, kThreads, 0, s>>>(a);
   } else {
-    // a warp per group of words, and a thread per rank below the capacity;
-    // the group: 32 rows a warp where the ranks below the capacity come
-    // from words at the density capacity / words gives, when they are full
-    int group = 32;
-    while (group > 1 && (long long)group * capacity > 32 * words) group /= 2;
-    const long long lanes = (words + group - 1) / group * 32;
-    const long long n = lanes > capacity ? lanes : capacity;
-    emit_sites<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-        bits, base, words, group, total, capacity, Do, Ho, Wo,
-        static_cast<int4*>(coords_out), static_cast<bool*>(mask_out),
-        static_cast<int*>(rows), static_cast<long long*>(overflow));
+    emit_sites<<<(unsigned)p[kEmitBlocks], kThreads, 0, s>>>(a);
   }
   return cudaGetLastError();
 }

@@ -91,17 +91,10 @@ _SIGNATURES = {
     # smem_bytes, stream
     "unibev_sparse_conv_wgrad": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _P),
-    # points, mask, P, F, x0, y0, z0, ix, iy, iz, X, Y, Z, max_voxels,
-    # max_points, feats, coords, vmask, num_points, num_voxels,
-    # num_distinct, work, padded, work_words, stream
-    "unibev_voxelize": (_P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I,
-                        _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P),
-    # coords, mask, V, batch, D, H, W, mode, kz, ky, kx, sz, sy, sx, pz, py,
-    # px, Do, Ho, Wo, capacity, rows, coords_out, mask_out, overflow, work,
-    # padded, work_words, stream
-    "unibev_active_set": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                          _L, _L, _P),
+    # points, mask, out, work, plan, plan fields, cell, stream
+    "unibev_voxelize": (_P, _P, _P, _P, _P, _I, _P, _P),
+    # coords, mask, work, plan, plan fields, stream
+    "unibev_active_set": (_P, _P, _P, _P, _I, _P),
     # cost, valid, col4row, P, R, C, stream
     "unibev_lsa": (_P, _P, _P, _I, _I, _I, _P),
 }
@@ -203,7 +196,7 @@ def group_lanes(chunks: int) -> int:
 
 # words of one scan tile of an occupancy bitmap (kTileWords of
 # csrc/bitmap.cuh): K10 and K11 zero and scan their bitmaps in whole tiles
-BITMAP_TILE_WORDS = 2048
+BITMAP_TILE_WORDS = 8192
 
 
 def bitmap_words(cells: int):
@@ -212,6 +205,32 @@ def bitmap_words(cells: int):
     K10 and K11 allocate, zero and scan it."""
     words = -(-cells // 32)
     return words, -(-words // BITMAP_TILE_WORDS) * BITMAP_TILE_WORDS
+
+
+# threads a block of K10's and K11's stages and of their fill (kThreads and
+# kFillThreads of csrc/voxelize.cu, csrc/active_set.cu, csrc/bitmap.cuh)
+BITMAP_THREADS = 256
+
+
+def bitmap_blocks(n: int, fill: bool = False) -> int:
+    """Blocks of BITMAP_THREADS for ``n`` items; a fill's grid strides past
+    4096 blocks (``fill_blocks`` of csrc/bitmap.cuh)."""
+    blocks = -(-n // BITMAP_THREADS)
+    return min(blocks, 4096) if fill else blocks
+
+
+def scan_state_words(tiles: int) -> int:
+    """int32 words of the scan state of a bitmap of ``tiles`` scan tiles
+    (``scan_state_words`` of csrc/bitmap.cuh): a 64-bit status word a tile,
+    the ticket and the total, rounded up to 16 bytes."""
+    return -(-(2 * tiles + 2) // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def plan_args(plan: tuple):
+    """A launch plan (a NamedTuple of ints) as the int64 array its C entry
+    point reads, made once per plan."""
+    return (ctypes.c_longlong * len(plan))(*plan)
 
 
 # the H100's L2 cache, against which the backwards' f32 tables are sized

@@ -374,11 +374,159 @@ def downsample_with_table_reference(grid: SparseGrid, kernel: Triple,
     return coords, mask_out, table, (total - capacity).clamp(min=0).long()
 
 
-def _active_set(grid: SparseGrid, mode: int, kernel: Triple, stride: Triple,
+class ActiveSetPlan(NamedTuple):
+    """How K11 covers one call (``csrc/active_set.cu`` reads it as int64s
+    in this order and refuses one whose layout or launch sizes disagree
+    with its own).  ``mode`` 0 builds the table of the rows on the (batch,
+    D, H, W) grid (the output grid is the input's, kernel, stride and
+    padding unused); 1 the active set of a strided conv on the (batch, Do,
+    Ho, Wo) grid, ``capacity`` rows.  One workspace of ``work_words``
+    int32 words holds the table and every output: the bitmap (``padded``
+    words, whole scan tiles) at 0, the scan state (a 64-bit status word a
+    tile, the ticket, the total) at ``state_offset``, the per-word base at
+    ``base_offset``, the rank -> row map at ``rows_offset`` and, in mode 1,
+    the coords, the overflow (int64) and the mask (bytes) at theirs, each
+    16-byte aligned; the fill zeroes the first ``zero_vectors`` 16-byte
+    vectors.  Marks OR a warp's bits per word first where ``aggregate``;
+    the emit takes a warp per ``group`` words.  Launches: ``fill_blocks``,
+    ``row_blocks`` (mark, build_rows), ``tiles`` (scan), ``emit_blocks``
+    (mode 1)."""
+    rows_in: int
+    batch: int
+    D: int
+    H: int
+    W: int
+    mode: int
+    kz: int
+    ky: int
+    kx: int
+    sz: int
+    sy: int
+    sx: int
+    pz: int
+    py: int
+    px: int
+    Do: int
+    Ho: int
+    Wo: int
+    capacity: int
+    words: int
+    padded: int
+    tiles: int
+    aggregate: int
+    group: int
+    state_offset: int
+    base_offset: int
+    rows_offset: int
+    coords_offset: int
+    overflow_offset: int
+    mask_offset: int
+    work_words: int
+    zero_vectors: int
+    fill_blocks: int
+    row_blocks: int
+    emit_blocks: int
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def active_set_plan(V: int, batch: int, shape: Triple, mode: int,
+                    kernel: Triple, stride: Triple, padding: Triple,
+                    out_shape: Triple, capacity: int) -> ActiveSetPlan:
+    """K11's plan for ``V`` rows on the (batch, *shape) grid: mode 0 the
+    table (``out_shape`` must be ``shape``), mode 1 a strided conv's active
+    set on ``out_shape`` (the first ``capacity`` sites).  Raises where the
+    kernel does not reach."""
+    name = ("build_table", "downsample_with_table")[mode]
+    size = batch * out_shape[0] * out_shape[1] * out_shape[2]
+    if mode == 1 and capacity < 1:
+        raise ValueError(f"{name}: capacity must be at least 1, got {capacity}")
+    if mode == 1 and any(-(-k // s) > 4 or k < 1 or s < 1 or p < 0 for
+                         k, s, p in zip(kernel, stride, padding)):
+        raise ValueError(f"{name}: at most 4 sites per axis may hold an "
+                         f"input cell; got kernel {kernel}, stride {stride}")
+    if max(size // 32, V, capacity) >= 2 ** 31:
+        raise ValueError(f"{name}: the kernel's int32 words, rows and ranks "
+                         f"take fewer than 2^31 of each")
+    words, padded = _build.bitmap_words(size)
+    tiles = padded // _build.BITMAP_TILE_WORDS
+    state = padded
+    base = state + _build.scan_state_words(tiles)
+    rows = base + padded
+    if mode == 0:
+        end = rows + _round4(V)
+        aggregate = group = emit_blocks = 0
+        coords = overflow = mask = end
+    else:
+        candidates = 1
+        for k, s in zip(kernel, stride):
+            candidates *= -(-k // s)
+        aggregate = int(V * candidates > 4 * words)
+        # 32 rows a warp where the ranks below the capacity come from words
+        # at the density capacity / words gives, when they are full
+        group = 32
+        while group > 1 and group * capacity > 32 * words:
+            group //= 2
+        coords = rows + _round4(capacity)
+        overflow = coords + 4 * capacity
+        mask = overflow + 4
+        end = mask + _round4(-(-capacity // 4))
+        emit_blocks = _build.bitmap_blocks(max(-(-words // group) * 32,
+                                               capacity))
+    return ActiveSetPlan(
+        rows_in=V, batch=batch, D=shape[0], H=shape[1], W=shape[2],
+        mode=mode, kz=kernel[0], ky=kernel[1], kx=kernel[2], sz=stride[0],
+        sy=stride[1], sx=stride[2], pz=padding[0], py=padding[1],
+        px=padding[2], Do=out_shape[0], Ho=out_shape[1], Wo=out_shape[2],
+        capacity=capacity, words=words, padded=padded, tiles=tiles,
+        aggregate=aggregate, group=group, state_offset=state,
+        base_offset=base, rows_offset=rows, coords_offset=coords,
+        overflow_offset=overflow, mask_offset=mask, work_words=end,
+        zero_vectors=base // 4,
+        fill_blocks=_build.bitmap_blocks(base // 4, fill=True),
+        row_blocks=_build.bitmap_blocks(V), emit_blocks=emit_blocks)
+
+
+def _active_set(grid: SparseGrid, plan: ActiveSetPlan):
+    """One launch of K11 by ``plan`` (the C entry point checks it): the
+    table, and in mode 1 (coords_out, mask_out, overflow), all views of one
+    workspace (``_table_views``)."""
+    dev = grid.coords.device
+    work = torch.empty((plan.work_words,), dtype=torch.int32, device=dev)
+    err = _build.lib().unibev_active_set(
+        grid.coords.data_ptr(), grid.mask.data_ptr(), work.data_ptr(),
+        _build.plan_args(plan), len(plan),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, ("build_table", "downsample_with_table")[plan.mode])
+    _build.launches["active_set"] += 1
+    return _table_views(work, plan)
+
+
+def _table_views(work: torch.Tensor, plan: ActiveSetPlan):
+    """The table, and in mode 1 (coords_out, mask_out, overflow), as strided
+    views of the workspace ``work`` at the plan's offsets."""
+    words, n_rows = plan.words, plan.capacity if plan.mode else plan.rows_in
+    table = CompactTable(
+        work.as_strided((words,), (1,)),
+        work.as_strided((words,), (1,), plan.base_offset),
+        work.as_strided((n_rows,), (1,), plan.rows_offset),
+        plan.batch * plan.Do * plan.Ho * plan.Wo, n_rows)
+    if plan.mode == 0:
+        return table, None, None, None
+    cap = plan.capacity
+    return (table, work.as_strided((cap, 4), (4, 1), plan.coords_offset),
+            work.view(torch.bool).as_strided((cap,), (1,),
+                                             4 * plan.mask_offset),
+            work.view(torch.int64).as_strided((), (),
+                                              plan.overflow_offset // 2))
+
+
+def _table_plan(grid: SparseGrid, mode: int, kernel: Triple, stride: Triple,
                 padding: Triple, out_shape: Triple, capacity: int):
-    """Kernel K11 on CUDA: (table, coords_out, mask_out, overflow) of
-    ``build_table`` (mode 0; the three last None) or of
-    ``downsample_with_table`` (mode 1)."""
+    """K11's plan for ``grid`` after the checks the kernel cannot make."""
     name = ("build_table", "downsample_with_table")[mode]
     coords, mask = grid.coords, grid.mask
     _on_current_cuda_device(name, (coords, mask))
@@ -391,34 +539,8 @@ def _active_set(grid: SparseGrid, mode: int, kernel: Triple, stride: Triple,
                         f"{coords.dtype} and {mask.dtype}")
     if not (coords.is_contiguous() and mask.is_contiguous()):
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
-    size = grid.batch * out_shape[0] * out_shape[1] * out_shape[2]
-    if mode == 1 and capacity < 1:
-        raise ValueError(f"{name}: capacity must be at least 1, got {capacity}")
-    if max(size // 32, V, capacity) >= 2 ** 31:
-        raise ValueError(f"{name}: the kernel's int32 words, rows and ranks "
-                         f"take fewer than 2^31 of each")
-    dev = coords.device
-    words, padded = _build.bitmap_words(size)
-    work_words = 2 * padded + padded // _build.BITMAP_TILE_WORDS + 1
-    work = torch.empty((work_words,), dtype=torch.int32, device=dev)
-    n_rows = V if mode == 0 else capacity
-    rows = torch.empty((n_rows,), dtype=torch.int32, device=dev)
-    out = (None, None, None)
-    if mode == 1:
-        out = (torch.empty((capacity, 4), dtype=torch.int32, device=dev),
-               torch.empty((capacity,), dtype=torch.bool, device=dev),
-               torch.empty((), dtype=torch.int64, device=dev))
-    ptrs = [0 if t is None else t.data_ptr() for t in out]
-    err = _build.lib().unibev_active_set(
-        coords.data_ptr(), mask.data_ptr(), V, grid.batch, *grid.shape, mode,
-        *kernel, *stride, *padding, *out_shape, capacity, rows.data_ptr(),
-        *ptrs, work.data_ptr(), padded, work_words,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(err, name)
-    _build.launches["active_set"] += 1
-    table = CompactTable(work[:words], work[padded:padded + words], rows, size,
-                         n_rows)
-    return (table, *out)
+    return active_set_plan(V, grid.batch, tuple(grid.shape), mode, kernel,
+                           stride, padding, out_shape, capacity)
 
 
 def build_table(grid: SparseGrid) -> CompactTable:
@@ -429,8 +551,8 @@ def build_table(grid: SparseGrid) -> CompactTable:
     the coords are int32, the mask bool, both contiguous."""
     if grid.coords.device.type == "cpu":
         return build_table_reference(grid)
-    return _active_set(grid, 0, (1, 1, 1), (1, 1, 1), (0, 0, 0),
-                       tuple(grid.shape), 0)[0]
+    return _active_set(grid, _table_plan(grid, 0, (1, 1, 1), (1, 1, 1),
+                                         (0, 0, 0), tuple(grid.shape), 0))[0]
 
 
 def downsample_with_table(grid: SparseGrid, kernel: Triple, stride: Triple,
@@ -445,9 +567,9 @@ def downsample_with_table(grid: SparseGrid, kernel: Triple, stride: Triple,
     if grid.coords.device.type == "cpu":
         return downsample_with_table_reference(grid, kernel, stride, padding,
                                                out_shape, capacity)
-    table, coords, mask, overflow = _active_set(
+    table, coords, mask, overflow = _active_set(grid, _table_plan(
         grid, 1, tuple(kernel), tuple(stride), tuple(padding),
-        tuple(out_shape), capacity)
+        tuple(out_shape), capacity))
     return coords, mask, table, overflow
 
 

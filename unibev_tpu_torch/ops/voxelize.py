@@ -28,6 +28,7 @@ call copies nothing from the host and synchronizes nothing.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Sequence, Tuple
 
@@ -112,20 +113,143 @@ def cell_params(voxel_size: Tuple[float, float, float],
     return tuple(map(float, origin)), tuple(map(float, inv))
 
 
+class VoxelizePlan(NamedTuple):
+    """How K10 covers one call (``csrc/voxelize.cu`` reads it as int64s in
+    this order and refuses one whose layout or launch sizes disagree with
+    its own).  The workspace in int32 words: the bitmap (``padded`` words,
+    whole scan tiles) at 0, the scan state (a 64-bit status word a tile,
+    the ticket, the total) at ``state_offset``, the set bits before each
+    8-word sector at ``dir_offset``, each point's key at
+    ``keys_offset``, each kept voxel's ``max_points`` slots at
+    ``slots_offset``; the fill zeroes the first ``zero_vectors`` 16-byte
+    vectors and empties the ``slot_words`` slots.  The outputs in one byte
+    buffer of ``out_bytes``: feats at 0 and the others at their offsets,
+    each 16-byte aligned.  Launches: ``fill_blocks``, ``point_blocks`` (mark,
+    slot), ``tiles`` (scan), ``voxel_blocks`` (emit)."""
+    points: int
+    features: int
+    X: int
+    Y: int
+    Z: int
+    max_voxels: int
+    max_points: int
+    rows: int
+    words: int
+    padded: int
+    tiles: int
+    state_offset: int
+    dir_offset: int
+    keys_offset: int
+    slots_offset: int
+    work_words: int
+    zero_vectors: int
+    slot_words: int
+    coords_offset: int
+    num_points_offset: int
+    num_voxels_offset: int
+    num_distinct_offset: int
+    mask_offset: int
+    out_bytes: int
+    fill_blocks: int
+    point_blocks: int
+    voxel_blocks: int
+
+
+def _round(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def voxelize_plan(P: int, F: int, grid_size: Tuple[int, int, int],
+                  max_voxels: int, max_points: int) -> VoxelizePlan:
+    """K10's plan for ``P`` points of ``F`` features on ``grid_size`` (X, Y,
+    Z).  Raises where the kernel's int32 keys and rows do not reach."""
+    X, Y, Z = grid_size
+    M, K = max_voxels, max_points
+    if F < 3 or M < 1 or K < 1 or min(grid_size) < 1 or P < 0:
+        raise ValueError(f"voxelize_and_encode: points (P, F >= 3), "
+                         f"max_voxels and max_points >= 1 and a grid; got "
+                         f"{(P, F)}, {M}, {K}, {grid_size}")
+    if X * Y * Z >= 2 ** 31 or P >= 2 ** 31 or M * F >= 2 ** 31:
+        raise ValueError(f"voxelize_and_encode: the kernel's int32 keys and "
+                         f"rows take fewer than 2^31 cells, points and "
+                         f"features; got grid {grid_size}, {P} points")
+    words, padded = _build.bitmap_words(X * Y * Z)
+    tiles = padded // _build.BITMAP_TILE_WORDS
+    rows = min(M, P)
+    state = padded
+    dirs = state + _build.scan_state_words(tiles)
+    keys = dirs + padded // 8
+    slots = keys + _round(P, 4)
+    coords = _round(4 * M * F, 16)
+    num_points = coords + _round(12 * M, 16)
+    num_voxels = num_points + _round(4 * M, 16)
+    num_distinct = num_voxels + 16
+    mask = num_distinct + 16
+    return VoxelizePlan(
+        points=P, features=F, X=X, Y=Y, Z=Z, max_voxels=M, max_points=K,
+        rows=rows, words=words, padded=padded, tiles=tiles,
+        state_offset=state, dir_offset=dirs,
+        keys_offset=keys, slots_offset=slots, work_words=slots + rows * K,
+        zero_vectors=dirs // 4, slot_words=rows * K, coords_offset=coords,
+        num_points_offset=num_points, num_voxels_offset=num_voxels,
+        num_distinct_offset=num_distinct, mask_offset=mask,
+        out_bytes=mask + _round(M, 16),
+        fill_blocks=_build.bitmap_blocks(dirs // 4 + rows * K, fill=True),
+        point_blocks=_build.bitmap_blocks(P),
+        voxel_blocks=_build.bitmap_blocks(M))
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_args(voxel_size: Tuple[float, ...], pc_range: Tuple[float, ...]):
+    """``cell_params`` as the C entry point's six float32s."""
+    origin, inv = cell_params(voxel_size, pc_range)
+    return (ctypes.c_float * 6)(*origin, *inv)
+
+
+def _voxelize(points: torch.Tensor, points_mask: torch.Tensor, cell,
+              plan: VoxelizePlan) -> VoxelizationResult:
+    """One launch of K10 by ``plan`` (the C entry point checks it)."""
+    dev = points.device
+    out = torch.empty((plan.out_bytes,), dtype=torch.uint8, device=dev)
+    work = torch.empty((plan.work_words,), dtype=torch.int32, device=dev)
+    err = _build.lib().unibev_voxelize(
+        points.data_ptr(), points_mask.data_ptr(), out.data_ptr(),
+        work.data_ptr(), _build.plan_args(plan), len(plan), cell,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "voxelize")
+    _build.launches["voxelize"] += 1
+    return _result_views(out, plan)
+
+
+def _result_views(out: torch.Tensor, plan: VoxelizePlan) -> VoxelizationResult:
+    """The outputs as views of the byte buffer ``out`` at the plan's
+    offsets (one view of the buffer per dtype, then one strided view each:
+    fewer operations a call than an allocation each)."""
+    M, F = plan.max_voxels, plan.features
+    i32 = out.view(torch.int32)
+    return VoxelizationResult(
+        feats=out.view(torch.float32).as_strided((M, F), (F, 1)),
+        coords=i32.as_strided((M, 3), (3, 1), plan.coords_offset // 4),
+        mask=out.view(torch.bool).as_strided((M,), (1,), plan.mask_offset),
+        num_voxels=i32.as_strided((), (), plan.num_voxels_offset // 4),
+        num_points=i32.as_strided((M,), (1,), plan.num_points_offset // 4),
+        num_distinct=out.view(torch.int64).as_strided(
+            (), (), plan.num_distinct_offset // 8))
+
+
 def voxelize_and_encode(points: torch.Tensor, points_mask: torch.Tensor,
                         voxel_size: Sequence[float], pc_range: Sequence[float],
                         grid_size: Tuple[int, int, int], max_voxels: int,
                         max_points_per_voxel: int = 10) -> VoxelizationResult:
     """Voxelize one padded cloud: points (P, F) float32 (x, y, z first),
     points_mask (P,) bool; grid_size (X, Y, Z).  CPU tensors take the plain
-    version, CUDA tensors kernel K10 (float32 points, both contiguous)."""
+    version, CUDA tensors kernel K10 (float32 points, both contiguous, on
+    the current device)."""
     if points.device.type == "cpu":
         return voxelize_and_encode_reference(
             points, points_mask, voxel_size, pc_range, grid_size, max_voxels,
             max_points_per_voxel)
-    P, F = points.shape
-    X, Y, Z = grid_size
-    M, K = max_voxels, max_points_per_voxel
     dev = points.device
     if dev.type != "cuda" or points_mask.device != dev \
             or dev.index != torch.cuda.current_device():
@@ -134,37 +258,15 @@ def voxelize_and_encode(points: torch.Tensor, points_mask: torch.Tensor,
     if points.dtype != torch.float32 or points_mask.dtype != torch.bool:
         raise TypeError(f"voxelize_and_encode: float32 points and a bool "
                         f"mask, got {points.dtype} and {points_mask.dtype}")
-    if F < 3 or points_mask.shape != (P,) or M < 1 or K < 1:
-        raise ValueError(f"voxelize_and_encode: points (P, F >= 3), mask "
-                         f"(P,), max_voxels and max_points >= 1; got "
-                         f"{tuple(points.shape)}, {tuple(points_mask.shape)},"
-                         f" {M}, {K}")
+    if points.dim() != 2 or points_mask.shape != points.shape[:1]:
+        raise ValueError(f"voxelize_and_encode: points (P, F) and mask (P,), "
+                         f"got {tuple(points.shape)} and "
+                         f"{tuple(points_mask.shape)}")
     if not (points.is_contiguous() and points_mask.is_contiguous()):
         raise ValueError("voxelize_and_encode: the kernel takes contiguous "
                          "points and mask")
-    if X * Y * Z >= 2 ** 31 or P >= 2 ** 31 or M * F >= 2 ** 31:
-        raise ValueError(f"voxelize_and_encode: the kernel's int32 keys and "
-                         f"rows take fewer than 2^31 cells, points and "
-                         f"features; got grid {grid_size}, {P} points")
-    origin, inv = cell_params(tuple(voxel_size), tuple(pc_range))
-    _, padded = _build.bitmap_words(X * Y * Z)
-    work_words = (2 * padded + padded // _build.BITMAP_TILE_WORDS + 1 + P
-                  + min(M, P) * K)
-    work = torch.empty((work_words,), dtype=torch.int32, device=dev)
-    feats = torch.empty((M, F), dtype=torch.float32, device=dev)
-    coords = torch.empty((M, 3), dtype=torch.int32, device=dev)
-    mask = torch.empty((M,), dtype=torch.bool, device=dev)
-    num_points = torch.empty((M,), dtype=torch.int32, device=dev)
-    num_voxels = torch.empty((), dtype=torch.int32, device=dev)
-    num_distinct = torch.empty((), dtype=torch.int64, device=dev)
-    err = _build.lib().unibev_voxelize(
-        points.data_ptr(), points_mask.data_ptr(), P, F, *origin, *inv, X, Y,
-        Z, M, K, feats.data_ptr(), coords.data_ptr(), mask.data_ptr(),
-        num_points.data_ptr(), num_voxels.data_ptr(), num_distinct.data_ptr(),
-        work.data_ptr(), padded, work_words,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "voxelize")
-    _build.launches["voxelize"] += 1
-    return VoxelizationResult(feats=feats, coords=coords, mask=mask,
-                              num_voxels=num_voxels, num_points=num_points,
-                              num_distinct=num_distinct)
+    P, F = points.shape
+    plan = voxelize_plan(P, F, tuple(grid_size), max_voxels,
+                         max_points_per_voxel)
+    return _voxelize(points, points_mask,
+                     _cell_args(tuple(voxel_size), tuple(pc_range)), plan)

@@ -8,7 +8,7 @@ Voxelizes chip_smoke.py's flagship cloud (300k points, 120,000 voxels on
 [41, 1440, 1440]) and profiles the tables of one SparseEncoder forward
 (``chip_smoke.py::_tables_of_a_forward``: ``build_table`` at res 0 and the
 four ``downsample_with_table`` calls, one call of kernel K11 each, which
-launches six ``__global__`` functions) after three warm-up runs.  Prints
+launches four ``__global__`` functions) after three warm-up runs.  Prints
 their device time in all, the K11 calls counted by ``_build.launches``,
 the 30 kernels that take the most of the time with their launches, and the
 host's time in ``cudaLaunchKernel``; exits non-zero without a CUDA device.
@@ -26,12 +26,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (CAPACITIES, PC_RANGE, SPARSE_SHAPE,  # noqa: E402
-                        VOXEL_GRID, VOXEL_SIZE, _tables_of_a_forward)
+from chip_smoke import _tables_of_a_forward, res0_grid  # noqa: E402
 from unibev_tpu_torch.flagship import synthetic_batch  # noqa: E402
 from unibev_tpu_torch.ops import _build  # noqa: E402
-from unibev_tpu_torch.ops.sparse_conv import SparseGrid  # noqa: E402
-from unibev_tpu_torch.ops.voxelize import voxelize_and_encode  # noqa: E402
 
 
 def main() -> int:
@@ -41,12 +38,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     points = synthetic_batch(np.random.RandomState(0), device="cuda")["points"][0]
-    mask = torch.ones(points.shape[0], dtype=torch.bool, device="cuda")
-    vox = voxelize_and_encode(points, mask, VOXEL_SIZE, PC_RANGE, VOXEL_GRID,
-                              CAPACITIES[0])
-    coords = torch.cat([torch.zeros_like(vox.coords[:, :1]), vox.coords], 1)
-    coords = torch.where(vox.mask[:, None], coords, -1).contiguous()
-    grid = SparseGrid(coords, vox.mask, SPARSE_SHAPE, 1)
+    grid = res0_grid(points)[1]
     for _ in range(3):
         _tables_of_a_forward(grid)
     torch.cuda.synchronize()

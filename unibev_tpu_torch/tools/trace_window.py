@@ -6,13 +6,16 @@ CUDA card.
 
 Traces ``REPEATS`` times, unprimed (as chip_smoke.py's profiles ran
 before they opened with spin kernels) and primed
-(``chip_smoke.py::_traced``, ``TRACE_PRIMERS`` spin kernels first), two
+(``chip_smoke.py::_traced``, ``TRACE_PRIMERS`` spin kernels first and
+``TRACE_TRAILERS`` after), two
 runs whose first kernels are K10's (the voxelizer): L predict on the
 flagship LC model and R predict on the flagship RC model (bf16, random
 weights from seed 0, chip_smoke.py's batches); in a fresh process and again
 after ``AGED`` profiler sessions of one small kernel each (chip_smoke.py
 opens hundreds before its later profiles).  Prints, per run and way, K10's
-kernels traced of those launched, the primers traced, the hand kernels
+kernels traced of those launched, the primers and trailers traced and the
+recorded launches without a device record
+(``chip_smoke.py::trace_losses``), the hand kernels
 whose traced launches differ from ``_build.launches``
 (``chip_smoke.py::profiled_counts``) and the names of the trace's first
 device kernels; exits non-zero without a CUDA device.
@@ -30,15 +33,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (PRIMER_KERNEL, RC_MODES,  # noqa: E402
-                        TRACE_PRIMERS, _rc_batch, _traced, profiled_counts)
+from chip_smoke import (RC_MODES, TRACE_PRIMERS,  # noqa: E402
+                        _rc_batch, _traced, profiled_counts, trace_losses)
 from unibev_tpu_torch.flagship import build_flagship, synthetic_batch  # noqa: E402
 from unibev_tpu_torch.ops import _build  # noqa: E402
 
 REPEATS = 3
 AGED = (0, 300)
 WAYS = {"unprimed": 0, "primed": TRACE_PRIMERS}
-K10_KERNELS = 8
+K10_KERNELS = 5
 
 
 def first_kernels(prof, n=4):
@@ -68,9 +71,11 @@ def trace(label, run):
             k10 = sum(v[0] for k, v in counts.items()
                       if k.startswith("voxelize "))
             wrong = {k: v for k, v in counts.items() if v[0] != v[1]}
-            kept = sum(e.count for e in events if PRIMER_KERNEL in e.key)
+            kept = trace_losses(prof)
             rows.append(f"K10 {k10}/{K10_KERNELS * launched['voxelize']}, "
-                        f"primers traced {kept} of {primers}, differ "
+                        f"primers traced {kept['primers']} of {primers}, "
+                        f"trailers {kept['trailers']}, launches without a "
+                        f"device record {kept['lost']}{kept['where']}, differ "
                         f"{wrong or 'none'}, "
                         f"first {first_kernels(prof)}")
         print(f"  {label}, {way}:", flush=True)
