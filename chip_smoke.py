@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (unibev_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare   # phases 5-6, 9-10, 13-15, 18-19 alone
+    python3 chip_smoke.py --compare   # K10-K12, phases 5-6, 9-10, 13-15, 18-19
     python3 chip_smoke.py --radar-dp  # phases 24 and 27-31 alone
     python3 chip_smoke.py --ddp-cards 4   # phase 31 on 4 cards (NCCL)
 
@@ -127,7 +127,10 @@ then, each phase printing one line (or a few) and raising on any failure:
      plain version's, the host route the assigner took before K12 (the
      costs copied to the host, scipy per problem, the result copied back;
      host clock), the bound, and each problem's Dijkstra steps (the plain
-     version's count) with the device time a step of the longest chain;
+     version's count) with the device time a step of the longest chain,
+     beside K12_BEFORE_MS (the device time of K12's first design); and K12
+     captured in a ``torch.cuda.CUDAGraph`` on case (a), replayed on
+     fresh costs and masks, each replay equal to the plain version;
  20. K1 and K3 against their plain versions at the cat_128 config's sites
      with 8 heads of D = 16 channels (both encoders' TSA, the dense camera
      SCA over all 6 x 40,000 queries, the LiDAR SCA), f32 (TF32 off) and
@@ -303,6 +306,13 @@ K6_BEFORE_MS = {"subm0": 0.0384, "down0": 0.0272, "subm1": 0.0276,
                 "subm3": 0.0602, "conv_out": 0.0286}
 K8_BEFORE_MS = {"down0": 0.0380, "down1": 0.0414, "down2": 0.0398,
                 "conv_out": 0.0444}
+# K12's device time a call (the profiler) on phase 19c's cases before its
+# redesign (the first design: 256 threads, three barriers a row; the
+# parent checkout's phase 19c on an NVIDIA H100 80GB HBM3 at 700.00 W, as
+# PERF.md section 6 records it): phase 19c prints each case's new time
+# beside it.
+K12_BEFORE_MS = {"a loss": 0.0629, "b 140 rows": 0.2188,
+                 "c integer ties": 10.1172}
 
 # The least time of a call: the larger of its bytes (each input read once,
 # each output written once) over the H100 SXM's HBM3 rate and its
@@ -2266,12 +2276,51 @@ def phase_lsa(model, batch, gen):
               f"{scipy_ms:.3f} ms, bound {bound:.5f} ms (bytes); Dijkstra "
               f"steps per problem {steps.tolist()}: "
               f"{site['device_ms_per_step'] * 1e3:.3f} us of device a step of "
-              f"the longest chain", flush=True)
+              f"the longest chain; device before its redesign "
+              f"{K12_BEFORE_MS[name]:.4f} ms", flush=True)
         if differ or not worst <= 1e-6:
             raise AssertionError(f"K12 {name}: col4row differs in {differ}, "
                                  f"total cost off by {worst}")
     rec["cases"] = out
+    rec["graph_replays"] = lsa_graph_replay(*cases["a loss"])
     return rec
+
+
+def lsa_graph_replay(cost, valid, replays=3):
+    """K12 captured in a CUDA graph on ``cost`` / ``valid`` after a warm-up,
+    then replayed on fresh costs (uniform in the same range) and masks
+    copied into the captured inputs: each replay's col4row equals the plain
+    version's, so the kernel resets its state inside the launch.  Returns
+    the replays' mismatches."""
+    from unibev_tpu_torch.core.bbox.lsa import (linear_sum_assignment,
+                                                linear_sum_assignment_plain)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        linear_sum_assignment(cost, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(_build.launches)
+    with torch.cuda.graph(graph):
+        got = linear_sum_assignment(cost, valid)
+    if _since(before) != {"lsa": 1}:
+        raise AssertionError(f"K12 graph capture launched {_since(before)}")
+    lo, hi = float(cost.min()), float(cost.max())
+    rng = np.random.RandomState(1)
+    differ = []
+    for _ in range(replays):
+        cost.copy_(torch.tensor(rng.uniform(lo, hi, cost.shape),
+                                dtype=torch.float32))
+        valid.copy_(torch.tensor(rng.rand(*valid.shape) < 0.6))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = linear_sum_assignment_plain(cost.cpu(), valid.cpu())
+        differ.append(int((got.cpu() != want).sum()))
+    print(f"  a loss in a CUDA graph, {replays} replays on fresh costs and "
+          f"masks: col4row differs in {differ}", flush=True)
+    if any(differ):
+        raise AssertionError(f"K12 graph replays differ: {differ}")
+    return differ
 
 
 def phase_msda_d16(gen):
@@ -3085,11 +3134,34 @@ def compare_bitmap_kernels():
     return out
 
 
+def compare_lsa_kernel(model, batch, gen):
+    """``--compare``'s K12 part: the device time (profiler) and events time
+    and the host's time a call (``host_us``) of K12 on the problems of one
+    ``head.loss`` of ``model`` (phase 19c's case a), through the public
+    wrapper alone."""
+    from unibev_tpu_torch.core.bbox.lsa import linear_sum_assignment
+    from unibev_tpu_torch.parallel.train_state import compute_autocast
+    with torch.no_grad(), compute_autocast(model):
+        preds = model(batch, gen)
+    cost, valid = lsa_cases(model.pts_bbox_head, preds, batch)["a loss"]
+    del preds
+
+    def run():
+        return linear_sum_assignment(cost, valid)
+    out = dict(device_ms=device_ms(run, 50), ms=cuda_ms(run, 50),
+               host_us=host_us(run))
+    print(f"K12 on the loss's {tuple(cost.shape)} problems: device "
+          f"{out['device_ms']:.4f} ms, events {out['ms']:.4f} ms, host "
+          f"{out['host_us']:.1f} us a call", flush=True)
+    return out
+
+
 def compare_only():
     """``--compare``: K10's and K11's device and host time at their sites
     (``compare_bitmap_kernels``), then the flagship paths' walls and device
     profiles alone (phases 5-6, 9-10, 13-15, 18-19), with the launch counts
-    printed but not held to this file's tables.  To compare two checkouts
+    printed but not held to this file's tables, and K12 on the LC train
+    model's loss problems (``compare_lsa_kernel``).  To compare two checkouts
     with one harness, copy this file into the other's root and run both in
     one call, in the order A B B A."""
     global CHECK_LAUNCHES
@@ -3111,6 +3183,8 @@ def compare_only():
             lidar=lidar)
         phase_profile_train(model, opt, sched, batch, tgen,
                             1000 * step["s_per_step"], lidar=lidar)
+        if lidar:
+            compare_lsa_kernel(model, batch, tgen)
         del model, opt, sched, batch, tgen
     return 0
 

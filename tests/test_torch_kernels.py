@@ -1501,6 +1501,72 @@ def test_lsa_kernel_on_small_problems(cuda_device):
         assert torch.equal(got.cpu(), linear_sum_assignment_plain(cost, valid))
 
 
+def _lsa_masks(kind, P, R, rng):
+    """(P, R) masks: all valid, or holes that make K12's row ring skip rows
+    (every other row, runs of five, the last row alone, one in ten)."""
+    if kind == "all":
+        return np.ones((P, R), bool)
+    masks = [np.arange(R) % 2 == 1, np.arange(R) // 5 % 2 == 0,
+             np.arange(R) == R - 1, rng.rand(R) < 0.1]
+    return np.stack([masks[p % len(masks)] for p in range(P)])
+
+
+# (P, R, C, costs, mask): more valid rows than K12's ring of staged rows;
+# holes in the mask; C % 4 != 0 (rows at odd offsets); C = 2048 with more
+# than 682 rows (over 48 KB of shared memory); rows = columns (long chains)
+LSA_EDGE_CASES = {
+    "ring_overrun": (3, 64, 900, "float", "all"),
+    "holes": (4, 140, 900, "float", "holes"),
+    "c301": (4, 40, 301, "float", "holes"),
+    "c2048_float": (2, 768, 2048, "float", "all"),
+    "c2048_int": (2, 768, 2048, "int", "holes"),
+    "square_int": (2, 256, 256, "int", "all"),
+}
+
+
+@pytest.mark.parametrize("case", list(LSA_EDGE_CASES))
+def test_lsa_kernel_on_ring_and_width_edges(cuda_device, case):
+    """K12's col4row equals the plain version's where its staged rows, its
+    shared memory and its general path reach their edges."""
+    P, R, C, kind, mask = LSA_EDGE_CASES[case]
+    rng = np.random.RandomState(3)
+    cost = torch.tensor(rng.rand(P, R, C) * 4 if kind == "float"
+                        else rng.randint(0, 8, (P, R, C)), dtype=torch.float32)
+    valid = torch.tensor(_lsa_masks(mask, P, R, rng))
+    before = dict(_build.launches)
+    got = linear_sum_assignment(cost.to(cuda_device), valid.to(cuda_device))
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {"lsa": 1}
+    assert torch.equal(got.cpu(), linear_sum_assignment_plain(cost, valid))
+
+
+def test_lsa_replays_in_a_cuda_graph(cuda_device):
+    """K12 captured in a CUDA graph after a warm-up, then replayed on new
+    costs and masks copied into the captured inputs: each replay equals the
+    plain version, so the kernel resets its state inside the launch."""
+    cost, valid = _lsa_case("float", cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        linear_sum_assignment(cost, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = linear_sum_assignment(cost, valid)
+    rng = np.random.RandomState(4)
+    for kind in ("float", "int"):
+        new_cost = torch.tensor(rng.rand(*cost.shape) * 4 if kind == "float"
+                                else rng.randint(0, 8, cost.shape),
+                                dtype=torch.float32)
+        new_valid = torch.tensor(rng.rand(*valid.shape) < 0.5)
+        cost.copy_(new_cost)
+        valid.copy_(new_valid)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(),
+                           linear_sum_assignment_plain(new_cost, new_valid))
+
+
 def test_lsa_refuses_what_the_kernel_does_not_take(cuda_device):
     cost, valid = _lsa_case("int", cuda_device)
     with pytest.raises(TypeError):

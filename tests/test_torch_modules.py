@@ -234,12 +234,11 @@ def test_nms_free_coder(post_center_range):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **TOL)
 
 
-def test_resnet50_with_dcn_stage4():
+def _resnet_against_jax(cfg):
+    """The port's ResNet against the JAX ResNet on one tiny image batch:
+    each output at 1e-4 of its largest value."""
     rng = np.random.RandomState(5)
     x = rng.randn(2, 64, 96, 3).astype(np.float32)
-    cfg = dict(depth=50, out_indices=(2, 3),
-               stage_with_dcn=(False, False, False, True),
-               dcn=dict(type="DCNv2", deform_groups=1))
     jm = JaxResNet(**cfg)
     variables = perturb(jm.init(KEY, jnp.asarray(x)), scale=0.01)
     want = jm.apply(variables, jnp.asarray(x))
@@ -252,6 +251,59 @@ def test_resnet50_with_dcn_stage4():
         scale = np.abs(w).max()
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy() / scale,
                                    w / scale, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("style", ["caffe", "pytorch"])
+def test_resnet50_with_dcn_stage4(style):
+    """Pytorch style strides the 3x3, here the DCNv2 of stage 4 too."""
+    _resnet_against_jax(dict(depth=50, out_indices=(2, 3), style=style,
+                             stage_with_dcn=(False, False, False, True),
+                             dcn=dict(type="DCNv2", deform_groups=1)))
+
+
+def test_resnet26_matches_jax():
+    _resnet_against_jax(dict(depth=26, out_indices=(0, 1, 2, 3),
+                             stage_with_dcn=(False, False, True, True),
+                             dcn=dict(type="DCNv2", deform_groups=1)))
+
+
+def _block_pattern(state):
+    """{(stage, 'first' / 'rest'): key suffixes} and {stage: blocks} of a
+    ResNet state dict."""
+    pattern, blocks = {}, {}
+    for key in state:
+        if not key.startswith("layer"):
+            pattern.setdefault("stem", set()).add(key)
+            continue
+        layer, block, rest = key.split(".", 2)
+        stage = int(layer[len("layer"):])
+        blocks[stage] = max(blocks.get(stage, 0), int(block) + 1)
+        pattern.setdefault((stage, "first" if block == "0" else "rest"),
+                           set()).add(rest)
+    return pattern, blocks
+
+
+@pytest.mark.parametrize("style", ["caffe", "pytorch"])
+def test_resnet152_builds_as_resnet101(style):
+    """Depth 152 on the meta device: (3, 8, 36, 3) blocks, each stage's
+    first and later blocks with the keys of a depth-101 build (mmdet's
+    names, whatever the style)."""
+    cfg = dict(out_indices=(3,), stage_with_dcn=(False, False, True, True),
+               dcn=dict(type="DCNv2", deform_groups=1))
+    with torch.device("meta"):
+        deep = ResNet(depth=152, style=style, **cfg).state_dict()
+        ref = ResNet(depth=101, **cfg).state_dict()
+    pattern, blocks = _block_pattern(deep)
+    ref_pattern, ref_blocks = _block_pattern(ref)
+    assert blocks == {1: 3, 2: 8, 3: 36, 4: 3}
+    assert ref_blocks == {1: 3, 2: 4, 3: 23, 4: 3}
+    assert pattern == ref_pattern
+    assert all(v.shape == ref[k].shape for k, v in deep.items() if k in ref)
+
+
+def test_resnet_refuses_an_unknown_style():
+    with pytest.raises(ValueError, match="style"):
+        ResNet(depth=50, style="tf")
 
 
 def test_fpn_two_levels():

@@ -12,9 +12,12 @@ ends almost at once, while most columns are free.
 Two versions of one function: :func:`linear_sum_assignment_plain`, the
 JAX loop written out in PyTorch (its arithmetic in JAX's order, ties to the
 lowest column, as ``jnp.argmin`` and ``torch.argmin`` break them), and
-kernel K12 (``csrc/lsa.cu``), one block per problem, which
-:func:`linear_sum_assignment` launches for CUDA tensors.  Both give the
-same ``col4row`` bit for bit.  For a packed mask (the valid rows first, as
+kernel K12 (``csrc/lsa.cu``), which :func:`linear_sum_assignment` launches
+for CUDA tensors: one block per problem, the mask read once into a list
+of the valid rows, each valid row's costs staged in shared memory before
+its Dijkstra starts, one barrier a Dijkstra step, and a row whose first
+argmin column is free matched at once (no dual pass, no walk).  Both give
+the same ``col4row`` bit for bit.  For a packed mask (the valid rows first, as
 the data path packs them) the result is the JAX function's with
 ``num_valid`` = the mask's count; for any other mask it is the solution of
 the valid rows' sub-matrix.  Costs must be finite (the assigner maps NaN
@@ -31,7 +34,7 @@ from unibev_tpu_torch.ops import _build
 
 # the JAX package's INF: the distance of a column the Dijkstra has not reached
 INF = 1e30
-# the most columns K12 takes: 256 threads of at most 8 columns each
+# the most columns K12 takes (kMaxCols of csrc/lsa.cu)
 MAX_COLS = 2048
 
 

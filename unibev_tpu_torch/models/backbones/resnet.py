@@ -1,10 +1,11 @@
-"""ResNet (caffe style) image backbone with frozen BN and DCNv2 stages.
+"""ResNet image backbone with frozen BN and DCNv2 stages.
 
-Counterpart of ``unibev_tpu/models/backbones/resnet.py``: caffe style (the
-stride sits on the first 1x1 of each bottleneck), every BN frozen to a
-per-channel affine, DCNv2 on the stages ``stage_with_dcn`` names.  Module
-names are mmdet's, so the reference checkpoint's ``img_backbone.*`` keys load
-as they are.  Inputs and outputs are NCHW tensors; run the module in
+Counterpart of ``unibev_tpu/models/backbones/resnet.py``: depths 26, 50, 101
+and 152; caffe style (the stride of a bottleneck on its first 1x1, as every
+config file sets) or pytorch style (on its 3x3, plain or deformable); every
+BN frozen to a per-channel affine, DCNv2 on the stages ``stage_with_dcn``
+names.  Module names are mmdet's, so the reference checkpoint's
+``img_backbone.*`` keys load as they are.  Inputs and outputs are NCHW tensors; run the module in
 ``torch.channels_last`` so that the NHWC view the deformable im2col reads
 costs no copy.
 
@@ -29,9 +30,12 @@ from unibev_tpu_torch.ops.deform_conv import modulated_deform_conv2d
 from unibev_tpu_torch.registry import BACKBONES
 
 ARCH_SETTINGS = {
+    26: (1, 1, 1, 1),
     50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
 }
+STYLES = ("caffe", "pytorch")
 
 
 class FrozenBatchNorm(nn.Module):
@@ -92,13 +96,16 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, with_dcn: bool = False):
+                 downsample: bool = False, with_dcn: bool = False,
+                 style: str = "caffe"):
         super().__init__()
-        # caffe style: the stride sits on the first 1x1
-        self.conv1 = _conv(inplanes, planes, 1, stride)
+        # caffe style puts the stride on the first 1x1, pytorch style on the
+        # 3x3
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = _conv(inplanes, planes, 1, s1)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = (DeformConv2d(planes, planes) if with_dcn
-                      else _conv(planes, planes, 3, 1, 1))
+        self.conv2 = (DeformConv2d(planes, planes, stride=s2) if with_dcn
+                      else _conv(planes, planes, 3, s2, 1))
         self.bn2 = FrozenBatchNorm(planes)
         self.conv3 = _conv(planes, planes * self.expansion, 1)
         self.bn3 = FrozenBatchNorm(planes * self.expansion)
@@ -118,7 +125,8 @@ class Bottleneck(nn.Module):
 
 @BACKBONES.register_module(name="ResNet")
 class ResNet(nn.Module):
-    """Caffe-style ResNet with frozen BN and optional DCNv2 stages (NCHW)."""
+    """ResNet (caffe or pytorch style) with frozen BN and optional DCNv2
+    stages (NCHW)."""
 
     def __init__(self, depth: int = 101, num_stages: int = 4,
                  out_indices: Sequence[int] = (3,), frozen_stages: int = -1,
@@ -126,8 +134,8 @@ class ResNet(nn.Module):
                  stage_with_dcn: Sequence[bool] = (False, False, False, False),
                  dcn: Optional[dict] = None):
         super().__init__()
-        if style != "caffe":
-            raise NotImplementedError(f"ResNet style={style!r} is not ported")
+        if style not in STYLES:
+            raise ValueError(f"ResNet style={style!r}: one of {STYLES}")
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.with_cp = with_cp
@@ -144,7 +152,8 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 blocks.append(Bottleneck(inplanes, planes,
                                          stride=(1 if stage == 0 else 2) if b == 0 else 1,
-                                         downsample=(b == 0), with_dcn=with_dcn))
+                                         downsample=(b == 0), with_dcn=with_dcn,
+                                         style=style))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
