@@ -1830,7 +1830,8 @@ PROFILED_PER_CALL = {
 # none of K10's 8 kernels as the run went on (phases 15, 22 and 29), with
 # the card drained and the host idle 50 ms after the start, and device_ms
 # lost ~20% of 20 K12 calls late in the run; a fresh process, even after
-# 300 sessions, kept them all (unibev_tpu_torch/tools/trace_window.py).
+# 300 sessions, kept them all (a study since removed; benchmark/trace.py
+# holds each of its traces to the launches).
 # Late in a run it has also kept 0 of the 256 primers, and once 8 of a
 # forward's 18 msda_fwd launches, the last hand kernels of a predict.  So
 # every trace opens with TRACE_PRIMERS spin kernels (torch.cuda._sleep's

@@ -31,6 +31,7 @@ from typing import Tuple
 import torch
 
 from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.utils.timer import spanned
 
 # the JAX package's INF: the distance of a column the Dijkstra has not reached
 INF = 1e30
@@ -134,6 +135,7 @@ def linear_sum_assignment(cost: torch.Tensor,
     return _lsa_cuda(cost, valid)
 
 
+@spanned("kernel:lsa")
 def _lsa_cuda(cost, valid):
     if cost.dim() != 3 or valid.shape != cost.shape[:2]:
         raise ValueError(f"linear_sum_assignment: cost (P, R, C) and valid "

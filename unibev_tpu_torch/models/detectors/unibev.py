@@ -44,6 +44,7 @@ from unibev_tpu_torch.models.transformer_fusion import (present_flags,
                                                         sample_modality_flags)
 from unibev_tpu_torch.ops.voxelize import voxelize_and_encode
 from unibev_tpu_torch.registry import DETECTORS
+from unibev_tpu_torch.utils.timer import spanned
 
 
 def _clean(cfg: Optional[dict]) -> dict:
@@ -199,6 +200,7 @@ class UniBEV(nn.Module):
             upsample_strides=tuple(ncfg.get("upsample_strides", (1, 2))),
             use_conv_for_no_stride=ncfg.get("use_conv_for_no_stride", True))
 
+    @spanned("camera_backbone")
     def extract_img_feat(self, img: torch.Tensor,
                          generator: Optional[torch.Generator] = None):
         """img (B, N, H, W, 3) -> list of (B, N, h, w, C)."""
@@ -230,6 +232,7 @@ class UniBEV(nn.Module):
         coords = torch.where(vmask[:, None], coords, -1)
         return torch.cat([r.feats for r in res]), coords, vmask, res
 
+    @spanned("lidar_branch")
     def extract_pts_feat(self, points: torch.Tensor, points_mask: torch.Tensor):
         """points (B, P, 5), points_mask (B, P) -> (list of one (B, h, w, C)
         BEV map, stats): ``num_distinct_voxels`` (B,) occupied voxels before
@@ -324,6 +327,7 @@ class UniBEV(nn.Module):
         return self.pts_bbox_head.loss(preds, batch["gt_bboxes"],
                                        batch["gt_labels"], batch["gt_valid"])
 
+    @spanned("predict")
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Decoded boxes: bboxes (B, max_num, 9), scores, labels, valid, and

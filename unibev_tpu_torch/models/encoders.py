@@ -20,6 +20,7 @@ from unibev_tpu_torch.models.attention.deformable import (
     MSDAttention, SpatialCrossAttentionImg, SpatialCrossAttentionPts)
 from unibev_tpu_torch.models.layers import FFN, layer_norm
 from unibev_tpu_torch.registry import TRANSFORMER_LAYER_SEQUENCES
+from unibev_tpu_torch.utils.timer import spanned
 
 
 def _centers(n: int, device) -> torch.Tensor:
@@ -126,6 +127,7 @@ class ImgEncoder(nn.Module):
             BEVEncoderLayer(embed_dims, ffn_dims, tsa_cfg, sca_cfg)
             for _ in range(num_layers)])
 
+    @spanned("bev_encoders")
     def forward(self, bev_query, value, bev_pos, bev_h, bev_w, lidar2img,
                 img_shape, value_shapes):
         """bev_query (B, H*W, C); value (B, cams, V, C); lidar2img (B, N, 4, 4).
@@ -177,6 +179,7 @@ class PtsEncoder(nn.Module):
             BEVEncoderLayer(embed_dims, ffn_dims, tsa_cfg, sca_cfg, "pts")
             for _ in range(num_layers)])
 
+    @spanned("bev_encoders")
     def forward(self, bev_query, value, bev_pos, bev_h, bev_w, value_shapes):
         """bev_query (B, H*W, C); value (B, V, C), the flattened LiDAR BEV map
         in (h, w) order.  Returns (B, H*W, C)."""

@@ -32,6 +32,7 @@ from unibev_tpu_torch.models.transformer_fusion import UniBEVTransformer
 from unibev_tpu_torch.ops.losses import l1_loss, sigmoid_focal_loss
 from unibev_tpu_torch.parallel.dist import sum_over_ranks
 from unibev_tpu_torch.registry import HEADS
+from unibev_tpu_torch.utils.timer import spanned
 
 
 CODE_SIZE = 10    # (cx, cy, log w, log l, cz, log h, sin, cos, vx, vy)
@@ -124,6 +125,7 @@ class UniBEVHead(nn.Module):
         self.bbox_weight = dict(loss_bbox or {}).get("loss_weight", 0.25)
         self.code_weights = tuple(code_weights)
 
+    @spanned("head")
     def forward(self, img_feats, pts_feats, lidar2img, img_shape,
                 l_flag=None, c_flag=None) -> Dict[str, torch.Tensor]:
         """img_feats / pts_feats: lists of (B, N, h, w, C) / (B, h, w, C), or
@@ -215,6 +217,7 @@ class UniBEVHead(nn.Module):
             losses[f"{prefix}loss_bbox"] = bbox_losses[lvl]
         return losses
 
+    @spanned("head")
     def get_bboxes(self, preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = self.coder.decode(preds["all_cls_scores"], preds["all_bbox_preds"])
         boxes = out["bboxes"].clone()

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.utils.timer import spanned
 
 
 def _out_size(size, k, stride, padding, dilation):
@@ -273,6 +274,7 @@ def _check(x, offset, mask, kernel_size, stride, padding, dilation):
     return (B, H, W, Cin, Ho, Wo), code
 
 
+@spanned("kernel:dcn_im2col")
 def _im2col_cuda(x, offset, mask, kernel_size, stride, padding, dilation):
     (B, H, W, Cin, Ho, Wo), code = _check(x, offset, mask, kernel_size,
                                           stride, padding, dilation)
@@ -307,6 +309,7 @@ def _arrivals(device, tiles):
     return counts
 
 
+@spanned("kernel:dcn_fwd")
 def _dcn_fwd_cuda(x, offset, mask, weight, kernel_size, stride, padding,
                   dilation):
     (B, H, W, Cin, Ho, Wo), code = _check(x, offset, mask, kernel_size,
@@ -359,6 +362,7 @@ def dcn_fwd(x, offset, mask, weight, kernel_size=(3, 3), stride=1, padding=1,
                          padding, dilation)
 
 
+@spanned("kernel:dcn_bwd")
 def _dcn_bwd_cuda(x, offset, mask, d_cols, kernel_size, stride, padding,
                   dilation):
     (B, H, W, Cin, Ho, Wo), code = _check(x, offset, mask, kernel_size,

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.utils.timer import spanned
 
 MAX_LEVELS = 8   # csrc/msda.cu kMaxLevels
 
@@ -203,6 +204,7 @@ def _check(value, spatial_shapes, loc, attn):
     return (B, V, Q, heads, D, L, P), shapes, code
 
 
+@spanned("kernel:msda_fwd")
 def _msda_cuda(value, spatial_shapes, loc, attn):
     (B, V, Q, heads, D, L, P), shapes, code = _check(value, spatial_shapes,
                                                      loc, attn)
@@ -218,6 +220,7 @@ def _msda_cuda(value, spatial_shapes, loc, attn):
     return out
 
 
+@spanned("kernel:msda_bwd")
 def _msda_bwd_cuda(value, spatial_shapes, loc, attn, grad_out):
     (B, V, Q, heads, D, L, P), shapes, code = _check(value, spatial_shapes,
                                                      loc, attn)

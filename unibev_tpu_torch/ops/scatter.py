@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.utils.timer import spanned
 
 
 def scatter_add_rows_reference(idx: torch.Tensor, contrib: torch.Tensor,
@@ -57,6 +58,7 @@ def scatter_add_rows(idx: torch.Tensor, contrib: torch.Tensor, tr: int,
     return _scatter_cuda(idx, contrib, tr, out)
 
 
+@spanned("kernel:scatter_add_rows")
 def _scatter_cuda(idx, contrib, tr, out):
     if contrib.dim() != 2 or idx.shape != contrib.shape[:1]:
         raise ValueError(f"scatter_add_rows: idx (M,) and contrib (M, L), got "

@@ -60,6 +60,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.utils.timer import spanned
 
 Triple = Tuple[int, int, int]
 
@@ -237,6 +238,7 @@ def _table_args(name: str, table, coords: torch.Tensor, mask: torch.Tensor):
             table.rows.data_ptr(), table.rows.numel())
 
 
+@spanned("kernel:sparse_nbr")
 def sparse_nbr(table: CompactTable, sentinel: int, in_shape: Triple,
                coords_out: torch.Tensor, mask_out: torch.Tensor,
                kernel: Triple, stride: Triple, padding: Triple) -> torch.Tensor:
@@ -490,6 +492,7 @@ def active_set_plan(V: int, batch: int, shape: Triple, mode: int,
         row_blocks=_build.bitmap_blocks(V), emit_blocks=emit_blocks)
 
 
+@spanned("kernel:active_set")
 def _active_set(grid: SparseGrid, plan: ActiveSetPlan):
     """One launch of K11 by ``plan`` (the C entry point checks it): the
     table, and in mode 1 (coords_out, mask_out, overflow), all views of one
@@ -591,6 +594,7 @@ def sparse_conv_reference(feats: torch.Tensor, nidx: torch.Tensor,
     return torch.where(out_mask[:, None], out, 0.0)
 
 
+@spanned("kernel:sparse_conv")
 def gather_conv(feats: torch.Tensor, nidx: torch.Tensor, weight: torch.Tensor,
           out_mask: torch.Tensor) -> torch.Tensor:
     """One sparse conv without autograd (the JAX ``gather_conv``): CPU
@@ -666,6 +670,7 @@ def sparse_inv_nbr_reference(table_out: CompactTable, sentinel: int,
     return torch.where(ok, rows, sentinel).to(torch.int32)
 
 
+@spanned("kernel:sparse_inv_nbr")
 def sparse_inv_nbr(table_out: CompactTable, sentinel: int, out_shape: Triple,
                    coords_in: torch.Tensor, mask_in: torch.Tensor,
                    kernel: Triple, stride: Triple,
@@ -804,6 +809,7 @@ def wgrad_plan(Vout: int, K: int, Cin: int, Cout: int, itemsize: int,
                      smem_bytes=wgrad_smem_bytes(K, span, chunk, kc, bn))
 
 
+@spanned("kernel:sparse_conv_wgrad")
 def sparse_conv_wgrad(feats: torch.Tensor, nidx: torch.Tensor,
                       g: torch.Tensor) -> torch.Tensor:
     """The weight gradient of a sparse conv; CPU tensors take the plain

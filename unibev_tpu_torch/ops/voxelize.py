@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from unibev_tpu_torch.ops import _build
+from unibev_tpu_torch.utils.timer import spanned
 
 
 class VoxelizationResult(NamedTuple):
@@ -207,6 +208,7 @@ def _cell_args(voxel_size: Tuple[float, ...], pc_range: Tuple[float, ...]):
     return (ctypes.c_float * 6)(*origin, *inv)
 
 
+@spanned("kernel:voxelize")
 def _voxelize(points: torch.Tensor, points_mask: torch.Tensor, cell,
               plan: VoxelizePlan) -> VoxelizationResult:
     """One launch of K10 by ``plan`` (the C entry point checks it)."""
