@@ -11,8 +11,8 @@ then, each phase printing one line (or a few) and raising on any failure:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, the
      kernel build time, and what ``nvcc -Xptxas -v`` reports for K1, K2
-     (dcn_fwd), the im2col, K3, K4, K6, K7, K8, K9, K10, K11 and K12
-     (registers, static shared memory, stack, spills);
+     (dcn_fwd), the im2col, K3, K4, K6, K7, K8, K9, K10, K11, K12 and
+     K13 (registers, static shared memory, stack, spills);
   2. kernel K1 (MSDA) against its plain PyTorch version at the five
      flagship call shapes, in f32 (TF32 off) and bf16, with both times,
      their ratio and the access width each site takes;
@@ -31,13 +31,22 @@ then, each phase printing one line (or a few) and raising on any failure:
      not part of the bound), and the backward's column route for d_weight
      (the im2col and cols^T g, a torch.matmul) beside dcn_fwd, which
      samples the same columns;
+  3b. kernel K13 (frozen_bn_act: a frozen BN with its ReLU, and the
+     residual add or the downsample branch's BN) against its plain version
+     at every site of a ResNet-101 forward on 6 images of 928x1600 (the
+     stem, each stage's bn1 / bn2, bn3 with the identity, bn3 with the
+     downsample branch), bf16, and f32 at stage 3; its time (CUDA events
+     and the profiler's device time, over input copies that pass the L2),
+     the host's time a call, the plain version's time and the bound per
+     site and summed over the forward's 100 launches;
   4. the tiny camera-only model: CUDA with the kernels against the CPU with
      the plain versions, same weights and inputs;
   5. full-width flagship camera-only predict in bf16 (6 cameras at
-     928x1600): launch counts of one forward (12 K1, 26 K2), ms per
-     sample (median of 10
+     928x1600): launch counts of one forward (12 K1, 26 K2, 100 K13), ms
+     per sample (median of 10
      synchronized iterations after 3 warm-ups), peak memory, SCA overflow,
-     finite boxes;
+     finite boxes, and the device operations (kernels, copies, fills) of
+     one ``img_backbone`` forward by category, from the profiler;
   6. a torch.profiler breakdown of one forward by kernel (every profile
      phase drains the card, opens its trace with spin kernels that absorb
      the kernels the profiler drops at a session's start, and holds each
@@ -53,7 +62,8 @@ then, each phase printing one line (or a few) and raising on any failure:
      CPU: losses, gradients and the parameters after the step;
   9. the full-width flagship camera-only train step (float32 parameters,
      bf16 autocast, GridMask and dropout on, AdamW): launch counts of one
-     step against the counts derived from the call sites, s/step (median of
+     step against the counts derived from the call sites (190 K13: 100 and
+     the recompute of the 30 checkpointed bottlenecks), s/step (median of
      10 after 3 warm-ups), peak memory, finite losses and grad norm, SCA
      overflow, frozen parameters bit-identical after the steps;
  10. a torch.profiler breakdown of one train step by kernel;
@@ -77,7 +87,7 @@ then, each phase printing one line (or a few) and raising on any failure:
      CPU with the plain versions, same weights and inputs;
  13. full-width flagship LC predict in bf16 (6 cameras at 928x1600 and 300k
      points): launch counts of one forward (18 K1, 26 K2, 1 K10, 5 K11,
-     8 K6, 21 K7, no im2col), ms
+     8 K6, 21 K7, 100 K13, no im2col), ms
      per sample (median of 10 after 3 warm-ups), peak memory, SCA overflow,
      finite boxes, and, printed, the voxels before the cap and each strided
      conv's overflow;
@@ -210,10 +220,11 @@ then, each phase printing one line (or a few) and raising on any failure:
      held), (b) with N NCCL ranks against one process at B=N.
 
 Each kernel's entry in the line before the last gives its launches on the
-path it serves (K1, K2, K6, K7, K10, K11: one LC predict; the im2col, K3,
-K4, K8, K9, K12: one LC train step; K5: one RC predict), its time summed over
-that path's call sites (CUDA events; K5 at the radar pillar scatter, phase
-27; K1 and K3 also ``d16_*``, summed over cat_128's D = 16 launches; K10
+path it serves (K1, K2, K6, K7, K10, K11, K13: one LC predict; the im2col,
+K3, K4, K8, K9, K12: one LC train step; K5: one RC predict), its time
+summed over that path's call sites (CUDA events; K5 at the radar pillar
+scatter, phase 27; K1 and K3 also ``d16_*``, summed over cat_128's D = 16
+launches; K13 also ``device_ms``, the profiler's; K10
 also ``radar_*``, its launch a forward at the radar site; K12 on the
 loss's problems, phase 19c's case a), its plain
 version's, the least time the card could take for the same work
@@ -232,6 +243,7 @@ without a CUDA device or when any phase fails.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import logging
 import os
@@ -486,7 +498,8 @@ def ptxas_report(kernels=("msda_fwd", "dcn_fwd", "dcn_im2col", "msda_bwd",
                           "sparse_inv_nbr", "sparse_wgrad", "fill_words",
                           "scan_tiles", "mark_points", "slot_points",
                           "emit_voxels", "mark_rows", "mark_sites",
-                          "build_rows", "emit_sites", "lsa_kernel")):
+                          "build_rows", "emit_sites", "lsa_kernel",
+                          "frozen_bn_act")):
     """What ``nvcc -Xptxas -v`` printed (build/kernels/nvcc.log) for the
     entry functions whose names hold one of ``kernels``: one dict each."""
     log = _build.BUILD_DIR / "nvcc.log"
@@ -727,6 +740,143 @@ def phase_dcn(gen):
     return fwd, cols_rec
 
 
+def frozen_bn_sites(depth=101, images=6, height=928, width=1600):
+    """K13's call sites in one forward of the caffe-style ResNet at
+    ``depth`` on ``images`` images of height x width: (name, images,
+    launches, form, C, H, W).  The stem's BN at half the image after
+    conv1; in each stage bn1 and bn2 of every block (form a), bn3 with the
+    identity (b) and the first block's bn3 with the downsample branch (c),
+    at the stage's resolution (the stride sits on the first 1x1)."""
+    from unibev_tpu_torch.models.backbones.resnet import ARCH_SETTINGS
+    h, w = height // 2, width // 2
+    sites = [("stem", images, 1, "a", 64, h, w)]
+    h, w = -(-h // 2), -(-w // 2)                       # the max pooling
+    for s, n in enumerate(ARCH_SETTINGS[depth]):
+        planes = 64 * 2 ** s
+        if s:
+            h, w = -(-h // 2), -(-w // 2)
+        sites += [(f"stage{s + 1} bn1/bn2", images, 2 * n, "a", planes, h, w),
+                  (f"stage{s + 1} bn3", images, n - 1, "b", 4 * planes, h, w),
+                  (f"stage{s + 1} bn3+down", images, 1, "c", 4 * planes, h,
+                   w)]
+    return [s for s in sites if s[2]]
+
+
+def frozen_bn_launches(depth=101, train=False, frozen_stages=1):
+    """K13's launches in one ResNet forward at ``depth``: one a frozen BN
+    site but the downsample BNs (the stem's, then three a bottleneck); a
+    train step adds the checkpoint recompute of every bottleneck past the
+    frozen stages."""
+    from unibev_tpu_torch.models.backbones.resnet import ARCH_SETTINGS
+    blocks = ARCH_SETTINGS[depth]
+    return 1 + 3 * sum(blocks) + (3 * sum(blocks[frozen_stages:]) if train
+                                  else 0)
+
+
+def _random_bn(C, gen, dtype):
+    """A FrozenBatchNorm on the card with buffers away from the identity
+    (weight, bias and mean normal, var in [0.5, 2])."""
+    from unibev_tpu_torch.models.backbones.resnet import FrozenBatchNorm
+    bn = FrozenBatchNorm(C).cuda()
+    for name in ("weight", "bias", "running_mean"):
+        getattr(bn, name).copy_(torch.randn(C, device="cuda", generator=gen))
+    bn.running_var.copy_(0.5 + 1.5 * torch.rand(C, device="cuda",
+                                                generator=gen))
+    return bn.to(dtype)
+
+
+def phase_frozen_bn(gen):
+    # imported here: --compare also runs against checkouts that predate it
+    from unibev_tpu_torch.ops.frozen_bn import (frozen_bn_act,
+                                                frozen_bn_act_reference)
+    print("phase 3b: K13 frozen_bn_act (a frozen BN with its ReLU and "
+          "residual add, one pass) vs frozen_bn_act_reference at ResNet-101's "
+          "sites, 6 images of 928x1600, bf16 (f32 checked at stage 3)",
+          flush=True)
+    rec = new_rec()
+    rec["device_ms"] = 0.0
+    for name, images, calls, form, C, H, W in frozen_bn_sites():
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and not name.startswith("stage3"):
+                continue
+            shape = (images, C, H, W)
+            # bf16 (timed): enough copies of the inputs to pass the 50 MB L2
+            # several times over, taken in turn, so that a timed call reads
+            # what the calls before it did not
+            per_call = (2 + (form != "a")) * images * C * H * W * 2
+            n = (max(1, -(-256 * 2 ** 20 // per_call))
+                 if dtype == torch.bfloat16 else 1)
+            cases = []
+            for _ in range(n):
+                x = torch.randn(shape, device="cuda", generator=gen).to(
+                    dtype).contiguous(memory_format=torch.channels_last)
+                kw = {}
+                if form == "b":
+                    kw["residual"] = torch.randn_like(x)
+                if form == "c":
+                    kw = dict(down=torch.randn_like(x),
+                              down_bn=_random_bn(C, gen, dtype))
+                cases.append((x, _random_bn(C, gen, dtype), kw))
+            x, bn, kw = cases[0]
+            rel = 1e-6 if dtype == torch.float32 else 2 ** -8
+            tag = f"{name} ({form}, C {C}, {H}x{W}) {str(dtype)[6:]}"
+            err = check(tag, frozen_bn_act(x, bn, **kw),
+                        frozen_bn_act_reference(x, bn, **kw), rel)
+            if dtype == torch.float32:
+                continue
+            turn = itertools.cycle(cases)
+
+            def one():
+                x, bn, kw = next(turn)
+                return frozen_bn_act(x, bn, **kw)
+            ms = cuda_ms(one, 40)
+            dev = device_ms(one, 40)
+            host = host_us(one)
+            plain = cuda_ms(lambda: frozen_bn_act_reference(x, bn, **kw), 5)
+            nbytes = (2 + (form != "a")) * x.numel() * x.element_size() \
+                + 4 * C * 2 * (1 + (form == "c"))
+            bound = add_site(rec, name, calls, ms, plain, err, nbytes, 0,
+                             device_ms=dev, host_us=host)
+            rec["device_ms"] += calls * dev
+            print(f"  {name}: {calls} launches a forward; kernel {ms:.4f} ms "
+                  f"(device {dev:.4f}; host {host:.1f} us a call), plain "
+                  f"{plain:.4f} ms, bound {bound:.4f} ms (bytes): "
+                  f"{100 * bound / dev:.1f}% of it by device time", flush=True)
+            del cases, x, bn, kw
+    ratio_line("K13 over one ResNet-101 forward", rec)
+    share = 100 * rec["bound_ms"] / rec["device_ms"]
+    print(f"  device time over the forward's 100 launches "
+          f"{rec['device_ms']:.4f} ms: {share:.1f}% of the bound", flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def backbone_kernels(model, batch):
+    """The device operations (kernels, copies, fills) of one ``img_backbone``
+    forward of ``model`` on ``batch``'s images, counted by the profiler
+    (primers left out): (total, by category)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    img = batch["img"]
+    B, N, H, W, _ = img.shape
+    x = img.reshape(B * N, H, W, 3).permute(0, 3, 1, 2).to(model.compute_dtype)
+    with torch.inference_mode():
+        model.img_backbone(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prime_trace()
+            model.img_backbone(x)
+            torch.cuda.synchronize()
+    by = Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and PRIMER_KERNEL not in e.key:
+            by[_category(e.key)] += e.count
+    total = sum(by.values())
+    print(f"  img_backbone: {total} device operations a forward {dict(by)}",
+          flush=True)
+    return total, dict(by)
+
+
 def phase_tiny():
     print("phase 4: tiny C-only model, CUDA kernels vs CPU plain versions",
           flush=True)
@@ -792,6 +942,8 @@ def phase_flagship(iters=10):
         raise AssertionError(f"expected launches {expected}, got {launches}")
     if overflow != 0 or not finite or tuple(boxes.shape) != (1, 300, 9):
         raise AssertionError(f"bad flagship output: {rec}")
+    rec["backbone_ops"], rec["backbone_ops_by_category"] = backbone_kernels(
+        model, batch)
     return model, batch, rec
 
 
@@ -950,13 +1102,15 @@ def expected_predict_launches(camera=True, lidar=True, radar=False):
     call, the voxelizer K10 once per sample of the LiDAR or radar cloud
     (``UniBEV._voxelize``), the sparse encoder's K11 once per table (its
     res-0 table and the active sets of its strided convs), K6 and K7, and
-    the radar pillar scatter's K5 once.  No im2col: only the DCN backward
-    builds columns."""
+    the radar pillar scatter's K5 once, and K13 once a frozen BN site of
+    the ResNet-101 (``frozen_bn_launches``).  No im2col: only the DCN
+    backward builds columns."""
     sites = [s for s in MSDA_SITES if camera or s[0] == "decoder_ca"]
     sites += LIDAR_MSDA_SITES if lidar or radar else []
     out = dict(msda_fwd=sum(s[1] for s in sites))
     if camera:
         out["dcn_fwd"] = sum(s[1] for s in DCN_SITES)
+        out["frozen_bn_act"] = frozen_bn_launches()
     if lidar or radar:
         out["voxelize"] = BATCH
     if lidar:
@@ -980,12 +1134,15 @@ def expected_train_launches(lidar=False, radar=False):
     encoder's MSDA sites and one K5, the pillar scatter's forward (its
     backward is a gather, no kernel).  Both add K10 once per sample, and
     LC K11 once per table: the forward's, which the backward reuses.  Every
-    step's loss assigns all its decoder layers' problems in one K12 call."""
+    step's loss assigns all its decoder layers' problems in one K12 call.
+    K13 runs once a frozen BN site and once more in the recompute of every
+    bottleneck past the frozen stage (its backward is plain PyTorch)."""
     sites = MSDA_SITES + (LIDAR_MSDA_SITES if lidar or radar else [])
     msda = sum(s[1] for s in sites)
     dcn = sum(s[1] for s in DCN_SITES)
     out = dict(msda_fwd=msda, msda_bwd=msda, dcn_fwd=2 * dcn, dcn_im2col=dcn,
-               dcn_bwd=dcn, lsa=1)
+               dcn_bwd=dcn, lsa=1,
+               frozen_bn_act=frozen_bn_launches(train=True))
     if lidar or radar:
         out["voxelize"] = BATCH
     if lidar:
@@ -1754,6 +1911,8 @@ def _category(kernel_name):
     n = kernel_name.lower()
     if "lsa_kernel" in n:
         return "K12 lsa"
+    if "frozen_bn_act" in n:
+        return "K13 frozen_bn_act"
     if "msda_fwd" in n:
         return "K1 msda_fwd"
     if "dcn_fwd" in n:
@@ -1823,6 +1982,7 @@ PROFILED_PER_CALL = {
                    (("scan_tiles<11,",), 1),
                    (("build_rows", "emit_sites"), 1)),
     "lsa": ((("lsa_kernel",), 1),),
+    "frozen_bn_act": ((("frozen_bn_act_kernel",), 1),),
 }
 
 # In a long-lived process the profiler dropped the first device kernels of
@@ -2909,9 +3069,10 @@ def phase_tiny_rc():
     cpu_model = build_model(tiny_model_cfg(use_radar=True), "cpu", seed=0)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     full = tiny_batch(np.random.RandomState(0), R=TINY_RADAR)
-    need = {"RC": {"msda_fwd", "dcn_fwd", "scatter_add_rows", "voxelize"},
+    need = {"RC": {"msda_fwd", "dcn_fwd", "frozen_bn_act", "scatter_add_rows",
+                   "voxelize"},
             "R": {"msda_fwd", "scatter_add_rows", "voxelize"},
-            "C": {"msda_fwd", "dcn_fwd"}}
+            "C": {"msda_fwd", "dcn_fwd", "frozen_bn_act"}}
     rec = {}
     for mode, drop in RC_MODES.items():
         batch = {k: v for k, v in full.items() if k not in drop}
@@ -3276,6 +3437,7 @@ def main(argv):
     gen = torch.Generator(device="cuda").manual_seed(0)
     msda = phase_msda(gen)
     dcn, dcn_cols = phase_dcn(gen)
+    k13 = phase_frozen_bn(gen)
     tiny = phase_tiny()
     model, batch, flagship = phase_flagship()
     prof = phase_profile(model, batch, flagship["ms_per_sample"])
@@ -3361,16 +3523,20 @@ def main(argv):
         kernel_entry("lsa", "unibev_tpu_torch/csrc/lsa.cu",
                      "unibev_tpu/core/bbox/lsa.py:31", lc_steps["lsa"], k12,
                      library_ms=k12["library_ms"]),
+        dict(kernel_entry("frozen_bn_act",
+                          "unibev_tpu_torch/csrc/frozen_bn_act.cu",
+                          "none (XLA's fusion of unibev_tpu/models/backbones/"
+                          "resnet.py:49)", lc["launches"]["frozen_bn_act"],
+                          k13), device_ms=k13["device_ms"]),
     ]
     # K10 also carries the RC model's radar site (phase 27), one launch a
     # forward there
     radar_vox = radar["k5"]["voxelizer"]
-    kernels[-3]["max_abs_err"] = max(kernels[-3]["max_abs_err"],
-                                     radar_vox["max_abs_err"])
-    kernels[-3].update(radar_launches=radar["rc"]["RC"]["launches"]["voxelize"],
-                       radar_ms=radar_vox["ms"],
-                       radar_plain_ms=radar_vox["plain_ms"],
-                       radar_bound_ms=radar_vox["bound_ms"])
+    vox = next(k for k in kernels if k["name"] == "voxelize")
+    vox["max_abs_err"] = max(vox["max_abs_err"], radar_vox["max_abs_err"])
+    vox.update(radar_launches=radar["rc"]["RC"]["launches"]["voxelize"],
+               radar_ms=radar_vox["ms"], radar_plain_ms=radar_vox["plain_ms"],
+               radar_bound_ms=radar_vox["bound_ms"])
     # K1 and K3 also carry cat_128's D = 16 sites (phase 20), summed over
     # their launches in one cat_128 LC forward / step
     for entry, rec in ((kernels[0], msda_d16), (kernels[3], msda_bwd_d16)):
@@ -3384,7 +3550,7 @@ def main(argv):
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
                        build_s=build_s, ptxas=ptxas, msda=msda, dcn_fwd=dcn,
-                       dcn_im2col=dcn_cols,
+                       dcn_im2col=dcn_cols, frozen_bn_act=k13,
                        tiny=tiny,
                        flagship=flagship, profile=prof, backward=bwd,
                        tiny_train=tiny_train, train=train,

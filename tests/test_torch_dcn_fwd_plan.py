@@ -13,7 +13,9 @@ predict launches ``dcn_fwd`` once per DCN layer and no im2col, and a train
 step launches ``dcn_fwd`` twice per layer (forward and checkpoint recompute)
 and the im2col once (the backward's columns).  The backward kernels K3 and
 K4 run once per call and add into their tables themselves, so a step
-launches no row scatter-add K5.
+launches no row scatter-add K5.  Each frozen BN of the ResNet-101 is one
+K13 pass with its ReLU and residual add: 100 a forward, and 90 more in a
+train step's recompute of the checkpointed bottlenecks of stages 2-4.
 """
 
 import glob
@@ -198,20 +200,20 @@ def test_schedule_is_one_wave_at_the_flagship_sites():
 PATHS = {
     "LC predict": (chip_smoke.expected_predict_launches(),
                    dict(msda_fwd=18, dcn_fwd=26, voxelize=1, active_set=5,
-                        sparse_nbr=8, sparse_conv=21)),
+                        sparse_nbr=8, sparse_conv=21, frozen_bn_act=100)),
     "C predict": (chip_smoke.expected_predict_launches(lidar=False),
-                  dict(msda_fwd=12, dcn_fwd=26)),
+                  dict(msda_fwd=12, dcn_fwd=26, frozen_bn_act=100)),
     "L predict": (chip_smoke.expected_predict_launches(camera=False),
                   dict(msda_fwd=12, voxelize=1, active_set=5, sparse_nbr=8,
                        sparse_conv=21)),
     "C train step": (chip_smoke.expected_train_launches(),
                      dict(msda_fwd=12, dcn_fwd=52, dcn_im2col=26, msda_bwd=12,
-                          dcn_bwd=26, lsa=1)),
+                          dcn_bwd=26, lsa=1, frozen_bn_act=190)),
     "LC train step": (chip_smoke.expected_train_launches(lidar=True),
                       dict(msda_fwd=18, dcn_fwd=52, dcn_im2col=26, msda_bwd=18,
                            dcn_bwd=26, voxelize=1, active_set=5, sparse_nbr=8,
                            sparse_conv=41, sparse_inv_nbr=4,
-                           sparse_conv_wgrad=21, lsa=1)),
+                           sparse_conv_wgrad=21, lsa=1, frozen_bn_act=190)),
 }
 
 

@@ -30,7 +30,10 @@ the rank -> row map on the live ranks (the plain build_table orders its
 padding rows with an unstable sort; no lookup reads past the live ranks).
 The assignment kernel K12 must give its plain version's col4row exactly
 (the same float32 arithmetic in the same order, ties to the lowest
-column).
+column).  The frozen-BN pass K13 computes its plain version's float32
+operations in the same order and rounds once: f32 1e-6, bf16 one rounding
+(2^-8); its gradient (plain PyTorch from the output) against autograd
+through the plain version, f32 1e-6.
 """
 
 import numpy as np
@@ -43,11 +46,14 @@ from unibev_tpu_torch.core.bbox.lsa import (linear_sum_assignment,
 from unibev_tpu_torch.flagship import (PC_RANGE, RADAR_POINTS,
                                        RADAR_VOXEL_SIZE, VOXEL_SIZE,
                                        synthetic_batch)
+from unibev_tpu_torch.models.backbones.resnet import FrozenBatchNorm
 from unibev_tpu_torch.ops import _build, deform_conv
 from unibev_tpu_torch.ops.deform_conv import (
     dcn_fwd, deform_im2col, deform_im2col_backward,
     deform_im2col_backward_reference, deform_im2col_reference,
     modulated_deform_conv2d, modulated_deform_conv2d_reference, tap_interior)
+from unibev_tpu_torch.ops.frozen_bn import (frozen_bn_act,
+                                            frozen_bn_act_reference)
 from unibev_tpu_torch.ops.msda import (cell_interior, ms_deform_attn,
                                        ms_deform_attn_backward,
                                        ms_deform_attn_backward_reference,
@@ -1583,3 +1589,89 @@ def test_lsa_refuses_what_the_kernel_does_not_take(cuda_device):
                                          device=cuda_device))
     with pytest.raises(ValueError):
         linear_sum_assignment(cost, valid.cpu())
+
+
+# K13's shapes: the smallest C, a bottleneck's width on an odd map, the
+# widest C on a map smaller than one wave
+FBN_SHAPES = [(2, 8, 5, 7), (3, 256, 13, 17), (1, 2048, 3, 5)]
+FBN_REL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -8}
+
+
+def _fbn_case(form, shape, dtype, buf_dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+
+    def bn():
+        m = FrozenBatchNorm(shape[1])
+        for name in ("weight", "bias", "running_mean"):
+            getattr(m, name).copy_(torch.randn(shape[1], generator=gen))
+        m.running_var.copy_(0.5 + 1.5 * torch.rand(shape[1], generator=gen))
+        return m.to(device=device, dtype=buf_dtype)
+
+    def act():
+        return torch.randn(shape, generator=gen).to(device, dtype).contiguous(
+            memory_format=torch.channels_last)
+    x, kw = act(), {}
+    if form == "b":
+        kw["residual"] = act()
+    if form == "c":
+        kw = dict(down=act(), down_bn=bn())
+    return x, bn(), kw
+
+
+@pytest.mark.parametrize("form", ["a", "b", "c"])
+@pytest.mark.parametrize("dtype,buf_dtype",
+                         [(torch.bfloat16, torch.bfloat16),
+                          (torch.bfloat16, torch.float32),
+                          (torch.float32, torch.float32),
+                          (torch.float32, torch.bfloat16)],
+                         ids=["bf16", "bf16-f32bn", "f32", "f32-bf16bn"])
+def test_frozen_bn_act_matches_plain(cuda_device, form, dtype, buf_dtype):
+    for shape in FBN_SHAPES:
+        x, bn, kw = _fbn_case(form, shape, dtype, buf_dtype, cuda_device)
+        x[0, 0, 0, 0] = float("nan")
+        before = _build.launches["frozen_bn_act"]
+        got = frozen_bn_act(x, bn, **kw)
+        assert _build.launches["frozen_bn_act"] == before + 1
+        want = frozen_bn_act_reference(x, bn, **kw)
+        assert got.dtype == dtype
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.isnan(got[0, 0, 0, 0])
+        got[0, 0, 0, 0] = want[0, 0, 0, 0] = 0
+        _close(got, want, FBN_REL[dtype])
+
+
+@pytest.mark.parametrize("form", ["a", "b", "c"])
+def test_frozen_bn_act_gradients_match_plain(cuda_device, form):
+    x, bn, kw = _fbn_case(form, FBN_SHAPES[1], torch.float32, torch.float32,
+                          cuda_device, seed=1)
+    g = torch.randn(x.shape, device=cuda_device)
+    names = ["x"] + [k for k in ("residual", "down") if k in kw]
+    grads = []
+    for fn in (frozen_bn_act, frozen_bn_act_reference):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in [x] + [kw[k] for k in names[1:]]]
+        extra = dict(zip(names[1:], leaves[1:]))
+        if "down_bn" in kw:
+            extra["down_bn"] = kw["down_bn"]
+        out = fn(leaves[0], bn, **extra)
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for got, want in zip(*grads):
+        _close(got, want, 1e-6)
+
+
+def test_frozen_bn_act_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, bn, _ = _fbn_case("a", (2, 16, 4, 6), torch.bfloat16, torch.bfloat16,
+                         cuda_device)
+    with pytest.raises(ValueError):                 # NCHW memory
+        frozen_bn_act(x.contiguous(), bn)
+    with pytest.raises(ValueError):                 # C not a multiple of 8
+        x12, bn12, _ = _fbn_case("a", (2, 12, 4, 6), torch.bfloat16,
+                                 torch.bfloat16, cuda_device)
+        frozen_bn_act(x12, bn12)
+    with pytest.raises(ValueError):                 # residual of another dtype
+        frozen_bn_act(x, bn, residual=x.float())
+    with pytest.raises(ValueError):                 # buffers of mixed dtypes
+        bn.running_var = bn.running_var.float()
+        frozen_bn_act(x, bn)
+    with pytest.raises(TypeError):
+        frozen_bn_act(x.half(), bn)

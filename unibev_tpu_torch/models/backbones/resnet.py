@@ -5,9 +5,16 @@ and 152; caffe style (the stride of a bottleneck on its first 1x1, as every
 config file sets) or pytorch style (on its 3x3, plain or deformable); every
 BN frozen to a per-channel affine, DCNv2 on the stages ``stage_with_dcn``
 names.  Module names are mmdet's, so the reference checkpoint's
-``img_backbone.*`` keys load as they are.  Inputs and outputs are NCHW tensors; run the module in
-``torch.channels_last`` so that the NHWC view the deformable im2col reads
-costs no copy.
+``img_backbone.*`` keys load as they are.  Inputs and outputs are NCHW
+tensors; run the module in ``torch.channels_last``, so that the NHWC view
+the deformable convolution reads costs no copy, and on CUDA because the
+frozen BN passes (``ops/frozen_bn.py``, kernel K13) take nothing else.
+
+Each frozen BN is one pass fused with what follows it: the stem's and a
+bottleneck's bn1 and bn2 with their ReLU, bn3 with the residual add and the
+ReLU, where the downsample branch's BN (``downsample.1``) is applied in the
+same pass to the raw ``downsample.0`` convolution.  The affine is formed
+from the BN's buffers on every call.
 
 Training: ``frozen_stages`` (mmcv's ``_freeze_stages``, re-applied by
 ``train()``) turns gradients off for the stem and ``layer1..frozen_stages``
@@ -27,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unibev_tpu_torch.ops.deform_conv import modulated_deform_conv2d
+from unibev_tpu_torch.ops.frozen_bn import bn_affine, frozen_bn_act
 from unibev_tpu_torch.registry import BACKBONES
 
 ARCH_SETTINGS = {
@@ -42,8 +50,11 @@ class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics: y = (x - mean) / sqrt(var + eps) * w + b.
 
     Buffers carry torch BatchNorm2d's names (with ``num_batches_tracked``) so a
-    reference checkpoint loads with ``strict=True``.  The affine is formed in
-    float32 and applied in x's dtype.
+    reference checkpoint loads with ``strict=True``.  The ResNet does not call
+    ``forward``: it hands the module to ``ops.frozen_bn.frozen_bn_act``, which
+    applies it with its ReLU and residual add in one pass.  ``forward``, for
+    any other caller, forms the same affine in float32 (``bn_affine``) and
+    applies it in x's dtype.
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -56,8 +67,7 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
     def forward(self, x):
-        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        shift = self.bias.float() - self.running_mean.float() * scale
+        scale, shift = bn_affine(self)
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
@@ -116,11 +126,13 @@ class Bottleneck(nn.Module):
                 FrozenBatchNorm(planes * self.expansion))
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        out = frozen_bn_act(self.conv1(x), self.bn1)
+        out = frozen_bn_act(self.conv2(out), self.bn2)
+        out = self.conv3(out)
+        if self.downsample is None:
+            return frozen_bn_act(out, self.bn3, residual=x)
+        conv, bn = self.downsample
+        return frozen_bn_act(out, self.bn3, down=conv(x), down_bn=bn)
 
 
 @BACKBONES.register_module(name="ResNet")
@@ -169,7 +181,7 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         """x (B, 3, H, W) -> tuple of the stage outputs at out_indices."""
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = frozen_bn_act(self.conv1(x), self.bn1)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         if self.frozen_stages >= 0:
             x = x.detach()
