@@ -8,11 +8,13 @@ For each of ``--seeds`` it runs the cell as the benchmark does (a short
 window at the cell's load, then the check) and writes the numbers
 compared: their largest over a dozen seeds or more is a limit's lower
 reading.  For each of ``--fault-seeds`` it runs the cell with a fault of
-``faults.py`` planted under the timed path.  For each of ``--control-seeds`` it puts the control in the
-port's place, the reference computed in fp8 (``reference/precision.py``),
-on the batches a run samples, and writes the same numbers against the
-float32 reference: their smallest is the upper reading.  The benchmark's
-own runs never run this.
+``faults.py`` (or of the cell's detector file) planted under the timed
+path.  For each of ``--control-seeds`` it puts the control in the port's
+place, the reference computed in fp8 (``reference/precision.py``), on the
+batches a run samples (with scene traffic, every frame of the first scene
+up to the last sampled call, in order, for the control and the reference
+alike), and writes the same numbers against the float32 reference: their
+smallest is the upper reading.  The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -35,37 +37,42 @@ def control_readings(cell, seed: int, device: str = "cuda"):
     from benchmark import check, traffic, weights
     from benchmark.reference import build as ref_build, precision
     t = cell.traffic
+    det = cell.detector()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     path = os.path.join(ROOT, cell.config["config_file"])
-    meta = ref_build.build_meta(path)
-    from unibev_tpu_torch.flagship import model_cfg_from_config
-    dtype = model_cfg_from_config(path)["dtype"]
-    state = weights.make_state(meta, seed, device, dtype)
-    ref = ref_build.build(path, state, device)
-    ctl = ref_build.build(path, state, device)
+    meta = ref_build.build_meta(det.REFERENCE, path)
+    dtype = det.served_dtype(path)
+    state = weights.make_state(meta, seed, device, dtype, det.init_rules)
+    ref = ref_build.build(det.REFERENCE, path, state, device)
+    ctl = ref_build.build(det.REFERENCE, path, state, device)
     del state
     pool = traffic.make_pool(t, seed, device)
     gen = torch.Generator().manual_seed(seed)
-    calls = check.sample_calls(gen, t["check_within"], t["pool"],
+    calls = check.sample_calls(gen, t["check_within"], traffic.distinct(t),
                                t["check_calls"])
-    want, got = check.Capture(ref), check.Capture(ctl, forced=True)
+    want = check.Capture(ref, det.CAPTURES)
+    got = check.Capture(ctl, det.CAPTURES, det.FORCED)
     readings = []
     with torch.no_grad(), precision.fp8(ctl):
-        for i in calls:
+        for i in traffic.replay(t, calls):
             batch = pool[i % len(pool)]
-            want.arm(i)
+            sampled = i in calls
+            want.arm(i if sampled else None)
             ref(batch)
-            got.arm(i)
+            got.arm(i if sampled else None)
             ctl(batch)
             want.arm(None)
             got.arm(None)
+            if not sampled:
+                continue
             if device == "cuda":
                 torch.cuda.synchronize()
             rec = got.records.pop(i)
             readings.append(dict(check.compare(rec, want.records.pop(i),
-                                               t["batch"]),
-                                 **check.forced(ref, rec, device)))
+                                               t["batch"], det.EXACT,
+                                               det.PER_FORWARD),
+                                 **det.forced(ref, rec, device)))
     return check.worst(readings)
 
 
@@ -76,17 +83,20 @@ def _train_control(cell, seed: int, device: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = cell.traffic
+    det = cell.detector()
     path = os.path.join(ROOT, cell.config["config_file"])
-    meta = ref_build.build_meta(path)
+    meta = ref_build.build_meta(det.REFERENCE, path)
     pool = traffic.make_pool(t, seed, device)
     steps = t["compare_steps"]
     want = train.reference_readings(
-        path, weights.make_state(meta, seed, device, torch.float32), seed,
-        pool, steps, device)
+        det.REFERENCE, path, weights.make_state(meta, seed, device,
+                                                torch.float32, det.init_rules),
+        seed, pool, steps, device)
     torch.cuda.empty_cache()
     got = train.reference_readings(
-        path, weights.make_state(meta, seed, device, torch.float32), seed,
-        pool, steps, device, control=True)
+        det.REFERENCE, path, weights.make_state(meta, seed, device,
+                                                torch.float32, det.init_rules),
+        seed, pool, steps, device, control=True)
     return train.compare(got, want)
 
 
@@ -97,7 +107,8 @@ def main(argv=None) -> int:
     p.add_argument("--control-seeds", type=int, nargs="*", default=[])
     p.add_argument("--fault-seeds", type=int, nargs="*", default=[])
     p.add_argument("--fault", default="half_batch",
-                   help="the fault of --fault-seeds (benchmark/faults.py)")
+                   help="the fault of --fault-seeds (benchmark/faults.py "
+                        "or the cell's detector file)")
     p.add_argument("--seconds", type=float, default=5.0)
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
@@ -123,11 +134,12 @@ def main(argv=None) -> int:
             print(json.dumps(line), flush=True)
             torch.cuda.empty_cache()
         from benchmark.faults import FAULTS
+        faults = dict(FAULTS, **cell.detector().FAULTS)
         for seed in args.fault_seeds:
             t0 = time.perf_counter()
             r = run.run_cell(cell, seed, args.seconds, False,
                              t_start=time.perf_counter(),
-                             fault=FAULTS[args.fault])
+                             fault=faults[args.fault])
             line = dict(workload=cell.name, side=f"fault {args.fault}",
                         seed=seed, numbers=r["numbers"], correct=r["correct"],
                         seconds=time.perf_counter() - t0)

@@ -2,33 +2,17 @@
 reference on the same weights and inputs.
 
 Forward hooks on the port's modules keep, for a sample of the window's
-calls drawn from the seed, each layer's output (copied to the host as it
-is produced, on the stream, without waiting): the camera neck, the LiDAR
-neck, the camera and LiDAR BEV encoders, the fused BEV map the decoder
-takes, the decoder's states and reference points and the head's class
-scores and boxes of every decoder layer; and, from the model's forward,
-the LiDAR branch's voxel counts and the sparse convs' overflow.  After the window the
-reference (``reference/``, float32, TF32 off) runs the same batches and the
-same hooks give its outputs.  Each number compared is the largest, over the
+calls drawn from the seed, each layer's output that the detector file
+names (``detectors/<model.type>.py``, ``CAPTURES``; copied to the host as
+it is produced, on the stream, without waiting), with what its step-by-step
+check reads of the port alone (``FORCED``).  After the window the reference
+(``reference/``, float32, TF32 off) runs the same batches and the same
+hooks give its outputs.  Each number compared is the largest, over the
 sampled calls and the samples of each, of one layer's relative L2 error
-``|port - ref| / |ref|`` on one sample, or, for the counts, the largest
-absolute difference.  ``limits/<workload>.json`` holds each number's limit.
-
-The decoder and the head's branches are compared step by step from the
-port's own state (``forced``): each of the six decoder layers, run by the
-reference on the port's input to that layer (its query, the fused BEV map,
-the positions and the reference points the port refined), against the
-port's output of that layer; the reference points, the first layer's
-against the reference's from the port's query positions and each later
-layer's against the reference's refinement of the layer before (its state
-and points); the class and box branches of every layer on the port's
-decoder states; and what ``predict`` returned (boxes, scores, labels,
-validity) against the reference's decoding of the port's last layer,
-row by row.  Run end to end, the six layers' box
-refinement moves each layer's sampling points by what the layers before it
-rounded, and the last layers' outputs then differ by 10-25% in bf16 and in
-fp8 alike, which no limit separates; the decoder's input, the fused map,
-is compared end to end (``fused``).
+``|port - ref| / |ref|`` on one sample, or, for the counts the detector
+names (``EXACT``), the largest absolute difference; the detector file's
+``forced`` adds the numbers of the layers it runs step by step from the
+port's own state.  ``limits/<workload>.json`` holds each number's limit.
 """
 
 from __future__ import annotations
@@ -39,51 +23,31 @@ import numpy as np
 import torch
 from torch import nn
 
-# name: (module path, how to read it from the module's output and inputs)
-CAPTURES = {
-    "img_feat": ("img_neck", lambda out, args: out[0]),
-    "pts_feat": ("pts_neck", lambda out, args: out),
-    "img_bev": ("pts_bbox_head.transformer.img_bev_encoder",
-                lambda out, args: out[0]),
-    "pts_bev": ("pts_bbox_head.transformer.pts_bev_encoder",
-                lambda out, args: out),
-    "fused": ("pts_bbox_head.transformer.decoder", lambda out, args: args[1]),
-    "voxels": ("", lambda out, args: out.get("num_distinct_voxels")),
-    "overflow": ("", lambda out, args: out.get("sparse_overflow")),
-}
-# what the step-by-step check reads of the port alone
-FORCED = {
-    "dec_query": ("pts_bbox_head.transformer.decoder", lambda out, args: args[0]),
-    "dec_pos": ("pts_bbox_head.transformer.decoder", lambda out, args: args[2]),
-    "states": ("pts_bbox_head.transformer.decoder", lambda out, args: out[0]),
-    "refs": ("pts_bbox_head.transformer.decoder", lambda out, args: out[1]),
-    "cls_out": ("pts_bbox_head", lambda out, args: out["all_cls_scores"]),
-    "box_out": ("pts_bbox_head", lambda out, args: out["all_bbox_preds"]),
-}
-# numbers compared exactly (counts); the others by relative L2 error
-EXACT = ("voxels", "overflow", "decode")
 # what predict returns, compared row by row
 DECODED = ("scores", "labels", "valid", "bboxes")
 
 
-def per_sample(name: str, t: torch.Tensor, batch: int) -> torch.Tensor:
-    """``t`` as (batch, -1) float32 rows, one a sample."""
+def per_sample(name: str, t: torch.Tensor, batch: int,
+               per_forward) -> torch.Tensor:
+    """``t`` as (batch, -1) float32 rows, one a sample; a count of a whole
+    forward (``per_forward``) as one row."""
     t = t.float()
-    if name == "overflow":                     # one count a forward
+    if name in per_forward:
         return t.reshape(1, -1)
     return t.reshape(batch, -1)
 
 
 class Capture:
-    """Forward hooks on a model that keep the outputs of :data:`CAPTURES`
-    (and, with ``forced``, of :data:`FORCED`) while armed, copied to the
-    host without waiting."""
+    """Forward hooks on a model that keep the outputs of ``captures`` (and
+    of ``forced``, where given) while armed, copied to the host without
+    waiting: {name: (module path, how to read it from the module's output
+    and inputs)}, a detector file's ``CAPTURES`` and ``FORCED``."""
 
-    def __init__(self, model: nn.Module, forced: bool = False):
+    def __init__(self, model: nn.Module, captures: Dict, forced: Dict = None):
         self.records: Dict[int, Dict[str, torch.Tensor]] = {}
         self._current: Optional[Dict[str, torch.Tensor]] = None
         self._handles = []
-        self._what = dict(CAPTURES, **(FORCED if forced else {}))
+        self._what = dict(captures, **(forced or {}))
         modules = dict(model.named_modules())
         paths: Dict[str, List[str]] = {}
         for name, (path, _) in self._what.items():
@@ -120,10 +84,11 @@ class Capture:
 
 
 def compare(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
-            batch: int) -> Dict[str, float]:
+            batch: int, exact, per_forward) -> Dict[str, float]:
     """Each number of one call: relative L2 error per sample, the largest
-    over the samples; counts by their largest absolute difference.  A layer
-    the reference ran and the port did not reads infinity."""
+    over the samples; counts (``exact``) by their largest absolute
+    difference, those of a whole forward (``per_forward``) as one row.  A
+    layer the reference ran and the port did not reads infinity."""
     out: Dict[str, float] = {}
     for name, r in want.items():
         if name == "decoded":
@@ -131,11 +96,11 @@ def compare(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
         if name not in got:
             out[name] = float("inf")
             continue
-        g = per_sample(name, got[name], batch)
-        r = per_sample(name, r, batch)
+        g = per_sample(name, got[name], batch, per_forward)
+        r = per_sample(name, r, batch, per_forward)
         if g.shape != r.shape:
             out[name] = float("inf")
-        elif name in EXACT:
+        elif name in exact:
             out[name] = float((g - r).abs().max())
         else:
             err = (g - r).norm(dim=1) / r.norm(dim=1).clamp(min=1e-30)
@@ -143,7 +108,7 @@ def compare(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
     return out
 
 
-def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     """The largest over the samples (dim 0) of the relative L2 error."""
     g = got.float().reshape(got.shape[0], -1)
     w = want.float().reshape(want.shape[0], -1)
@@ -175,55 +140,6 @@ def decode_gap(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]
         else:
             diff += int((g != w).any(axis=1).sum())
     return float(diff)
-
-
-@torch.no_grad()
-def forced(ref: nn.Module, got: Dict[str, torch.Tensor],
-           device) -> Dict[str, float]:
-    """The decoder layers and the head's branches of the reference ``ref``
-    run step by step on the port's own state ``got`` (:data:`FORCED`):
-    ``decoder`` (each layer's output), ``refs`` (each layer's reference
-    points), ``cls`` and ``box`` (each layer's class scores and boxes),
-    each the largest over layers and samples; and ``decode``, the rows of
-    ``predict``'s output that differ from the reference's decoding of the
-    port's last layer."""
-    from benchmark.reference.models.layers import inverse_sigmoid
-    if "states" not in got:
-        return {}
-    head = ref.pts_bbox_head
-    tr = head.transformer
-    on = {k: got[k].to(device).float() for k in FORCED if k in got}
-    value, pos = got["fused"].to(device).float(), on["dec_pos"]
-    states, refs = on["states"], on["refs"]
-    query = on["dec_query"]
-    pr = head.pc_range
-    dec = cls = box = 0.0
-    points = _rel(refs[0], torch.sigmoid(tr.reference_points(pos)))
-    last = len(tr.decoder.layers) - 1
-    for lvl, layer in enumerate(tr.decoder.layers):
-        out = layer(query, value, pos, refs[lvl][..., None, :2],
-                    ((tr.bev_h, tr.bev_w),))
-        dec = max(dec, _rel(states[lvl], out))
-        query = states[lvl]
-        cls = max(cls, _rel(on["cls_out"][lvl],
-                            head.cls_branches[lvl](states[lvl])))
-        reference = inverse_sigmoid(refs[lvl])
-        tmp = head.reg_branches[lvl](states[lvl])
-        xy = torch.sigmoid(tmp[..., 0:2] + reference[..., 0:2])
-        z = torch.sigmoid(tmp[..., 4:5] + reference[..., 2:3])
-        if lvl < last:
-            points = max(points, _rel(refs[lvl + 1],
-                                      torch.cat([xy, z], dim=-1)))
-        want = torch.cat([xy[..., 0:1] * (pr[3] - pr[0]) + pr[0],
-                          xy[..., 1:2] * (pr[4] - pr[1]) + pr[1], tmp[..., 2:4],
-                          z * (pr[5] - pr[2]) + pr[2], tmp[..., 5:]], dim=-1)
-        box = max(box, _rel(on["box_out"][lvl], want))
-    numbers = {"decoder": dec, "refs": points, "cls": cls, "box": box}
-    if "decoded" in got:
-        decoded = head.get_bboxes({"all_cls_scores": on["cls_out"],
-                                   "all_bbox_preds": on["box_out"]})
-        numbers["decode"] = decode_gap(got["decoded"], decoded)
-    return numbers
 
 
 def worst(readings: List[Dict[str, float]]) -> Dict[str, float]:

@@ -1,8 +1,17 @@
 """Faults planted under the timed path, to read what the check makes of
 them (``calibrate.py --fault``, the harness's tests).  Each wraps the call
-the window drives: ``fault(call, model) -> call``."""
+the window drives: ``fault(call, model) -> call``.  These know nothing of
+a detector's modules; a detector file may add its own (``FAULTS``).
+
+Two break a scene's state through the batch alone (scene traffic,
+``traffic.py``): ``scene_never_starts`` gives every call the first batch's
+``scene_id``, so state leaks from the warm-up and across scenes;
+``scene_always_starts`` gives each call a fresh one, so no history is
+used."""
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -32,15 +41,6 @@ def state_unchanged(call, model):
     return broken
 
 
-def answer_altered(call, model):
-    """One sample's boxes altered where the head produces them."""
-    def hook(module, args, out):
-        out["all_bbox_preds"][:, 0, :, 0] += 0.5
-        return out
-    model.pts_bbox_head.register_forward_hook(hook)
-    return call
-
-
 def decode_altered(call, model):
     """One sample's decoded boxes altered where ``predict`` returns them."""
     def broken(batch):
@@ -52,5 +52,26 @@ def decode_altered(call, model):
     return broken
 
 
-FAULTS = {f.__name__: f for f in (half_batch, state_unchanged, answer_altered,
-                                  decode_altered)}
+def scene_never_starts(call, model):
+    """Every call's ``scene_id`` set to the first batch's value."""
+    first = []
+
+    def broken(batch):
+        if not first:
+            first.append(batch["scene_id"])
+        return call(dict(batch, scene_id=first[0]))
+    return broken
+
+
+def scene_always_starts(call, model):
+    """Each call given a ``scene_id`` no call had before."""
+    fresh = itertools.count(1)
+
+    def broken(batch):
+        return call(dict(batch, scene_id=batch["scene_id"]
+                         + next(fresh) * 2 ** 40))
+    return broken
+
+
+FAULTS = {f.__name__: f for f in (half_batch, state_unchanged, decode_altered,
+                                  scene_never_starts, scene_always_starts)}

@@ -2,10 +2,11 @@
 
 A frozen copy of the port's ``flagship.model_cfg_from_config``: ``model``
 without its ``type``, ``use_lidar`` / ``use_camera`` from
-``input_modality`` where ``model`` does not set them.  The reference
-always computes in float32, whatever ``dtype`` the file names; the model
-is built on the meta device, in eval mode with gradients off, and takes
-its values from a state dict.
+``input_modality`` where ``model`` does not set them.  The class is the one
+the detector file of the config's ``model.type`` names (its
+``REFERENCE``).  The reference always computes in float32, whatever
+``dtype`` the file names; the model is built on the meta device, in eval
+mode with gradients off, and takes its values from a state dict.
 """
 
 from __future__ import annotations
@@ -13,9 +14,9 @@ from __future__ import annotations
 import os
 
 import torch
+from torch import nn
 
 from benchmark.reference.config.config import Config
-from benchmark.reference.models.detectors.unibev import UniBEV
 
 
 def _frozen(obj):
@@ -30,9 +31,7 @@ def model_cfg(path) -> dict:
     """The detector's arguments from the config file at ``path``, float32."""
     cfg = Config.fromfile(os.fspath(path))
     model = _frozen(dict(cfg["model"]))
-    kind = model.pop("type", "UniBEV")
-    if kind != "UniBEV":
-        raise ValueError(f"the reference builds UniBEV detectors, not {kind!r}")
+    model.pop("type", None)
     modality = cfg.get("input_modality") or {}
     for key in ("use_lidar", "use_camera"):
         if key in modality:
@@ -41,16 +40,17 @@ def model_cfg(path) -> dict:
     return model
 
 
-def build_meta(path) -> UniBEV:
-    """The reference model of the config file at ``path``, shapes only."""
+def build_meta(cls, path) -> nn.Module:
+    """The reference model ``cls`` of the config file at ``path``, shapes
+    only."""
     with torch.device("meta"):
-        return UniBEV(**model_cfg(path)).eval().requires_grad_(False)
+        return cls(**model_cfg(path)).eval().requires_grad_(False)
 
 
-def build(path, state, device) -> UniBEV:
-    """The reference model on ``device`` with ``state`` (any float dtype)
-    loaded as float32."""
-    model = build_meta(path).to_empty(device=device)
+def build(cls, path, state, device) -> nn.Module:
+    """The reference model ``cls`` on ``device`` with ``state`` (any float
+    dtype) loaded as float32."""
+    model = build_meta(cls, path).to_empty(device=device)
     model.load_state_dict({k: v.float() if v.is_floating_point() else v
                            for k, v in state.items()})
     return model

@@ -2,8 +2,8 @@
 
     python3 -m benchmark.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-From the checkout's root.  The run builds the cell's model through the
-port's ``flagship.build_model_from_config`` with weights drawn from the
+From the checkout's root.  The run builds the cell's model through its
+detector file (``detectors/<model.type>.py``) with weights drawn from the
 seed on the card, draws a pool of batches from the seed (``traffic.py``),
 warms every shape up (set-up ends at the first timed call), and then drives
 the port for ``--seconds``: an evaluation cell issues call n + 1 before it
@@ -13,9 +13,11 @@ Once the window has closed it reads the peak memory, and with ``--trace 1``
 traces a few more calls with the benchmark's ranges in (``trace.py``,
 ``spans.py``) and reads the cell's per-layer metrics (``metrics/``).  Then
 it frees the port, runs the plain reference on the sampled calls' batches
-(``check.py``) and judges them.  The last line of standard output is the
-result, JSON; the last lines of standard error are the numbers compared,
-each with its limit.
+(``check.py``; with scene traffic, on every frame of the first scene up to
+the last sampled call, in order, so that the reference builds its own
+state) and judges them.  The last line of standard output is the result,
+JSON; the last lines of standard error are the numbers compared, each with
+its limit.
 
 It exits with a code other than 0 and prints no result when no CUDA card
 is there (or fewer than the cell asks for), or when JAX or the JAX package
@@ -27,7 +29,6 @@ import time
 PROCESS_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -36,6 +37,8 @@ import sys  # noqa: E402
 from collections import deque  # noqa: E402
 from dataclasses import dataclass, field  # noqa: E402
 from typing import Callable, Dict, List, Optional  # noqa: E402
+
+from benchmark.spec import load_file  # noqa: E402,F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -167,17 +170,6 @@ def percentile(values: List[float], q: float) -> float:
     return s[max(0, math.ceil(q / 100 * len(s)) - 1)]
 
 
-def load_file(kind: str, name: str, here: str = HERE):
-    """The module ``<here>/<kind>/<name>.py`` (a metric's reader, an op's
-    work formula), found by name; names may hold dots."""
-    path = os.path.join(here, kind, f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark_{kind}_{name}".replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def end_to_end(name: str, window: Window, setup_s: float, peak: int
                ) -> Optional[float]:
     """An end-to-end metric by the form of its name: ``*samples_per_s``
@@ -192,37 +184,34 @@ def end_to_end(name: str, window: Window, setup_s: float, peak: int
     return {"peak_mem_gib": peak / GIB, "setup_s": setup_s}.get(name)
 
 
-def check_model(config: Dict, model) -> None:
-    """Fail where the built model differs from the configuration file's
-    shape-defining values (``expect``)."""
-    from benchmark import shapes
-    got = shapes.of_model(model)
-    bad = {k: (got.get(k), v) for k, v in config["expect"].items()
-           if got.get(k) != v}
-    if bad:
-        raise ValueError(f"the model built from {config['config_file']} "
-                         f"differs from {config['name']}'s values (built, "
-                         f"expected): {bad}")
-
-
-def count_flops(ref, batch, torch) -> float:
+def count_flops(ref, batch, torch, sites: Dict) -> float:
     """Model operations of one reference forward over ``batch``: every
-    product aten runs (``FlopCounterMode``) and the deformable attention's
-    sampling (``work/msda_fwd.py``), which aten sees as grid_sample."""
+    product aten runs (``FlopCounterMode``) and the work (``work/<op>.py``)
+    of each op called at the detector's reference ``sites`` ({op: ((module,
+    name), ...)}), which aten sees otherwise (the deformable attention's
+    sampling as grid_sample)."""
+    import importlib
     from torch.utils.flop_counter import FlopCounterMode
     from benchmark import spans
-    from benchmark.reference.models.attention import deformable
-    from benchmark.work import msda_fwd
-    calls: List = []
-    inner = deformable.ms_deform_attn
-    deformable.ms_deform_attn = spans._wrap("op:msda_fwd", inner, calls,
-                                            "ms_deform_attn")
+    calls: Dict[str, List] = {op: [] for op in sites}
+    undo = []
+    for op, where in sites.items():
+        for module_name, attr in where:
+            mod = importlib.import_module(module_name)
+            inner = getattr(mod, attr)
+            undo.append((mod, attr, inner))
+            setattr(mod, attr, spans._wrap(f"op:{op}", inner, calls[op], attr))
     try:
         with FlopCounterMode(display=False) as counter, torch.no_grad():
             ref(batch)
     finally:
-        deformable.ms_deform_attn = inner
-    return counter.get_total_flops() + sum(msda_fwd.work(c)[0] for c in calls)
+        for mod, attr, inner in reversed(undo):
+            setattr(mod, attr, inner)
+    total = counter.get_total_flops()
+    for op, cs in calls.items():
+        work = load_file("work", op).work
+        total += sum(work(c)[0] for c in cs)
+    return total
 
 
 class _NoCapture:
@@ -246,11 +235,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     numbers compared (``numbers``) beside it.  ``fault``, for the harness's
     tests and the readings of a fault, wraps the call the window drives."""
     import torch
-    from unibev_tpu_torch import flagship
     from unibev_tpu_torch.ops import _build
-    from benchmark import check, spans, traffic, weights
+    from benchmark import check, shapes, spans, traffic, weights
     from benchmark import train as training
     from benchmark.reference import build as ref_build
+    det = cell.detector()
 
     # set-up's phases, each as seconds from the start, for standard error
     phases: List = []
@@ -264,14 +253,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     t = cell.traffic
     train = t["kind"] == "train"
     config_file = os.path.join(ROOT, cell.config["config_file"])
-    model = flagship.build_model_from_config(config_file, device="meta",
-                                             train=train)
-    check_model(cell.config, model)
-    meta_ref = ref_build.build_meta(config_file)
+    model = det.build_port(config_file, "meta", train)
+    shapes.check(cell.config, model, det)
+    meta_ref = ref_build.build_meta(det.REFERENCE, config_file)
     # the type the weights are served in: float32 master weights to train
-    dtype = torch.float32 if train else \
-        flagship.model_cfg_from_config(config_file)["dtype"]
-    state = weights.make_state(meta_ref, seed, device, dtype)
+    dtype = torch.float32 if train else det.served_dtype(config_file)
+    state = weights.make_state(meta_ref, seed, device, dtype, det.init_rules)
     phase("weights")
     model = model.to_empty(device=device)
     model.load_state_dict(state)
@@ -293,14 +280,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         call = model.predict
         if fault is not None:
             call = fault(call, model)
-        capture = check.Capture(model, forced=True)
+        capture = check.Capture(model, det.CAPTURES, det.FORCED)
         gen = torch.Generator().manual_seed(seed)
-        armed = set(check.sample_calls(gen, t["check_within"], t["pool"],
-                                       t["check_calls"]))
+        armed = set(check.sample_calls(gen, t["check_within"],
+                                       traffic.distinct(t), t["check_calls"]))
         # warm-up: every shape, and the pinned host buffers the copies reuse
-        for i in range(t["warmup"]):
+        for i, batch in enumerate(traffic.warmup(t, pool)):
             capture.arm(-1 - i)
-            _to_host(call(pool[i % len(pool)]), {})
+            _to_host(call(batch), {})
         capture.arm(None)
         capture.records.clear()
     del state
@@ -323,12 +310,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     if trace:
         from benchmark import trace as tr
         n = t["trace_calls"]
-        with spans.install(model) as calls:
+        with spans.install(model, det.LAYERS, det.OPS) as calls:
             ctx.trace = tr.traced(
                 lambda: run_window(t["loop"], call, pool, 0.0, samples,
                                    capture, set(), torch, calls=n),
                 lambda: _build.launches)
-        spans.count_live(calls)
+        spans.settle(calls)
         print(f"trace: attempt {ctx.trace.attempts}, {ctx.trace.lost}",
               file=sys.stderr, flush=True)
         ctx.op_calls = calls
@@ -345,24 +332,27 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_check = time.perf_counter()
-    state = weights.make_state(meta_ref, seed, device, dtype)
+    state = weights.make_state(meta_ref, seed, device, dtype, det.init_rules)
     if train:
-        want = training.reference_readings(config_file, state, seed, pool,
-                                           t["compare_steps"], device)
+        want = training.reference_readings(det.REFERENCE, config_file, state,
+                                           seed, pool, t["compare_steps"],
+                                           device)
         numbers = training.compare(steps, want)
         for key, rows in training.worst_leaves(steps, want).items():
             print(f"largest {key} gaps (parameter, gap, port, reference): "
                   f"{rows}", file=sys.stderr, flush=True)
         if trace:
-            ref = ref_build.build(config_file, state, device)
+            ref = ref_build.build(det.REFERENCE, config_file, state, device)
             # a step's model operations: the forward's and twice them for
             # the backward
-            ctx.flops_per_sample = 3 * count_flops(ref, pool[0], torch) / samples
+            ctx.flops_per_sample = 3 * count_flops(
+                ref, pool[0], torch, det.REF_OPS) / samples
             del ref
     else:
-        numbers = _check_predict(cell, ref_build.build(config_file, state,
-                                                       device),
-                                 capture, pool, device, trace, ctx, torch)
+        numbers = _check_predict(
+            cell, det, ref_build.build(det.REFERENCE, config_file, state,
+                                       device),
+            capture, pool, device, trace, ctx, torch)
     del state
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     correct, rows = check.judge(numbers, cell.limits)
@@ -401,33 +391,39 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     return result
 
 
-def _check_predict(cell, ref, capture, pool, device, trace, ctx, torch
+def _check_predict(cell, det, ref, capture, pool, device, trace, ctx, torch
                    ) -> Dict[str, float]:
-    """The reference on the sampled calls' batches: each call's numbers,
-    the largest of each over the calls."""
-    from benchmark import check
+    """The reference on the sampled calls' batches (with scene traffic, on
+    every frame of the first scene up to the last sampled call, in order:
+    ``traffic.replay``): each sampled call's numbers, the largest of each
+    over the calls."""
+    from benchmark import check, traffic
     t = cell.traffic
-    ref_capture = check.Capture(ref)
+    ref_capture = check.Capture(ref, det.CAPTURES)
     readings = []
-    for i in sorted(capture.records):
-        ref_capture.arm(i)
+    for i in traffic.replay(t, sorted(capture.records)):
+        sampled = i in capture.records
+        ref_capture.arm(i if sampled else None)
         with torch.no_grad():
             ref(pool[i % len(pool)])
         ref_capture.arm(None)
+        if not sampled:
+            continue
         if device == "cuda":
             torch.cuda.synchronize()
         got = capture.records[i]
-        if "voxels" in got:
-            print(f"call {i}: distinct voxels {got['voxels'].tolist()}, "
-                  f"sparse overflow {got['overflow'].tolist()}",
-                  file=sys.stderr, flush=True)
+        line = det.describe(got)
+        if line:
+            print(f"call {i}: {line}", file=sys.stderr, flush=True)
         readings.append(dict(check.compare(got, ref_capture.records.pop(i),
-                                           t["batch"]),
-                             **check.forced(ref, got, device)))
+                                           t["batch"], det.EXACT,
+                                           det.PER_FORWARD),
+                             **det.forced(ref, got, device)))
     if not readings:
         readings.append({k: float("inf") for k in cell.limits})
     if trace:
-        ctx.flops_per_sample = count_flops(ref, pool[0], torch) / t["batch"]
+        ctx.flops_per_sample = count_flops(ref, pool[0], torch,
+                                           det.REF_OPS) / t["batch"]
     return check.worst(readings)
 
 

@@ -8,9 +8,13 @@ import pytest
 import torch
 
 from benchmark import check, run, traffic, weights
-from benchmark.faults import answer_altered, decode_altered, half_batch
+from benchmark.faults import decode_altered, half_batch
 from benchmark.reference import build as ref_build, precision
+from benchmark.spec import load_file
 from benchmark.tests.tiny import tiny_cell
+
+UNIBEV = load_file("detectors", "UniBEV")
+answer_altered = UNIBEV.FAULTS["answer_altered"]
 
 # limits of the tiny cell: the port's CPU path is the reference's code, so
 # an unbroken run reads 0; any fault reads far above
@@ -45,19 +49,22 @@ def test_control_fails_the_limits(tmp_path):
     """The reference in fp8 (the control) in the port's place."""
     cell = tiny_cell(tmp_path, LIMITS)
     path = cell.config["config_file"]
-    state = weights.make_state(ref_build.build_meta(path), SEED, "cpu",
-                               torch.float32)
-    ref = ref_build.build(path, state, "cpu")
-    ctl = ref_build.build(path, state, "cpu")
+    det = UNIBEV
+    state = weights.make_state(ref_build.build_meta(det.REFERENCE, path),
+                               SEED, "cpu", torch.float32, det.init_rules)
+    ref = ref_build.build(det.REFERENCE, path, state, "cpu")
+    ctl = ref_build.build(det.REFERENCE, path, state, "cpu")
     batch = traffic.make_pool(cell.traffic, SEED, "cpu")[0]
-    want, got = check.Capture(ref), check.Capture(ctl, forced=True)
+    want = check.Capture(ref, det.CAPTURES)
+    got = check.Capture(ctl, det.CAPTURES, det.FORCED)
     with torch.no_grad(), precision.fp8(ctl):
         want.arm(0)
         ref(batch)
         got.arm(0)
         ctl(batch)
-    numbers = dict(check.compare(got.records[0], want.records[0], 2),
-                   **check.forced(ref, got.records[0], "cpu"))
+    numbers = dict(check.compare(got.records[0], want.records[0], 2,
+                                 det.EXACT, det.PER_FORWARD),
+                   **det.forced(ref, got.records[0], "cpu"))
     correct, rows = check.judge(numbers, LIMITS)
     assert not correct
     assert numbers["cls"] > 100 * LIMITS["cls"]

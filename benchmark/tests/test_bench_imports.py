@@ -15,11 +15,12 @@ HARNESS = """
 import glob, json, os, sys
 import benchmark.run, benchmark.calibrate, benchmark.check, benchmark.spans
 import benchmark.trace, benchmark.traffic, benchmark.weights, benchmark.shapes
-import benchmark.readers, benchmark.peaks, benchmark.spec
+import benchmark.readers, benchmark.peaks, benchmark.spec, benchmark.faults
 from benchmark.run import load_file
-for kind in ("metrics", "work"):
+for kind in ("metrics", "work", "detectors"):
     for f in glob.glob(os.path.join(benchmark.run.HERE, kind, "*.py")):
         load_file(kind, os.path.basename(f)[:-3])
+benchmark.trace.hand_kernels()
 import unibev_tpu_torch.flagship, unibev_tpu_torch.parallel.train_state
 print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))
 """

@@ -8,19 +8,21 @@ import torch
 
 from benchmark import check, traffic, weights
 from benchmark.reference import build as ref_build
+from benchmark.spec import load_file
 from benchmark.tests.tiny import TRAFFIC, write_config
 
 SEED = 99
+UNIBEV = load_file("detectors", "UniBEV")
 
 
 def _models(tmp_path, lidar=True):
     from unibev_tpu_torch.flagship import build_model_from_config
     path = write_config(tmp_path, lidar)
-    state = weights.make_state(ref_build.build_meta(path), SEED, "cpu",
-                               torch.float32)
+    state = weights.make_state(ref_build.build_meta(UNIBEV.REFERENCE, path),
+                               SEED, "cpu", torch.float32, UNIBEV.init_rules)
     port = build_model_from_config(path, device="meta").to_empty(device="cpu")
     port.load_state_dict(state)
-    return port, ref_build.build(path, state, "cpu")
+    return port, ref_build.build(UNIBEV.REFERENCE, path, state, "cpu")
 
 
 def _batch(inputs):
@@ -34,14 +36,16 @@ def _batch(inputs):
 def test_predict_matches_the_port(tmp_path, inputs, lidar):
     port, ref = _models(tmp_path, lidar)
     batch = _batch(inputs)
-    got, want = check.Capture(port, forced=True), check.Capture(ref)
+    got = check.Capture(port, UNIBEV.CAPTURES, UNIBEV.FORCED)
+    want = check.Capture(ref, UNIBEV.CAPTURES)
     got.arm(0)
     out = port.predict(batch)
     want.arm(0)
     with torch.no_grad():
         ref(batch)
-    numbers = check.compare(got.records[0], want.records[0], 2)
-    numbers.update(check.forced(ref, got.records[0], "cpu"))
+    numbers = check.compare(got.records[0], want.records[0], 2,
+                            UNIBEV.EXACT, UNIBEV.PER_FORWARD)
+    numbers.update(UNIBEV.forced(ref, got.records[0], "cpu"))
     assert {"fused", "decoder", "cls", "box"} <= set(numbers)
     assert ("img_feat" in numbers) == ("img" in inputs)
     assert ("pts_feat" in numbers) == ("points" in inputs)

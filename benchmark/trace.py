@@ -7,9 +7,17 @@ process, which lost none, and every trace here still opens with
 ``PRIMERS`` spin kernels and closes, once the traced calls have drained,
 with ``TRAILERS`` more and ``SETTLE_S`` of host time.  None of them is
 counted.  The hand kernels traced are held to the launches the port counted
-(``unibev_tpu_torch.ops._build.launches``, by ``PROFILED_PER_CALL``): a
-trace that differs is taken again, up to ``ATTEMPTS`` in all, and one that
-still differs fails the run, so no reading rests on a short device time.
+(``unibev_tpu_torch.ops._build.launches``, by each kernel's ``profiled``
+entry): a trace that differs is taken again, up to ``ATTEMPTS`` in all, and
+one that still differs fails the run, so no reading rests on a short device
+time.
+
+Each hand kernel is a file of its own, ``kernels/<launch key>.json`` (the
+key the port counts its launches by): ``profiled``, the ``__global__``
+functions its C entry point launches a fixed number of times a call, as
+[[alternative name fragments], count]; ``category``, its name in the
+breakdown; ``match``, the name fragments that put a device operation in
+that category.  Adding a kernel is adding its file.
 
 Each device event (kernel, copy, fill) is matched by its correlation id to
 the host call that launched it, and so to the benchmark's ranges open at
@@ -26,6 +34,10 @@ count every traced call.
 from __future__ import annotations
 
 import bisect
+import functools
+import glob
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Tuple
@@ -47,60 +59,27 @@ PROFILER_LAYERS = (("autograd::engine::evaluate_function", "layer:backward"),
 WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
 
-# The __global__ functions each hand kernel's C entry point launches a fixed
-# number of times a call (alternative name fragments, count).
-PROFILED_PER_CALL = {
-    "msda_fwd": ((("msda_fwd_kernel",), 1),),
-    "dcn_fwd": ((("dcn_fwd_kernel",), 1),),
-    "dcn_im2col": ((("dcn_im2col_kernel",), 1),),
-    "msda_bwd": ((("msda_bwd_kernel",), 1),),
-    "dcn_bwd": ((("dcn_bwd_kernel",), 1),),
-    "scatter_add_rows": ((("scatter_add_rows_kernel",), 1),),
-    "sparse_nbr": ((("sparse_nbr_kernel",), 1),),
-    "sparse_conv": ((("sparse_conv_kernel",), 1),),
-    "sparse_inv_nbr": ((("sparse_inv_nbr_kernel",), 1),),
-    "sparse_conv_wgrad": ((("sparse_wgrad",), 1),),
-    "voxelize": ((("fill_words<10>",), 1), (("mark_points",), 1),
-                 (("scan_tiles<10,",), 1), (("slot_points",), 1),
-                 (("emit_voxels",), 1)),
-    "active_set": ((("fill_words<11>",), 1), (("mark_rows", "mark_sites"), 1),
-                   (("scan_tiles<11,",), 1),
-                   (("build_rows", "emit_sites"), 1)),
-    "lsa": ((("lsa_kernel",), 1),),
-}
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def category(kernel_name: str) -> str:
-    """The breakdown's name of a device operation."""
+@functools.lru_cache(maxsize=None)
+def hand_kernels(here: str = HERE) -> Dict[str, Dict]:
+    """{launch key: its ``kernels/<key>.json``}, in the order of the keys."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(here, "kernels", "*.json"))):
+        with open(path) as f:
+            out[os.path.basename(path)[:-5]] = json.load(f)
+    return out
+
+
+def category(kernel_name: str, here: str = HERE) -> str:
+    """The breakdown's name of a device operation: a hand kernel's
+    ``category`` where one of its ``match`` fragments is in the name, else
+    the library's work it is."""
     n = kernel_name.lower()
-    if "lsa_kernel" in n:
-        return "K12 lsa"
-    if "msda_fwd" in n:
-        return "K1 msda_fwd"
-    if "dcn_fwd" in n:
-        return "K2 dcn_fwd"
-    if "dcn_im2col" in n:
-        return "dcn_im2col (the DCN backward's columns)"
-    if "msda_bwd" in n:
-        return "K3 msda_bwd"
-    if "dcn_bwd" in n:
-        return "K4 dcn_bwd"
-    if "scatter_add_rows" in n:
-        return "K5 scatter_add_rows"
-    if "sparse_inv_nbr" in n:
-        return "K8 sparse_inv_nbr"
-    if "sparse_wgrad" in n:
-        return "K9 sparse_conv_wgrad"
-    if "sparse_nbr" in n:
-        return "K6 sparse_nbr"
-    if "sparse_conv" in n:
-        return "K7 sparse_conv"
-    if any(k in n for k in ("<10>", "<10,", "mark_points", "slot_points",
-                            "emit_voxels")):
-        return "K10 voxelize"
-    if any(k in n for k in ("<11>", "<11,", "mark_rows", "mark_sites",
-                            "build_rows", "emit_sites")):
-        return "K11 active_set"
+    for k in hand_kernels(here).values():
+        if any(f in n for f in k["match"]):
+            return k["category"]
     if "memcpy" in n or "memset" in n:
         return "copies and fills"
     if "sort" in n:
@@ -175,8 +154,9 @@ def _is_launch(name: str) -> bool:
 def _counts(device, launched: Dict[str, int]) -> Dict[str, Tuple[int, int]]:
     """{kernel: (traced __global__ launches, expected)}."""
     out = {}
+    kernels = hand_kernels()
     for key, calls in launched.items():
-        for names, per in PROFILED_PER_CALL.get(key, ()):
+        for names, per in kernels.get(key, {}).get("profiled", ()):
             got = sum(1 for e in device if any(f in e.name() for f in names))
             out[f"{key} {'|'.join(names)}"] = (got, per * calls)
     return out

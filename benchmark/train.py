@@ -158,13 +158,15 @@ def worst_leaves(got: Dict, want: Dict, n: int = 4) -> Dict[str, list]:
     return out
 
 
-def reference_readings(config_file: str, state: Dict, seed: int, pool,
+def reference_readings(cls, config_file: str, state: Dict, seed: int, pool,
                        steps: int, device, control: bool = False) -> Dict:
-    """The reference's readings over the same steps (``control``: the
-    reference in fp8, its weights rounded before each step)."""
+    """The reference's readings (the detector file's reference class
+    ``cls``) over the same steps (``control``: the reference in fp8, its
+    weights rounded before each step)."""
     from benchmark.reference import build as ref_build, precision
     from benchmark.reference.parallel import train_state
-    ref = ref_build.build(config_file, state, device).requires_grad_(True).train()
+    ref = ref_build.build(cls, config_file, state, device).requires_grad_(
+        True).train()
     step, opt = build(ref, config_file, seed, device, train_state)
     if control:
         inner = step

@@ -4,16 +4,16 @@ The scheme is the port's random initialization (fan-in normal for convs
 and linears, He normal for the sparse and deformable convs, unit normal
 for embeddings and free parameters, identity norms, small offset and
 attention-weight projections, Deformable-DETR's grid bias of the sampling
-offsets), decided here from the plain reference's modules, so that one
-state dict, keyed as both models key theirs, loads into the port and into
-the reference.  All normal draws come from one ``torch.randn`` on the
+offsets), decided here from the plain reference's modules, with the rules
+the detector file adds (``init_rules``), so that one state dict, keyed as
+both models key theirs, loads into the port and into the reference.  All normal draws come from one ``torch.randn`` on the
 device, cut into each tensor and scaled; the values are then cast to the
 type the model is served in.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,14 +27,15 @@ from benchmark.reference.models.middle_encoder import SparseConv3d
 
 SMALL = {"conv_offset": 0.1, "sampling_offsets": 0.01,
          "attention_weights": 0.01}
-FREE_STD = {"modal_embbeding_C": 0.02, "modal_embbeding_L": 0.02}
 NORM_VALUES = {"weight": 1.0, "bias": 0.0, "running_mean": 0.0,
                "running_var": 1.0, "num_batches_tracked": 0}
 
 
-def _rules(model: nn.Module) -> Dict[str, Tuple[str, object]]:
+def _rules(model: nn.Module, extra: Optional[Callable] = None
+           ) -> Dict[str, Tuple[str, object]]:
     """{state-dict key: ("normal", std) | ("const", value) | ("tensor", t)}
-    for every entry of ``model``'s state dict."""
+    for every entry of ``model``'s state dict; ``extra(model)`` (a detector
+    file's ``init_rules``) adds rules or puts its own in their place."""
     rules: Dict[str, Tuple[str, object]] = {}
     for name, m in model.named_modules():
         prefix = f"{name}." if name else ""
@@ -69,22 +70,25 @@ def _rules(model: nn.Module) -> Dict[str, Tuple[str, object]]:
             rules[prefix + "in_proj_bias"] = ("const", 0.0)
         else:
             for k in own:
-                rules[prefix + k] = ("normal", FREE_STD.get(k, 1.0))
+                rules[prefix + k] = ("normal", 1.0)
         if isinstance(m, _SamplingHeads):
             rules[prefix + "sampling_offsets.bias"] = ("tensor", grid_offset_bias(
                 m.num_heads, m.num_levels, m.num_points))
+    if extra is not None:
+        rules.update(extra(model))
     return rules
 
 
 @torch.no_grad()
-def make_state(model: nn.Module, seed: int, device, dtype: torch.dtype
-               ) -> Dict[str, torch.Tensor]:
+def make_state(model: nn.Module, seed: int, device, dtype: torch.dtype,
+               extra: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """The state dict of ``model`` (the reference, on any device, meta
-    included) drawn from ``seed`` on ``device``: floating entries in
-    ``dtype``, integer ones as they are."""
+    included) drawn from ``seed`` on ``device``, with the detector file's
+    rules ``extra``: floating entries in ``dtype``, integer ones as they
+    are."""
     shapes = {k: (tuple(v.shape), v.dtype)
               for k, v in model.state_dict().items()}
-    rules = _rules(model)
+    rules = _rules(model, extra)
     missing = sorted(set(shapes) - set(rules))
     if missing:
         raise KeyError(f"no initialization rule for {missing[:5]}")

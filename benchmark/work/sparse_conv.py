@@ -2,7 +2,19 @@
 Cin), rulebook (Vout, K) int32, weight (K * Cin, Cout), mask (Vout,), out
 (Vout, Cout), a product of 2 * Cin * Cout per live tap; and the rulebook
 builders (submanifold and strided), which read each output row's
-coordinates and mask and write its (Vout, K) int32 rows."""
+coordinates and mask and write its (Vout, K) int32 rows.  A gather conv's
+record keeps its rulebook through the trace (``keep``); its live taps are
+counted after it (``settle``)."""
+
+
+def keep(rec, args):
+    if rec["fn"] == "sparse_conv":
+        rec["nidx"], rec["rows"] = args[1], args[0].shape[0]
+
+
+def settle(rec):
+    if "nidx" in rec:
+        rec["live"] = int((rec.pop("nidx") < rec["rows"]).sum())
 
 
 def work(call):
