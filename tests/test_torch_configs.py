@@ -171,3 +171,78 @@ def test_iou_terms_above_zero_raise(where, weight):
     cfg["pts_bbox_head"] = head
     with pytest.raises(ValueError, match="iou"):
         build_model(cfg, "meta")
+
+
+BEVFORMER = os.path.join(REPO, "configs/bevformer/bevformer_base.py")
+
+
+def test_bevformer_base_builds_with_its_published_values():
+    """configs/bevformer/bevformer_base.py dispatches on its model.type to
+    the port's BEVFormer, at the published widths: ResNet-101 caffe with
+    DCNv2 in stages 3-4 and out_indices (1, 2, 3), a 4-level FPN, 6 encoder
+    layers of temporal self-attention (8 heads, 1 level, 4 points, a queue
+    of 2) and 4-level camera SCA (8 points), 6 decoder layers, 900 queries,
+    a 200 x 200 BEV at 256, +-51.2 m."""
+    from unibev_tpu_torch.models.detectors.bevformer import BEVFormer
+    from unibev_tpu_torch.models.attention.temporal import \
+        TemporalSelfAttention
+    model = build_model_from_config(BEVFORMER, "meta")
+    assert type(model) is BEVFormer and model.video_test_mode
+    assert model.compute_dtype == torch.bfloat16
+    assert model.img_shape == (928, 1600)
+    bb, neck = model.img_backbone, model.img_neck
+    assert [len(getattr(bb, f"layer{i}")) for i in range(1, 5)] == [3, 4, 23, 3]
+    assert bb.out_indices == (1, 2, 3)
+    assert neck.in_channels == (512, 1024, 2048) and neck.num_outs == 4
+    head = model.pts_bbox_head
+    assert head.pc_range == (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+    assert (head.bev_h, head.bev_w) == (200, 200)
+    assert head.query_embedding.weight.shape == (900, 512)
+    assert head.coder.post_center_range == (-61.2, -61.2, -10.0, 61.2, 61.2,
+                                            10.0)
+    assert head.coder.max_num == 300
+    tr = head.transformer
+    assert tr.level_embeds.shape == (4, 256) and tr.cams_embeds.shape == (6, 256)
+    assert tr.align.rotate_center == (100, 100)
+    assert tr.can_bus_mlp[0].in_features == 18
+    enc = tr.encoder
+    assert len(enc.layers) == 6 and enc.num_points_in_pillar == 4
+    assert enc.pc_range == head.pc_range and enc.rebatch_k == 10240
+    tsa = enc.layers[0].attentions[0]
+    assert isinstance(tsa, TemporalSelfAttention)
+    assert (tsa.num_heads, tsa.num_levels, tsa.num_points,
+            tsa.num_bev_queue) == (8, 1, 4, 2)
+    assert tsa.sampling_offsets.weight.shape == (2 * 8 * 1 * 4 * 2, 512)
+    sca = enc.layers[0].attentions[1].deformable_attention
+    assert (sca.num_levels, sca.num_points) == (4, 8)
+    assert enc.layers[0].ffns[0].layers[0][0].out_features == 512
+    assert len(tr.decoder.layers) == 6
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    assert sum(p.numel() for p in model.parameters()) == 68929593
+
+
+@pytest.mark.parametrize("key", [
+    "video_test_mode", "rotate_prev_bev", "use_shift", "use_can_bus",
+    "can_bus_norm", "use_cams_embeds"])
+def test_bevformer_settings_off_the_published_one_raise(key):
+    """The port builds BEVFormer in its published setting alone: each of
+    these switched off raises instead of building an untested path."""
+    cfg = model_cfg_from_config(BEVFORMER)
+    if key == "video_test_mode":
+        cfg[key] = False
+    else:
+        head = dict(cfg["pts_bbox_head"])
+        head["transformer"] = dict(head["transformer"], **{key: False})
+        cfg["pts_bbox_head"] = head
+    with pytest.raises(ValueError, match="published"):
+        build_model(cfg, "meta", kind="BEVFormer")
+
+
+def test_an_unregistered_model_type_raises(tmp_path):
+    path = os.path.join(str(tmp_path), "other.py")
+    with open(path, "w") as f:
+        f.write("model = dict(type='CenterPoint')\n")
+    with pytest.raises(ValueError, match="CenterPoint"):
+        build_model_from_config(path, "meta")
+    with pytest.raises(ValueError, match="CenterPoint"):
+        model_cfg_from_config(path)

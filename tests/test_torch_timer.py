@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from unibev_tpu_torch.flagship import build_model, tiny_batch, tiny_model_cfg
+from unibev_tpu_torch.flagship import (build_model, tiny_batch,
+                                       tiny_bevformer_cfg, tiny_model_cfg)
 from unibev_tpu_torch.utils import timer
 from unibev_tpu_torch.utils.timer import (NO_LAYER, idle_by_layer,
                                           profile_trace, recording, span,
@@ -139,6 +140,52 @@ def test_predict_is_bit_identical_with_recording_on_and_off():
     for s, _ in rows:
         if s.name.startswith(timer.KERNEL):
             assert rec.spans()[s.parent].name == "lidar_branch"
+
+
+def _bevformer_frames():
+    """Two frames of one scene for the tiny BEVFormer: the tiny batch's
+    images, 4 m forward and a 3 degree turn between them, 800 m out."""
+    batch = tiny_batch(np.random.RandomState(0))
+    bus = torch.zeros(2, 1, 18, dtype=torch.float64)
+    bus[:, 0, 0] = torch.tensor([800.0, 804.0], dtype=torch.float64)
+    bus[:, 0, 16] = torch.tensor([0.5, 0.5 + np.radians(3.0)],
+                                 dtype=torch.float64)
+    bus[:, 0, 17] = torch.rad2deg(bus[:, 0, 16])
+    return [dict(img=batch["img"], lidar2img=batch["lidar2img"],
+                 can_bus=bus[k], scene_id=torch.tensor([7]))
+            for k in range(2)]
+
+
+def test_bevformer_predict_records_its_spans_and_is_bit_identical():
+    """The tiny BEVFormer's second frame (with history: the alignment
+    rotates and shifts) records ``bev_align`` once and
+    ``temporal_attention`` once a layer, inside ``bev_encoders`` and
+    ``head``; recording changes no bit."""
+    model = build_model(tiny_bevformer_cfg(), "cpu", seed=0,
+                        kind="BEVFormer")
+    frames = _bevformer_frames()
+    off = [model.predict(b) for b in frames]
+    model.history.reset()
+    with recording() as rec:
+        on = [model.predict(b) for b in frames]
+    for a, b in zip(off, on):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert on[1]["history"].tolist() == [True]
+    calls = rec.by_call()
+    assert list(calls) == [1, 2]
+    spans = rec.spans()
+    for call in (1, 2):
+        rows = calls[call]
+        names = [s.name for s, _ in rows]
+        assert names.count("bev_align") == 1
+        assert names.count("temporal_attention") == 2
+        for s, _ in rows:
+            if s.name == "bev_align":
+                assert spans[s.parent].name == "head"
+            if s.name == "temporal_attention":
+                assert spans[s.parent].name == "bev_encoders"
 
 
 def test_spanned_calls_through_and_records_while_on():

@@ -25,7 +25,9 @@ compute under autocast; ``use_lidar=False`` trains the camera-only model)::
 
 Any config file of ``configs/`` builds the model it describes, as the JAX
 CLIs build it (its ``input_modality`` merged into the detector, its
-``dtype`` string a torch dtype, float32 where it names none)::
+``dtype`` string a torch dtype, float32 where it names none), of the
+detector its ``model.type`` names (UniBEV, or BEVFormer for
+``configs/bevformer/``)::
 
     model = build_model_from_config(
         "configs/unibev/unibev_nus_LC_cat_128_modality_dropout.py")
@@ -43,8 +45,11 @@ import numpy as np
 import torch
 
 from unibev_tpu_torch.config.config import Config
+# registers BEVFormer beside UniBEV
+from unibev_tpu_torch.models.detectors import bevformer  # noqa: F401
 from unibev_tpu_torch.models.detectors.unibev import UniBEV
 from unibev_tpu_torch.models.init import init_weights
+from unibev_tpu_torch.registry import DETECTORS
 
 PC_RANGE = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
 VOXEL_SIZE = (0.075, 0.075, 0.2)
@@ -173,9 +178,10 @@ def flagship_model_cfg(use_lidar=True, use_camera=True, dtype=torch.bfloat16,
 
 
 def build_model(cfg: dict, device="cuda", seed: int = 0,
-                train: bool = False) -> UniBEV:
-    """UniBEV(**cfg) with seeded random weights on ``device``; the backbone
-    runs channels_last.
+                train: bool = False, kind: str = "UniBEV") -> UniBEV:
+    """The detector ``kind`` (a registered ``model.type``: UniBEV,
+    BEVFormer) of ``cfg`` with seeded random weights on ``device``; the
+    backbone runs channels_last.
 
     Inference (``train=False``): parameters in cfg's dtype, eval mode,
     gradients off.  Training: parameters stay float32 (compute in cfg's dtype
@@ -184,7 +190,7 @@ def build_model(cfg: dict, device="cuda", seed: int = 0,
     shapes and dtypes and no values.
     """
     with torch.device("meta"):
-        model = UniBEV(**cfg)
+        model = DETECTORS.get(kind)(**cfg)
     if torch.device(device).type != "meta":
         model = model.to_empty(device=device)
         init_weights(model, torch.Generator(device=device).manual_seed(seed))
@@ -211,19 +217,34 @@ def _frozen(obj):
     return obj
 
 
+def _config(path_or_cfg):
+    """A config file's ``Config`` (a path is read; a loaded one passes)."""
+    return (Config.fromfile(os.fspath(path_or_cfg))
+            if isinstance(path_or_cfg, (str, os.PathLike)) else path_or_cfg)
+
+
+def detector_type(path_or_cfg) -> str:
+    """The config file's ``model.type`` (UniBEV where it names none); a
+    type the port has not registered raises."""
+    kind = dict(_config(path_or_cfg)["model"]).get("type", "UniBEV")
+    if DETECTORS.get(kind) is None:
+        raise ValueError(f"the port builds {sorted(DETECTORS._module_dict)} "
+                         f"detectors, not {kind!r}")
+    return kind
+
+
 def model_cfg_from_config(path_or_cfg) -> dict:
     """The detector's arguments from a config file (a path, a loaded
     ``Config`` or its dict), as the JAX CLIs and ``tests/test_configs.py``
-    take them: ``model`` without its ``type``, ``use_lidar`` / ``use_camera``
-    from ``input_modality`` where ``model`` does not set them, and the
-    ``dtype`` string as a torch dtype (float32 where the file gives none,
-    as the JAX package defaults)."""
-    cfg = (Config.fromfile(os.fspath(path_or_cfg))
-           if isinstance(path_or_cfg, (str, os.PathLike)) else path_or_cfg)
+    take them: ``model`` without its ``type`` (which
+    :func:`detector_type` reads), ``use_lidar`` / ``use_camera`` from
+    ``input_modality`` where ``model`` does not set them, and the ``dtype``
+    string as a torch dtype (float32 where the file gives none, as the JAX
+    package defaults)."""
+    cfg = _config(path_or_cfg)
+    detector_type(cfg)
     model = _frozen(dict(cfg["model"]))
-    kind = model.pop("type", "UniBEV")
-    if kind != "UniBEV":
-        raise ValueError(f"the port builds UniBEV detectors, not {kind!r}")
+    model.pop("type", None)
     modality = cfg.get("input_modality") or {}
     for key in ("use_lidar", "use_camera"):
         if key in modality:
@@ -236,9 +257,11 @@ def model_cfg_from_config(path_or_cfg) -> dict:
 def build_model_from_config(path_or_cfg, device="cuda", seed: int = 0,
                             train: bool = False) -> UniBEV:
     """The model a config file describes (:func:`model_cfg_from_config`),
-    with seeded random weights, through :func:`build_model`; the file alone
-    decides the model."""
-    return build_model(model_cfg_from_config(path_or_cfg), device, seed, train)
+    of the detector its ``model.type`` names, with seeded random weights,
+    through :func:`build_model`; the file alone decides the model."""
+    cfg = _config(path_or_cfg)
+    return build_model(model_cfg_from_config(cfg), device, seed, train,
+                       kind=detector_type(cfg))
 
 
 def build_flagship(device="cuda", dtype=torch.bfloat16, seed: int = 0,
@@ -397,6 +420,52 @@ def tiny_model_cfg(use_lidar=False, fusion="linear",
             pts_neck=dict(in_channels=(32, 64), out_channels=(16, 16),
                           upsample_strides=(1, 2)))
     return cfg
+
+
+def tiny_bevformer_cfg():
+    """The tests' tiny BEVFormer: the tiny UniBEV's backbone (depth 50, DCN
+    in stage 4) on 2 cameras at 64 x 96, two FPN levels (strides 16 and
+    32), a 20 x 20 BEV over the tiny range, 2 encoder layers of temporal
+    self-attention and 2-level camera SCA (every hit query kept), 2 decoder
+    layers, dims 32, float32."""
+    dim = 32
+    return dict(
+        use_grid_mask=True, video_test_mode=True, img_shape=(64, 96),
+        img_backbone=dict(depth=50, num_stages=4, out_indices=(2, 3),
+                          style="caffe",
+                          stage_with_dcn=(False, False, False, True),
+                          dcn=dict(type="DCNv2")),
+        img_neck=dict(in_channels=(1024, 2048), out_channels=dim, num_outs=2,
+                      start_level=0, add_extra_convs="on_output",
+                      relu_before_extra_convs=True),
+        pts_bbox_head=dict(
+            num_classes=10, in_channels=dim, num_query=24, bev_h=20,
+            bev_w=20,
+            transformer=dict(
+                embed_dims=dim, num_cams=2, num_feature_levels=2,
+                rotate_center=(10, 10),
+                encoder=dict(
+                    num_layers=2, pc_range=TINY_PC_RANGE,
+                    num_points_in_pillar=2,
+                    transformerlayers=dict(
+                        attn_cfgs=[
+                            dict(type="TemporalSelfAttention",
+                                 embed_dims=dim, num_levels=1),
+                            dict(deformable_attention=dict(
+                                embed_dims=dim, num_points=4, num_levels=2),
+                                rebatch_k=400)],
+                        feedforward_channels=dim * 2)),
+                decoder=dict(
+                    num_layers=2,
+                    transformerlayers=dict(
+                        attn_cfgs=[dict(embed_dims=dim, num_heads=4),
+                                   dict(embed_dims=dim, num_levels=1)],
+                        feedforward_channels=dim * 2))),
+            bbox_coder=dict(post_center_range=(-12, -12, -4, 12, 12, 4),
+                            pc_range=TINY_PC_RANGE, max_num=16,
+                            num_classes=10),
+            positional_encoding=dict(num_feats=dim // 2, row_num_embed=20,
+                                     col_num_embed=20)))
 
 
 def tiny_batch(rng: np.random.RandomState, B=1, N=2, P=1024, G=6, device="cpu",

@@ -54,6 +54,9 @@ def _clean(cfg: Optional[dict]) -> dict:
 @DETECTORS.register_module(name="UniBEV")
 class UniBEV(nn.Module):
 
+    # The forward's outputs that predict passes on beside the boxes.
+    PREDICT_KEYS = ("sca_overflow", "num_distinct_voxels", "sparse_overflow")
+
     def __init__(self, use_grid_mask: bool = True, use_lidar: bool = True,
                  use_camera: bool = True, use_radar: bool = False,
                  pts_voxel_layer: Optional[dict] = None,
@@ -117,9 +120,22 @@ class UniBEV(nn.Module):
                                   drop.get("lidar_prob", 0.5))
         else:
             self.drop_modality = (float(drop), 0.5) if drop else None
+        self.pts_bbox_head = self._build_head(
+            hcfg, train_cfg, use_img=use_camera,
+            use_pts=use_lidar or use_radar)
+
+    def _build_head(self, hcfg: dict, train_cfg: Optional[dict],
+                    use_img: bool, use_pts: bool) -> nn.Module:
+        """The detection head of the config's ``pts_bbox_head``."""
         # As in the JAX package, the head keeps its default pc_range: the
         # config's pts_bbox_head.pc_range is not passed on.
-        self.pts_bbox_head = UniBEVHead(
+        return UniBEVHead(**self._head_args(hcfg, train_cfg),
+                          dual_queries=hcfg.get("dual_queries", False),
+                          use_img=use_img, use_pts=use_pts)
+
+    @staticmethod
+    def _head_args(hcfg: dict, train_cfg: Optional[dict]) -> dict:
+        return dict(
             num_classes=hcfg.get("num_classes", 10),
             in_channels=hcfg.get("in_channels", 256),
             num_query=hcfg.get("num_query", 900),
@@ -130,9 +146,7 @@ class UniBEV(nn.Module):
             loss_cls=hcfg.get("loss_cls"),
             loss_bbox=hcfg.get("loss_bbox"),
             loss_iou=hcfg.get("loss_iou"),
-            train_cfg=(train_cfg or {}).get("pts"),
-            dual_queries=hcfg.get("dual_queries", False),
-            use_img=use_camera, use_pts=use_lidar or use_radar)
+            train_cfg=(train_cfg or {}).get("pts"))
 
     def _build_lidar(self, voxel_layer, middle_encoder):
         vcfg = dict(voxel_layer or {})
@@ -334,10 +348,11 @@ class UniBEV(nn.Module):
         sca_overflow, the most hit queries any camera had beyond the SCA
         top-K capacity (0 means the rebatch dropped nothing; 0 without
         cameras); with LiDAR also ``num_distinct_voxels`` and
-        ``sparse_overflow`` (see :meth:`extract_pts_feat`)."""
+        ``sparse_overflow`` (see :meth:`extract_pts_feat`); a subclass
+        passes on the forward's keys it names in ``PREDICT_KEYS``."""
         preds = self(batch)
         out = self.pts_bbox_head.get_bboxes(preds)
-        for k in ("sca_overflow", "num_distinct_voxels", "sparse_overflow"):
+        for k in self.PREDICT_KEYS:
             if k in preds:
                 out[k] = preds[k]
         return out

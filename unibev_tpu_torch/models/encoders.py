@@ -3,10 +3,12 @@
 Counterpart of ``unibev_tpu/models/encoders.py``.  Geometry as in the JAX
 package: pillar reference points with z anchors at
 ``linspace(0.5, Z - 0.5, P) / Z``, camera projection through ``lidar2img``
-normalized by the un-padded ``img_shape``, and the layer order
-TSA -> norm -> SCA -> norm -> FFN -> norm.  The LiDAR encoder's sampling is
-trivial: the normalized xy of each pillar anchor indexes the LiDAR BEV map
-directly.
+normalized by the detector's ``img_shape`` (UniBEV's un-padded one,
+BEVFormer's padded one), and the layer order
+TSA -> norm -> SCA -> norm -> FFN -> norm; the camera encoder's TSA is
+BEVFormer's temporal one where its config names it.  The LiDAR encoder's
+sampling is trivial: the normalized xy of each pillar anchor indexes the
+LiDAR BEV map directly.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 
 from unibev_tpu_torch.models.attention.deformable import (
     MSDAttention, SpatialCrossAttentionImg, SpatialCrossAttentionPts)
+from unibev_tpu_torch.models.attention.temporal import TemporalSelfAttention
 from unibev_tpu_torch.models.layers import FFN, layer_norm
 from unibev_tpu_torch.registry import TRANSFORMER_LAYER_SEQUENCES
 from unibev_tpu_torch.utils.timer import spanned
@@ -76,7 +79,10 @@ class BEVEncoderLayer(nn.Module):
 
     Submodules sit under the reference's names: ``attentions.0`` (TSA),
     ``attentions.1`` (SCA: the camera one, or the LiDAR one when
-    ``modality`` is "pts"), ``ffns.0``, ``norms.0-2``.
+    ``modality`` is "pts"), ``ffns.0``, ``norms.0-2``.  The TSA is UniBEV's
+    MSDA of the query over itself, or, where ``tsa_cfg`` names the type
+    ``TemporalSelfAttention``, BEVFormer's attention into the queue of the
+    previous and current BEV maps (``temporal`` in :meth:`forward`).
     """
 
     def __init__(self, embed_dims: int = 256, ffn_dims: int = 512,
@@ -88,17 +94,28 @@ class BEVEncoderLayer(nn.Module):
         sca_cls = {"img": SpatialCrossAttentionImg,
                    "pts": SpatialCrossAttentionPts}[modality]
         self.modality = modality
+        self.temporal = (dict(tsa_cfg or {}).get("type")
+                         == "TemporalSelfAttention")
+        tsa_cls = TemporalSelfAttention if self.temporal else MSDAttention
         self.attentions = nn.ModuleList([
-            MSDAttention(**tsa), sca_cls(embed_dims=embed_dims, **sca)])
+            tsa_cls(**tsa), sca_cls(embed_dims=embed_dims, **sca)])
         self.ffns = nn.ModuleList([FFN(embed_dims, ffn_dims)])
         self.norms = nn.ModuleList([layer_norm(embed_dims) for _ in range(3)])
 
     def forward(self, query, value, bev_pos, ref_2d, bev_hw, ref_cross,
-                hit_mask, value_shapes, topk_idx=None):
+                hit_mask, value_shapes, topk_idx=None, temporal=None):
+        """``temporal``, for the temporal TSA: (the aligned previous map,
+        the encoder's first queries (B, HW, C), history (B,) bool, the
+        queue's reference points (2B, HW, 1, 2))."""
         B = query.shape[0]
-        query = self.attentions[0](query, query,
-                                   ref_2d[None].expand(B, *ref_2d.shape),
-                                   (bev_hw,), query_pos=bev_pos)
+        if self.temporal:
+            prev_bev, cur_bev, history, hybrid_ref = temporal
+            query = self.attentions[0](query, bev_pos, prev_bev, cur_bev,
+                                       history, hybrid_ref, (bev_hw,))
+        else:
+            query = self.attentions[0](query, query,
+                                       ref_2d[None].expand(B, *ref_2d.shape),
+                                       (bev_hw,), query_pos=bev_pos)
         query = self.norms[0](query)
         if self.modality == "img":
             query = self.attentions[1](query, value, ref_cross, hit_mask,
@@ -129,8 +146,12 @@ class ImgEncoder(nn.Module):
 
     @spanned("bev_encoders")
     def forward(self, bev_query, value, bev_pos, bev_h, bev_w, lidar2img,
-                img_shape, value_shapes):
-        """bev_query (B, H*W, C); value (B, cams, V, C); lidar2img (B, N, 4, 4).
+                img_shape, value_shapes, prev_bev=None, shift=None,
+                history=None):
+        """bev_query (B, H*W, C); value (B, cams, V, C); lidar2img (B, N, 4, 4);
+        with the temporal TSA also prev_bev (B, H*W, C), the previous map
+        aligned with this frame, shift (B, 2) float32, the ego's translation
+        in normalized BEV units, and history (B,) bool.
 
         Returns (bev (B, H*W, C), sca_overflow): the overflow is the most hit
         queries any camera had beyond the top-K capacity, a 0-dim int tensor
@@ -156,10 +177,21 @@ class ImgEncoder(nn.Module):
             topk_idx = order[..., :K]
             overflow = (hit.sum(dim=-1) - K).clamp(min=0).max()
 
+        temporal = None
+        if prev_bev is not None:
+            # The published encoder shifts ref_2d in place (``shift_ref_2d
+            # = ref_2d; shift_ref_2d += shift``, kept, its comment says, to
+            # reproduce the paper's results), so both maps of the queue are
+            # sampled at the shifted points; every layer reads the same
+            # queue of the aligned previous map and the first queries.
+            B = bev_query.shape[0]
+            ref = ref_2d[None] + shift[:, None, None, :]       # (B, HW, 1, 2)
+            hybrid = torch.stack([ref, ref], 1).reshape(2 * B, *ref.shape[1:])
+            temporal = (prev_bev, bev_query, history, hybrid)
         for layer in self.layers:
             bev_query = layer(bev_query, value, bev_pos, ref_2d,
                               (bev_h, bev_w), ref_cam, hit, value_shapes,
-                              topk_idx=topk_idx)
+                              topk_idx=topk_idx, temporal=temporal)
         return bev_query, overflow
 
 

@@ -87,11 +87,11 @@ class UniBEVHead(nn.Module):
         tcfg = {k: v for k, v in dict(transformer or {}).items() if k != "type"}
         self.bev_h, self.bev_w = bev_h, bev_w
         self.pc_range = tuple(pc_range)
-        self.transformer = UniBEVTransformer(
-            **{**tcfg, "embed_dims": tcfg.get("embed_dims", in_channels),
-               "dual_queries": tcfg.get("dual_queries", dual_queries),
-               "bev_h": bev_h, "bev_w": bev_w, "use_img": use_img,
-               "use_pts": use_pts})
+        self.transformer = self._build_transformer(
+            {**tcfg, "embed_dims": tcfg.get("embed_dims", in_channels),
+             "bev_h": bev_h, "bev_w": bev_w},
+            dual_queries=tcfg.get("dual_queries", dual_queries),
+            use_img=use_img, use_pts=use_pts)
         # the JAX head's width rule, from in_channels
         dec_dims = in_channels * (2 if tcfg.get("fusion_method") == "cat" else 1)
         pe = {k: v for k, v in dict(positional_encoding or {}).items() if k != "type"}
@@ -144,7 +144,20 @@ class UniBEVHead(nn.Module):
             img_feats, pts_feats, bev_queries,
             self.query_embedding.weight, bev_pos, lidar2img, img_shape,
             l_flag, c_flag, reg_branches=self.reg_branches)
+        return self.decode_layers(states, refs, bev_embed, sca_overflow)
 
+    def _build_transformer(self, tcfg: dict, dual_queries: bool,
+                           use_img: bool, use_pts: bool) -> nn.Module:
+        """The BEV transformer of the head's ``transformer`` config (its
+        width and BEV grid filled in)."""
+        return UniBEVTransformer(**{**tcfg, "dual_queries": dual_queries,
+                                    "use_img": use_img, "use_pts": use_pts})
+
+    def decode_layers(self, states, refs, bev_embed, sca_overflow
+                      ) -> Dict[str, torch.Tensor]:
+        """Every decoder layer's class scores and boxes from its states
+        (L, B, Q, C) and reference points (L, B, Q, 3): the head's
+        outputs, with the BEV map and the SCA overflow passed through."""
         pr = self.pc_range
         cls_all, bbox_all = [], []
         for lvl in range(states.shape[0]):

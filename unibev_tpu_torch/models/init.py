@@ -18,6 +18,7 @@ from torch import nn
 
 from unibev_tpu_torch.models.attention.deformable import (_SamplingHeads,
                                                           grid_offset_bias)
+from unibev_tpu_torch.models.attention.temporal import TemporalSelfAttention
 from unibev_tpu_torch.models.backbones.resnet import (DeformConv2d,
                                                       FrozenBatchNorm)
 from unibev_tpu_torch.models.layers import _InProjAttention
@@ -73,8 +74,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             # weights, the fixed modal embeddings
             for pname, p in m.named_parameters(recurse=False):
                 normal_(p, _FREE_STD.get(pname, 1.0))
-    # after the pass above, which zeroed every Linear bias
+    # after the pass above, which zeroed every Linear bias; the temporal
+    # attention's grid spans its queue's levels (heads x (levels x queue) x
+    # points x 2), as the published TemporalSelfAttention.init_weights
     for m in model.modules():
         if isinstance(m, _SamplingHeads):
             m.sampling_offsets.bias.copy_(grid_offset_bias(
                 m.num_heads, m.num_levels, m.num_points))
+        elif isinstance(m, TemporalSelfAttention):
+            m.sampling_offsets.bias.copy_(grid_offset_bias(
+                m.num_heads, m.num_levels * m.num_bev_queue, m.num_points))

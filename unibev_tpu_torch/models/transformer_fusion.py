@@ -84,6 +84,55 @@ def _sca_levels(encoder_cfg: Optional[dict]) -> int:
     return int((sca.get("deformable_attention") or {}).get("num_levels", 1))
 
 
+def build_encoder(cls, cfg: dict, embed_dims: int) -> nn.Module:
+    """The BEV encoder ``cls`` (``ImgEncoder`` or ``PtsEncoder``) of an
+    encoder config: its layers' attention configs, FFN width and pillars."""
+    layers = cfg.get("transformerlayers", {}) or {}
+    attn_cfgs = layers.get("attn_cfgs", [{}, {}])
+    pillar = ({"num_points_in_pillar": cfg.get("num_points_in_pillar", 4)}
+              if cls is ImgEncoder else
+              {"num_points_in_pillar_lidar":
+               cfg.get("num_points_in_pillar_lidar", 4)})
+    return cls(
+        num_layers=cfg.get("num_layers", 3),
+        pc_range=tuple(cfg.get("pc_range", (-54, -54, -5, 54, 54, 3))),
+        **pillar, embed_dims=embed_dims,
+        ffn_dims=layers.get("feedforward_channels", embed_dims * 2),
+        tsa_cfg=dict(attn_cfgs[0]) if attn_cfgs else None,
+        sca_cfg={k: v for k, v in dict(attn_cfgs[1]).items()
+                 if k not in ("type", "embed_dims")}
+        if len(attn_cfgs) > 1 else None)
+
+
+def build_decoder(cfg: dict, dec_dims: int) -> DetectionTransformerDecoder:
+    """The object decoder of a decoder config, ``dec_dims`` wide."""
+    layers = cfg.get("transformerlayers", {}) or {}
+    attn_cfgs = layers.get("attn_cfgs", [{}, {}])
+    mha = dict(attn_cfgs[0]) if attn_cfgs else {}
+    ca = dict(attn_cfgs[1]) if len(attn_cfgs) > 1 else {}
+    return DetectionTransformerDecoder(
+        num_layers=cfg.get("num_layers", 6),
+        embed_dims=dec_dims,
+        num_heads=mha.get("num_heads", 8),
+        ffn_dims=layers.get("feedforward_channels", dec_dims * 2),
+        cross_attn_cfg={k: v for k, v in ca.items() if k != "type"})
+
+
+def camera_value(img_feats, cams_embeds: torch.Tensor,
+                 level_embeds: torch.Tensor):
+    """The camera SCA's value: each level of ``img_feats`` (lists of (B, N,
+    H, W, C)) flattened, plus its camera's and its level's embedding, the
+    levels concatenated -> ((B, N, sum HW, C), ((H, W) per level))."""
+    B, C = img_feats[0].shape[0], img_feats[0].shape[-1]
+    flat, shapes = [], []
+    for lvl, feat in enumerate(img_feats):
+        _, N, H, W, _ = feat.shape
+        f = feat.reshape(B, N, H * W, C) + cams_embeds[None, :, None, :]
+        flat.append(f + level_embeds[lvl])
+        shapes.append((H, W))
+    return torch.cat(flat, dim=2), tuple(shapes)
+
+
 @TRANSFORMERS.register_module(name="UniBEVTransformer")
 class UniBEVTransformer(nn.Module):
 
@@ -140,44 +189,15 @@ class UniBEVTransformer(nn.Module):
             self.cams_embeds = nn.Parameter(torch.empty(num_cams, C))
             self.img_level_embeds = nn.Parameter(
                 torch.empty(_sca_levels(img_encoder), C))
-            self.img_bev_encoder = self._build_encoder(ImgEncoder,
-                                                       img_encoder or {})
+            self.img_bev_encoder = build_encoder(ImgEncoder,
+                                                 img_encoder or {}, C)
         if use_pts:
             self.pts_level_embeds = nn.Parameter(
                 torch.empty(_sca_levels(pts_encoder), C))
-            self.pts_bev_encoder = self._build_encoder(PtsEncoder,
-                                                       pts_encoder or {})
+            self.pts_bev_encoder = build_encoder(PtsEncoder,
+                                                 pts_encoder or {}, C)
         self.reference_points = nn.Linear(self.dec_dims, 3)
-        self.decoder = self._build_decoder(decoder or {})
-
-    def _build_encoder(self, cls, cfg):
-        layers = cfg.get("transformerlayers", {}) or {}
-        attn_cfgs = layers.get("attn_cfgs", [{}, {}])
-        pillar = ({"num_points_in_pillar": cfg.get("num_points_in_pillar", 4)}
-                  if cls is ImgEncoder else
-                  {"num_points_in_pillar_lidar":
-                   cfg.get("num_points_in_pillar_lidar", 4)})
-        return cls(
-            num_layers=cfg.get("num_layers", 3),
-            pc_range=tuple(cfg.get("pc_range", (-54, -54, -5, 54, 54, 3))),
-            **pillar, embed_dims=self.embed_dims,
-            ffn_dims=layers.get("feedforward_channels", self.embed_dims * 2),
-            tsa_cfg=dict(attn_cfgs[0]) if attn_cfgs else None,
-            sca_cfg={k: v for k, v in dict(attn_cfgs[1]).items()
-                     if k not in ("type", "embed_dims")}
-            if len(attn_cfgs) > 1 else None)
-
-    def _build_decoder(self, cfg):
-        layers = cfg.get("transformerlayers", {}) or {}
-        attn_cfgs = layers.get("attn_cfgs", [{}, {}])
-        mha = dict(attn_cfgs[0]) if attn_cfgs else {}
-        ca = dict(attn_cfgs[1]) if len(attn_cfgs) > 1 else {}
-        return DetectionTransformerDecoder(
-            num_layers=cfg.get("num_layers", 6),
-            embed_dims=self.dec_dims,
-            num_heads=mha.get("num_heads", 8),
-            ffn_dims=layers.get("feedforward_channels", self.dec_dims * 2),
-            cross_attn_cfg={k: v for k, v in ca.items() if k != "type"})
+        self.decoder = build_decoder(decoder or {}, self.dec_dims)
 
     def channel_feature_norm(self, img_bev, pts_bev, l_flag, c_flag):
         """CNW, MLP-CNW or ModalityProjection on (B, HW, C) BEV features;
@@ -273,13 +293,8 @@ class UniBEVTransformer(nn.Module):
         img_bev = pts_bev = None
         sca_overflow = torch.zeros((), dtype=torch.int64, device=device)
         if img_feats is not None:
-            flat, shapes = [], []
-            for lvl, feat in enumerate(img_feats):
-                _, N, H, W, _ = feat.shape
-                f = feat.reshape(B, N, H * W, C) + self.cams_embeds[None, :, None, :]
-                flat.append(f + self.img_level_embeds[lvl])
-                shapes.append((H, W))
-            value = torch.cat(flat, dim=2)                     # (B, N, sumHW, C)
+            value, shapes = camera_value(img_feats, self.cams_embeds,
+                                         self.img_level_embeds)
             img_bev, sca_overflow = self.img_bev_encoder(
                 img_q[None].expand(B, HW, C), value, bev_pos, self.bev_h,
                 self.bev_w, lidar2img, img_shape, tuple(shapes))
